@@ -1,0 +1,165 @@
+"""Fused qkv-direct attention for Hopper.
+
+Counterpart of the JAX package's ops/flash_fused.py, whose three Pallas bodies
+(full-row, blocked-K, blocked-K with the head in the grid) compute one function;
+here one kernel, ``csrc/fused_qkv_attention.cu``, covers every sequence length.
+
+- consumes the qkv projection output directly as (G, N, 3, H, D): no split, no
+  head transpose, no separate RMSNorm pass;
+- per-head RMSNorm of q and k with the cast points of the model's RMSNorm: fp32
+  normalise, round to the compute dtype, multiply by the fp32 weight, round back;
+- fp32 logits and softmax; the value product takes the probabilities rounded to
+  the compute dtype and accumulates in fp32;
+- ``kv_perm`` (G,) or (J, G): k/v are read from group ``kv_perm[j][g]`` (the
+  cross-view neighbour gather); each source has its own softmax and the outputs
+  are summed over j in fp32.
+
+On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor it
+runs the plain version. Inference only (no backward yet).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from . import _cuda_build
+
+_EPS = 1e-6
+_fn = None
+
+
+def _rms(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    dtype = x.dtype
+    x32 = x.float()
+    x32 = x32 * torch.rsqrt(x32.square().mean(dim=-1, keepdim=True) + _EPS)
+    return (w.float() * x32.to(dtype).float()).to(dtype)
+
+
+def _perm_array(kv_perm, G: int) -> Optional[np.ndarray]:
+    if kv_perm is None:
+        return None
+    if isinstance(kv_perm, torch.Tensor):
+        kv_perm = kv_perm.detach().cpu().numpy()
+    perm = np.asarray(kv_perm, np.int32)
+    if perm.ndim == 1:
+        perm = perm[None]
+    if perm.ndim != 2 or perm.shape[1] != G:
+        raise ValueError(f"kv_perm must be ({G},) or (J, {G}), got {perm.shape}")
+    if perm.min() < 0 or perm.max() >= G:
+        raise ValueError("kv_perm holds a group index out of range")
+    return perm
+
+
+def fused_qkv_attention_plain(qkv: torch.Tensor,
+                              q_norm_weight: Optional[torch.Tensor],
+                              k_norm_weight: Optional[torch.Tensor],
+                              kv_perm=None, scale: Optional[float] = None,
+                              group_chunk: Optional[int] = None) -> torch.Tensor:
+    """The same function in plain PyTorch, with the kernel's cast points.
+    ``group_chunk`` bounds the fp32 logits held at once (groups per pass)."""
+    G, N, _, H, D = qkv.shape
+    if scale is None:
+        scale = D ** -0.5
+    perm = _perm_array(kv_perm, G)
+    if perm is None:
+        perm = np.arange(G, dtype=np.int32)[None]
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    if q_norm_weight is not None:
+        q = _rms(q, q_norm_weight)
+        k = _rms(k, k_norm_weight)
+    out = torch.zeros((G, N, H, D), dtype=torch.float32, device=qkv.device)
+    step = group_chunk or G
+    for g0 in range(0, G, step):
+        g1 = min(g0 + step, G)
+        q32 = q[g0:g1].float()
+        for j in range(perm.shape[0]):
+            idx = torch.as_tensor(perm[j, g0:g1].astype(np.int64), device=qkv.device)
+            k_j, v_j = k[idx], v[idx]
+            logits = torch.einsum("gnhd,gmhd->ghnm", q32, k_j.float()) * scale
+            p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+            denom = p.sum(dim=-1)  # (g, H, N)
+            o = torch.einsum("ghnm,gmhd->gnhd", p.to(qkv.dtype).float(), v_j.float())
+            out[g0:g1] += o / denom.permute(0, 2, 1)[..., None]
+    return out.to(qkv.dtype)
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        fn = _cuda_build.load("fused_qkv_attention").mdv2_fused_qkv_attention
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                       + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def _perm_tensor(kv_perm, G: int, device) -> Optional[torch.Tensor]:
+    """int32 (J, G) device tensor. A caller on a hot path passes one ready-made
+    (the cross-view module keeps its own); anything else is checked and copied."""
+    if kv_perm is None:
+        return None
+    if isinstance(kv_perm, torch.Tensor) and kv_perm.device == device \
+            and kv_perm.dtype == torch.int32 and kv_perm.ndim == 2 \
+            and kv_perm.shape[1] == G and kv_perm.is_contiguous():
+        return kv_perm
+    return torch.from_numpy(_perm_array(kv_perm, G)).to(device)
+
+
+def _norm_weight(w: torch.Tensor, D: int, device) -> torch.Tensor:
+    """The (D,) fp32 weight as the kernel reads it (no copy when it already is)."""
+    if w.shape != (D,):
+        raise ValueError(f"norm weight must be ({D},), got {tuple(w.shape)}")
+    return w.detach().to(device=device, dtype=torch.float32).contiguous()
+
+
+def fused_qkv_attention(qkv: torch.Tensor,
+                        q_norm_weight: Optional[torch.Tensor],
+                        k_norm_weight: Optional[torch.Tensor],
+                        kv_perm: Union[None, Sequence, np.ndarray, torch.Tensor] = None,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """qkv: (G, N, 3, H, D) -> (G, N, H, D). q/k_norm_weight: both (D,) or both
+    None. kv_perm: None, (G,) or (J, G) group indices. On the card the head dim
+    is at most 144 and, in bf16, a multiple of 8."""
+    if qkv.ndim != 5 or qkv.shape[2] != 3:
+        raise ValueError(f"expected qkv of shape (G, N, 3, H, D), got {tuple(qkv.shape)}")
+    if (q_norm_weight is None) != (k_norm_weight is None):
+        raise ValueError("give both norm weights or neither")
+    G, N, _, H, D = qkv.shape
+    if scale is None:
+        scale = D ** -0.5
+    if qkv.device.type == "cpu":
+        return fused_qkv_attention_plain(qkv, q_norm_weight, k_norm_weight,
+                                         kv_perm, scale)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"fused_qkv_attention runs on cuda or cpu tensors, got {qkv.device}")
+    code = _cuda_build.dtype_code(qkv.dtype)
+    if D > _cuda_build.MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {D} > {_cuda_build.MAX_HEAD_DIM} is not supported "
+                         "by the kernel")
+    if qkv.dtype == torch.bfloat16 and D % 8:
+        raise ValueError(f"the bf16 kernel takes head dims in multiples of 8, got {D}")
+    qkv = qkv.contiguous()
+    perm = _perm_tensor(kv_perm, G, qkv.device)
+    J = 1 if perm is None else perm.shape[0]
+    qw = kw = None
+    if q_norm_weight is not None:
+        qw = _norm_weight(q_norm_weight, D, qkv.device)
+        kw = _norm_weight(k_norm_weight, D, qkv.device)
+    out = torch.empty((G, N, H * D), dtype=qkv.dtype, device=qkv.device)
+    stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    with torch.cuda.device(qkv.device):
+        err = _kernel()(qkv.data_ptr(), out.data_ptr(),
+                        None if perm is None else perm.data_ptr(),
+                        None if qw is None else qw.data_ptr(),
+                        None if kw is None else kw.data_ptr(),
+                        G, N, H, D, J, float(scale), _EPS, code, stream)
+    _cuda_build.check(err, "fused_qkv_attention")
+    fused_qkv_attention.launches += 1
+    return out.view(G, N, H, D)
+
+
+fused_qkv_attention.launches = 0

@@ -1,0 +1,139 @@
+"""Rectified-flow sampling (counterpart of the JAX package's schedulers/rf.py;
+the training losses and the BrushNet / repaint variants are not ported yet).
+
+The scheduler is purely numerical: it receives a ``predict_fn(z, t, x_mask) -> v``
+that already folds in conditioning and classifier-free guidance.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional, Tuple
+
+import torch
+
+from ..utils.misc import resolve_device
+
+
+def _as_f32(v, device) -> torch.Tensor:
+    return torch.as_tensor(v, dtype=torch.float32, device=device)
+
+
+def timestep_transform(t: torch.Tensor, *, height, width, num_frames,
+                       base_resolution: float = 512 * 512,
+                       base_num_frames: float = 1.0, scale: float = 1.0,
+                       num_timesteps: float = 1.0, cog_style: bool = False) -> torch.Tensor:
+    """Resolution/duration-dependent timestep shift."""
+    height, width = _as_f32(height, t.device), _as_f32(width, t.device)
+    num_frames = _as_f32(num_frames, t.device)
+    t = t / num_timesteps
+    ratio_space = torch.sqrt(height * width / base_resolution)
+    if cog_style:
+        frames = torch.floor(num_frames / 4) + torch.remainder(num_frames, 2)
+    else:
+        frames = torch.floor(num_frames / 17) * 5
+    frames = torch.where(num_frames == 1, torch.ones_like(num_frames), frames)
+    ratio_time = torch.sqrt(frames / base_num_frames)
+    ratio = ratio_space * ratio_time * scale
+    new_t = ratio * t / (1 + (ratio - 1) * t)
+    return new_t * num_timesteps
+
+
+def add_noise(x: torch.Tensor, noise: torch.Tensor, t: torch.Tensor,
+              num_timesteps: float = 1000.0) -> torch.Tensor:
+    """x_t = (1 - t/T) x + (t/T) eps."""
+    timepoints = 1.0 - t.float() / num_timesteps
+    timepoints = timepoints.reshape((-1,) + (1,) * (x.ndim - 1))
+    return timepoints * x + (1 - timepoints) * noise
+
+
+@dataclasses.dataclass
+class RFLOW:
+    """Euler rectified-flow sampler."""
+
+    num_sampling_steps: int = 10
+    num_timesteps: int = 1000
+    cfg_scale: float = 4.0
+    use_discrete_timesteps: bool = False
+    use_timestep_transform: bool = False
+    transform_scale: float = 1.0
+    cog_style_trans: bool = False
+    slice_cfg: bool = False
+
+    def prepare_timesteps(self, batch: int, *, height, width, num_frames,
+                          device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:
+        """Return (timesteps, dts), each (num_steps, B), on ``device``."""
+        device = resolve_device(device)
+        ts = [(1.0 - i / self.num_sampling_steps) * self.num_timesteps
+              for i in range(self.num_sampling_steps)]
+        if self.use_discrete_timesteps:
+            ts = [int(round(t)) for t in ts]
+        ts = torch.tensor(ts, dtype=torch.float32, device=device)[:, None] \
+            * torch.ones((1, batch), dtype=torch.float32, device=device)
+        if self.use_timestep_transform:
+            ts = timestep_transform(ts, height=height, width=width,
+                                    num_frames=num_frames, scale=self.transform_scale,
+                                    num_timesteps=self.num_timesteps,
+                                    cog_style=self.cog_style_trans)
+        dts = torch.cat([ts[:-1] - ts[1:], ts[-1:]], dim=0) / self.num_timesteps
+        return ts, dts
+
+    @torch.no_grad()
+    def sample(self, predict_fn: Callable, z: torch.Tensor, *, height, width,
+               num_frames, mask: Optional[torch.Tensor] = None,
+               noise_fn: Optional[Callable] = None,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Run the Euler loop. predict_fn(z, t, x_mask) -> CFG-combined velocity.
+
+        mask: per-latent-frame float mask (B, T'); frames with mask*T >= t are
+        denoised, the others stay pinned to the reference latents. The masked
+        branch adds fresh noise at every step: ``noise_fn(step, shape)`` supplies
+        it when given (a test can inject the noise another implementation drew),
+        else it is drawn from ``generator``.
+        """
+        B = z.shape[0]
+        ts, dts = self.prepare_timesteps(B, height=height, width=width,
+                                         num_frames=num_frames, device=z.device)
+        bshape = (-1,) + (1,) * (z.ndim - 1)
+        if mask is None:
+            for i in range(self.num_sampling_steps):
+                v = predict_fn(z, ts[i], None)
+                z = z + v * dts[i].reshape(bshape)
+            return z
+
+        if noise_fn is None:
+            def noise_fn(step, shape):
+                return torch.randn(shape, generator=generator, dtype=z.dtype,
+                                   device=generator.device if generator is not None
+                                   else z.device).to(z.device)
+        mask = mask.to(z.device)
+        noise_added = mask == 1
+        mask_t = mask * self.num_timesteps
+        for i in range(self.num_sampling_steps):
+            t, dt = ts[i], dts[i]
+            x0 = z
+            noise = torch.as_tensor(noise_fn(i, tuple(x0.shape))).to(x0)
+            x_noise = add_noise(x0, noise, t, self.num_timesteps)
+            mask_t_upper = mask_t >= t[:, None]
+            mask_add_noise = mask_t_upper & (~noise_added)
+            z = torch.where(mask_add_noise[:, None, :, None, None], x_noise, x0)
+            v = predict_fn(z, t, mask_t_upper)
+            z_new = z + v * dt.reshape(bshape)
+            z = torch.where(mask_t_upper[:, None, :, None, None], z_new, x0)
+            noise_added = mask_t_upper
+        return z
+
+
+@dataclasses.dataclass
+class RFLOW_SLICE(RFLOW):
+    """Two-pass-CFG variant: numerics identical to RFLOW; the pipeline runs the
+    conditional and unconditional passes one after the other."""
+    slice_cfg: bool = True
+
+
+SCHEDULERS = {"rflow": RFLOW, "rflow-slice": RFLOW_SLICE}
+
+
+def build_scheduler(cfg: dict):
+    cfg = dict(cfg)
+    kind = cfg.pop("type")
+    return SCHEDULERS[kind](**cfg)

@@ -1,0 +1,227 @@
+"""PyTorch port, ops: plain versions against the JAX functions on the CPU.
+
+The Pallas kernels run in interpret mode (MDV2_PALLAS_INTERPRET=1, set by
+tests/conftest.py); the port runs its plain versions, which is what its wrappers
+use for a CPU tensor. fp32 throughout; tolerances as in the JAX package's own
+kernel tests (atol 2e-5 / rtol 1e-4: two fp32 evaluation orders of the same
+softmax).
+"""
+import numpy as np
+import pytest
+import torch
+
+from test_torch_common import j, t
+
+from magicdrive_v2_tpu.ops import flash_fused
+from magicdrive_v2_tpu.ops import rope as jrope
+from magicdrive_v2_tpu.ops.attention import xla_attention
+from magicdrive_v2_tpu.ops.flash_attention import flash_attention as jax_flash_attention
+from magicdrive_v2_tpu.ops.fused_adaln import _xla_fallback, adaln_modulate as jax_adaln
+from magicdrive_v2_tpu_torch.ops import (adaln_modulate, adaln_modulate_plain,
+                                         apply_rope, dot_product_attention,
+                                         flash_attention, flash_attention_plain,
+                                         fused_qkv_attention, fused_qkv_attention_plain,
+                                         plain_attention, rope_frequencies,
+                                         rotate_half_interleaved)
+
+G, N, H, D = 4, 40, 2, 8
+ATOL, RTOL = 2e-5, 1e-4
+
+
+def _close(a, b, atol=ATOL, rtol=RTOL):
+    np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=atol, rtol=rtol)
+
+
+# ---------------------------------------------------------------- rope
+
+
+def test_rope_matches_jax():
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 3, 7, 16)).astype(np.float32)
+    _close(rope_frequencies(16, 7), jrope.rope_frequencies(16, 7), 1e-6, 1e-6)
+    _close(rotate_half_interleaved(t(x)), jrope.rotate_half_interleaved(j(x)), 0, 0)
+    _close(apply_rope(t(x)), jrope.apply_rope(j(x)), 1e-6, 1e-6)
+    # interleaved pairs, not the half-split rotation
+    r = rotate_half_interleaved(torch.arange(4.0)[None])
+    assert r.tolist() == [[-1.0, 0.0, -3.0, 2.0]]
+
+
+# ---------------------------------------------------------------- plain attention
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_plain_attention_matches_xla_attention(with_bias):
+    rng = np.random.default_rng(1)
+    q = rng.standard_normal((2, 9, 3, 8)).astype(np.float32)
+    k = rng.standard_normal((2, 5, 3, 8)).astype(np.float32)
+    v = rng.standard_normal((2, 5, 3, 8)).astype(np.float32)
+    bias = None
+    if with_bias:
+        keep = rng.integers(0, 2, (2, 5)).astype(bool)
+        keep[:, 0] = True
+        bias = np.where(keep[:, None, None, :], 0.0, -1e9).astype(np.float32)
+    ref = xla_attention(j(q), j(k), j(v), bias=None if bias is None else j(bias))
+    out = dot_product_attention(t(q), t(k), t(v), bias=None if bias is None else t(bias))
+    _close(out, ref, 1e-6, 1e-5)
+    _close(plain_attention(t(q), t(k), t(v), bias=None if bias is None else t(bias)),
+           ref, 1e-6, 1e-5)
+
+
+def test_dispatcher_sends_unbiased_cpu_calls_through_flash_wrapper():
+    rng = np.random.default_rng(2)
+    q, k, v = (t(rng.standard_normal((1, 6, 2, 8)).astype(np.float32)) for _ in range(3))
+    before = flash_attention.launches
+    out = dot_product_attention(q, k, v)
+    # a CPU tensor takes the plain version and does not count as a kernel launch
+    assert flash_attention.launches == before
+    _close(out, flash_attention_plain(q, k, v).numpy(), 0, 0)
+
+
+# ---------------------------------------------------------------- K1 fused qkv attention
+
+
+@pytest.fixture(scope="module")
+def qkv_data():
+    rng = np.random.default_rng(0)
+    qkv = rng.standard_normal((G, N, 3, H, D)).astype(np.float32)
+    qw = (rng.standard_normal((D,)) * 0.1 + 1.0).astype(np.float32)
+    kw = (rng.standard_normal((D,)) * 0.1 + 1.0).astype(np.float32)
+    return qkv, qw, kw
+
+
+def _perms():
+    roll = np.roll(np.arange(G), 1).astype(np.int32)
+    two = np.stack([roll, np.roll(np.arange(G), -1)]).astype(np.int32)
+    return {"none": None, "1d": roll, "2d": two}
+
+
+def _jax_bodies(qkv, qw, kw, perm, norm):
+    """All three Pallas bodies (interpret mode) and the XLA reference."""
+    scale = D ** -0.5
+    perm_t = None if perm is None else (
+        tuple(perm.tolist()) if perm.ndim == 1 else tuple(tuple(p) for p in perm.tolist()))
+    a, b = (j(qw), j(kw)) if norm else (None, None)
+    return {
+        # block_q 16 / 32: even and uneven (40 = 32 + 8) q blocks
+        "full_row_bq16": flash_fused._fused_fwd_impl(j(qkv), a, b, perm_t, scale, 16, norm),
+        "full_row_bq32": flash_fused._fused_fwd_impl(j(qkv), a, b, perm_t, scale, 32, norm),
+        # block_k 16 leaves a ragged trailing k block (40 = 2*16 + 8)
+        "blocked": flash_fused._fused_fwd_blocked(j(qkv), a, b, perm_t, scale, 16, 16, norm),
+        "blocked_hsplit": flash_fused._fused_fwd_blocked_hsplit(
+            j(qkv), a, b, perm_t, scale, 32, 16, norm),
+        "xla_reference": flash_fused._xla_reference(j(qkv), a, b, perm, scale),
+    }
+
+
+@pytest.mark.parametrize("norm", [True, False], ids=["norm", "no_norm"])
+@pytest.mark.parametrize("perm_kind", ["none", "1d", "2d"])
+def test_fused_qkv_plain_matches_pallas_bodies(qkv_data, perm_kind, norm):
+    qkv, qw, kw = qkv_data
+    perm = _perms()[perm_kind]
+    out = fused_qkv_attention_plain(t(qkv), t(qw) if norm else None,
+                                    t(kw) if norm else None, perm)
+    assert out.shape == (G, N, H, D)
+    for name, ref in _jax_bodies(qkv, qw, kw, perm, norm).items():
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL, rtol=RTOL,
+                                   err_msg=name)
+
+
+def test_fused_qkv_wrapper_on_cpu_is_plain_and_chunking_is_exact(qkv_data):
+    qkv, qw, kw = qkv_data
+    perm = _perms()["2d"]
+    before = fused_qkv_attention.launches
+    a = fused_qkv_attention(t(qkv), t(qw), t(kw), perm)
+    b = fused_qkv_attention_plain(t(qkv), t(qw), t(kw), torch.from_numpy(perm),
+                                  group_chunk=3)
+    assert fused_qkv_attention.launches == before
+    _close(a, b.numpy(), 1e-6, 1e-6)
+
+
+def test_fused_qkv_wrapper_rejects_bad_arguments(qkv_data):
+    qkv, qw, kw = qkv_data
+    with pytest.raises(ValueError):
+        fused_qkv_attention(t(qkv)[:, :, :2], None, None)
+    with pytest.raises(ValueError):
+        fused_qkv_attention(t(qkv), t(qw), None)
+    with pytest.raises(ValueError):
+        fused_qkv_attention(t(qkv), None, None, [0, 1, 2, G])
+
+
+def test_fused_qkv_plain_bf16_follows_kernel_cast_points():
+    """In bf16 the normalised q/k are rounded before the weight multiply (the
+    Pallas ``_rms_kernel`` cast points); the XLA reference skips that rounding, so
+    the plain version is compared with the Pallas body, not with the reference."""
+    rng = np.random.default_rng(3)
+    qkv = rng.standard_normal((2, 24, 3, 2, 8)).astype(np.float32)
+    qw = (rng.standard_normal((8,)) * 0.1 + 1.0).astype(np.float32)
+    import jax.numpy as jnp
+    ref = flash_fused._fused_fwd_impl(j(qkv).astype(jnp.bfloat16), j(qw), j(qw), None,
+                                      8 ** -0.5, 24, True)
+    out = fused_qkv_attention_plain(t(qkv).bfloat16(), t(qw), t(qw))
+    # one bf16 ulp at |x| < 2 is 2**-7; evaluation order may flip the last bit
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref.astype(jnp.float32)),
+                               atol=2 ** -6, rtol=0)
+
+
+# ---------------------------------------------------------------- K2 adaLN modulate
+
+
+@pytest.mark.parametrize("C", [128, 64], ids=["C128_pallas_interpret", "C64_fallback"])
+def test_adaln_plain_matches_jax(C):
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, 37, C)).astype(np.float32) * 3 + 0.5
+    shift = rng.standard_normal((2, C)).astype(np.float32)
+    scale = rng.standard_normal((2, C)).astype(np.float32)
+    ref = jax_adaln(j(x), j(shift), j(scale))  # C % 128 == 0 -> Pallas, else XLA fallback
+    before = adaln_modulate.launches
+    out = adaln_modulate(t(x), t(shift), t(scale)[:, None])
+    assert adaln_modulate.launches == before
+    # fp32 statistics in two orders of summation over C <= 128 values
+    _close(out, ref, 1e-5, 1e-5)
+    _close(adaln_modulate_plain(t(x), t(shift), t(scale)),
+           _xla_fallback(j(x), j(shift)[:, None], j(scale)[:, None], 1e-6), 1e-5, 1e-5)
+    with pytest.raises(ValueError):
+        adaln_modulate(t(x), t(shift)[:1], t(scale))
+
+
+# ---------------------------------------------------------------- K3 flash attention
+
+
+def test_flash_attention_plain_matches_pallas_with_ragged_keys():
+    """M != N and a key length that is no multiple of the Pallas block (masked)."""
+    rng = np.random.default_rng(5)
+    q = rng.standard_normal((2, 150, 2, 8)).astype(np.float32)
+    kv = rng.standard_normal((2, 77, 2, 2, 8)).astype(np.float32)
+    ref = jax_flash_attention(j(q), j(kv[:, :, 0]), j(kv[:, :, 1]), None, 128, 128)
+    # strided views of a packed kv buffer, as CrossAttention hands them over
+    out = flash_attention(t(q), t(kv)[:, :, 0], t(kv)[:, :, 1])
+    _close(out, ref)
+    _close(flash_attention_plain(t(q), t(kv)[:, :, 0], t(kv)[:, :, 1]),
+           xla_attention(j(q), j(kv[:, :, 0]), j(kv[:, :, 1])))
+    with pytest.raises(ValueError):
+        flash_attention(t(q), t(kv)[:, :5, 0], t(kv)[:, :, 1])
+
+
+@pytest.mark.parametrize("N,H", [(1350, 2), (5300, 1)])
+def test_chip_smoke_bf16_limits_reject_a_dropped_k_norm_weight(N, H):
+    """The limits chip_smoke.py holds the bf16 kernels to on the card, tried here on
+    a stand-in for a faulty kernel: the plain version with the k-norm weight
+    replaced by ones. Both limits must refuse it and accept the plain version
+    computed in another group chunking (bit-equal). The fault's largest error,
+    about 0.02-0.03, is of the size of one typical output value, so a limit that
+    is not scaled to the outputs can miss it."""
+    import chip_smoke
+    gen = torch.Generator().manual_seed(0)
+    D = 72
+    qkv = torch.randn(2, N, 3, H, D, generator=gen).bfloat16()
+    qw = torch.randn(D, generator=gen) * 0.1 + 1
+    kw = torch.randn(D, generator=gen) * 0.1 + 1
+    ref = fused_qkv_attention_plain(qkv, qw, kw)
+    with_abs_v = qkv.clone()
+    with_abs_v[:, :, 2].abs_()
+    slack = 2.0 ** -7 * fused_qkv_attention_plain(with_abs_v, qw, kw).float()
+    faulty = fused_qkv_attention_plain(qkv, qw, torch.ones(D))
+    err, elem_ratio, rms_ratio, _ = chip_smoke.compare(torch, faulty, ref, slack)
+    assert elem_ratio > 1.5 and rms_ratio > 4.0, (err, elem_ratio, rms_ratio)
+    same = fused_qkv_attention_plain(qkv, qw, kw, group_chunk=1)
+    assert chip_smoke.compare(torch, same, ref, slack)[:3] == (0.0, 0.0, 0.0)
