@@ -4,8 +4,9 @@
 Run ``python3 chip_smoke.py`` from the repository root on a machine with one
 card. It imports only ``magicdrive_v2_tpu_torch`` and
 
-1. ``device``   reads the card's name and power limit and builds the three CUDA
-                kernels from ``magicdrive_v2_tpu_torch/csrc`` with ``nvcc``;
+1. ``device``   reads the card's name and power limit, builds the three CUDA
+                kernels from ``magicdrive_v2_tpu_torch/csrc`` with ``nvcc`` and
+                checks that ptxas spilled no register of the bf16 K1 kernels;
 2. ``shapes``   builds the model of phase 3, counts each kernel's launches over
                 ``encode_conditions`` and over one denoiser forward, and notes,
                 over a sample of one Euler step, every distinct shape and type
@@ -13,8 +14,9 @@ card. It imports only ``magicdrive_v2_tpu_torch`` and
 3. ``kernels``  holds each kernel against its plain PyTorch version on the card
                 (stated limits), in fp32 and bf16, at every shape of phase 2 and
                 at further shapes (the long-sequence regime, ragged tiles), and
-                times kernel, plain version and the nearest single PyTorch
-                library call at the main path's shapes;
+                times kernel, plain version and the nearest PyTorch library
+                call at the main path's shapes (K1 also: its pre-pass alone, and
+                the achieved TFLOP/s);
 4. ``slice``    drives the main path: MagicDriveSTDiT3-XL/2 at full width and depth
                 in bf16, six views of 424x800, 17 frames, batched classifier-free
                 guidance, ``MagicDrivePipeline.sample(decode=False)`` for a few
@@ -145,7 +147,7 @@ def check_kernels(torch, seen, l_cond):
     import torch.nn.functional as F
     from magicdrive_v2_tpu_torch.ops import (adaln_modulate, adaln_modulate_plain,
                                              flash_attention, flash_attention_plain,
-                                             fused_qkv_attention,
+                                             flash_fused, fused_qkv_attention,
                                              fused_qkv_attention_plain)
     dev = "cuda"
     gen = torch.Generator(device="cpu").manual_seed(0)
@@ -213,27 +215,38 @@ def check_kernels(torch, seen, l_cond):
             qkv, qw, qw, perm, group_chunk=6), 1))
     # every timed call launched the kernel: 2 x (1 warm-up + 5 timed)
     require(fused_qkv_attention.launches == before + 12, "launch counter while timing")
-    # library yardstick: scaled_dot_product_attention on the q/k/v views (the
-    # attention alone: it leaves out the q/k RMSNorm the kernel also does)
+    # the bf16 kernel's pre-pass alone (k norm and tiling; part of every launch above)
+    plan = flash_fused.plan_bf16(G, N, H, D)
+    k1["prepass_ms"] = time_ms(torch, lambda: flash_fused.tile_k(qkv, qw, plan), 10)
+    # library yardsticks: scaled_dot_product_attention on the q/k/v views (the
+    # attention alone: it leaves out the q/k RMSNorm the kernel also does); for
+    # cross-view two such calls, on the two sources' k/v (gathered beforehand), summed
     q_, k_, v_ = (qkv[:, :, i].transpose(1, 2) for i in range(3))
     k1["library_ms"] = time_ms(
         torch, lambda: F.scaled_dot_product_attention(q_, k_, v_), 5)
+    kv_src = [(k_[perm[j].long()], v_[perm[j].long()]) for j in range(2)]
+    k1["library_ms_cross_view"] = time_ms(
+        torch, lambda: F.scaled_dot_product_attention(q_, *kv_src[0])
+        + F.scaled_dot_product_attention(q_, *kv_src[1]), 5)
     flops = 4.0 * G * H * N * N * D
     nbytes = 2.0 * (qkv.numel() + G * N * H * D)
     k1["bound_ms"], k1["bound_by"] = bound(flops, nbytes, PEAK_BF16)
     k1["bound_ms_cross_view"] = bound(2 * flops, nbytes, PEAK_BF16)[0]
+    k1["tflops"] = flops / (k1["ms"] * 1e9)
+    k1["tflops_cross_view"] = 2 * flops / (k1["ms_cross_view"] * 1e9)
     # the long-sequence regime (848x1600: N = 5300), fewer groups
     qkv_l = randn(12, 5300, 3, H, D, dtype=torch.bfloat16)
     k1["ms_n5300_g12"] = time_ms(torch, lambda: fused_qkv_attention(qkv_l, qw, qw, None), 2)
-    k1["bound_ms_n5300_g12"] = bound(4.0 * 12 * H * 5300 * 5300 * D,
-                                     2.0 * (qkv_l.numel() + 12 * 5300 * H * D),
+    flops_l = 4.0 * 12 * H * 5300 * 5300 * D
+    k1["bound_ms_n5300_g12"] = bound(flops_l, 2.0 * (qkv_l.numel() + 12 * 5300 * H * D),
                                      PEAK_BF16)[0]
+    k1["tflops_n5300_g12"] = flops_l / (k1["ms_n5300_g12"] * 1e9)
     k1["plain_ms_n5300_g12"] = time_ms(torch, lambda: fused_qkv_attention_plain(
         qkv_l, qw, qw, None, group_chunk=1), 1)
     ql, kl, vl = (qkv_l[:, :, i].transpose(1, 2) for i in range(3))
     k1["library_ms_n5300_g12"] = time_ms(
         torch, lambda: F.scaled_dot_product_attention(ql, kl, vl), 2)
-    del ql, kl, vl, qkv, qkv_l, q_, k_, v_
+    del ql, kl, vl, qkv, qkv_l, q_, k_, v_, kv_src
 
     # ---- K2 adaLN modulate
     def run_k2(B, n, C, dtype, main_path=False):
@@ -601,8 +614,14 @@ def main():
     _cuda_build.build_all()
     for name in _cuda_build.SOURCES:
         _cuda_build.load(name)
+    # the bf16 K1 kernels (pre-pass and attention bodies) as ptxas reported them
+    k1_bodies = [r for r in _cuda_build.ptxas_report("fused_qkv_attention")
+                 if "k1_" in r["function"]]
+    require(len(k1_bodies) >= 2 and all(r["spill_stores"] == 0 and r["spill_loads"] == 0
+                                        for r in k1_bodies), k1_bodies)
     emit("device", nvidia_smi=smi, python=sys.version.split()[0], torch=torch.__version__,
-         cuda=torch.version.cuda, build_seconds=_cuda_build.build_seconds)
+         cuda=torch.version.cuda, build_seconds=_cuda_build.build_seconds,
+         k1_ptxas=k1_bodies)
 
     pipe, cond, per_forward, encode_launches, l_cond, seen = build_slice(
         torch, args.steps, args.seed)
@@ -621,6 +640,8 @@ def main():
     meta = {
         "fused_qkv_attention": dict(
             source="magicdrive_v2_tpu_torch/csrc/fused_qkv_attention.cu",
+            headers=["magicdrive_v2_tpu_torch/csrc/attn_k1_sm90.cuh",
+                     "magicdrive_v2_tpu_torch/csrc/attn_core.cuh (fp32 body)"],
             replaces=jax_ops + "flash_fused.py:120",
             also_replaces=[jax_ops + "flash_fused.py:236", jax_ops + "flash_fused.py:363"]),
         "adaln_modulate": dict(

@@ -10,11 +10,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "magicdrive_v2_tpu_torch"
@@ -97,6 +98,27 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build_all()[name]))
         _libs[name] = lib
     return lib
+
+
+def ptxas_report(name: str) -> List[Dict[str, object]]:
+    """What ``-Xptxas -v`` said about each kernel of ``csrc/<name>.cu`` in the log
+    of its current build: function (mangled), registers, spill stores and loads
+    (bytes)."""
+    log = BUILD_DIR / f"{name}-{source_hash()}.log"
+    rows: List[Dict[str, object]] = []
+    for line in log.read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            rows.append(dict(function=m.group(1), registers=None, spill_stores=None,
+                             spill_loads=None))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and rows:
+            rows[-1]["spill_stores"], rows[-1]["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and rows:
+            rows[-1]["registers"] = int(m.group(1))
+    return rows
 
 
 def check(err: int, what: str) -> None:

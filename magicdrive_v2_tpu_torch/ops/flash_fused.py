@@ -15,12 +15,16 @@ here one kernel, ``csrc/fused_qkv_attention.cu``, covers every sequence length.
   are summed over j in fp32.
 
 On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor it
-runs the plain version. Inference only (no backward yet).
+runs the plain version. Inference only (no backward yet). In bf16 the kernel is
+two launches: a pre-pass that normalises k once per row into a scratch buffer
+of zero-padded tiles, then the attention, which reads q and v from qkv and k
+from those tiles; their launch plan (``plan_bf16``) is computed here, in Python,
+and handed to the C entry points.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Union
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -28,7 +32,7 @@ import torch
 from . import _cuda_build
 
 _EPS = 1e-6
-_fn = None
+_fns = None
 
 
 def _rms(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -86,15 +90,79 @@ def fused_qkv_attention_plain(qkv: torch.Tensor,
     return out.to(qkv.dtype)
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = _cuda_build.load("fused_qkv_attention").mdv2_fused_qkv_attention
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                       + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+# ---------------------------------------------------------------- bf16 launch plan
+
+TILE_ROWS = 64      # rows of a k/v tile and of half a q tile (kRows of attn_k1_sm90.cuh)
+Q_ROWS = 128        # q rows per block: two 64-row halves, one warpgroup each
+THREADS = 256       # threads per attention block
+SMEM_LIMIT = 232_448  # dynamic shared memory one block may take on an H100
+# bf16 head dims the kernel takes -> (padded width of its tiles, a multiple of 16,
+# the depth of one tensor-core k-step; width of the value product). The model's
+# head dim is 72.
+PADDED_WIDTH = {8: (16, 16), 16: (16, 16), 24: (32, 32), 32: (32, 32), 72: (80, 72)}
+
+
+class K1Plan(NamedTuple):
+    dp: int                     # padded head dim of the tiles
+    q_tiles: int                # 128-row q tiles per (group, head)
+    blocks: int                 # attention blocks: G * H * q_tiles
+    tiles: int                  # 64-row tiles per (group, head) in the scratch
+    scratch_shape: Tuple[int, ...]  # normalised k: (G, H, tiles, dp / 8, 64, 8) bf16
+    smem_bytes: int             # dynamic shared memory of one attention block
+
+
+def plan_bf16(G: int, N: int, H: int, D: int, J: int = 1) -> K1Plan:
+    """Launch plan of the bf16 kernel for qkv (G, N, 3, H, D) and J k/v sources;
+    raises on a head dim it does not take."""
+    if D not in PADDED_WIDTH:
+        raise ValueError(f"the bf16 kernel takes head dims {sorted(PADDED_WIDTH)}, got {D}")
+    dp, dv = PADDED_WIDTH[D]
+    q_tiles = -(-N // Q_ROWS)
+    blocks = G * H * q_tiles
+    if blocks > 2 ** 31 - 1:
+        raise ValueError(f"{blocks} blocks exceed the grid limit")
+    tiles = 2 * q_tiles
+    # two q tiles and the k and v rings (three tiles deep) in bf16; with J > 1 the
+    # fp32 sum over the sources, dv / 2 values per thread, and a ring two tiles
+    # deep, so that two blocks still fit on an SM
+    if J == 1:
+        smem = 2 * (2 + 2 * 3) * TILE_ROWS * dp
+    else:
+        smem = 2 * (2 + 2 * 2) * TILE_ROWS * dp + 4 * (dv // 2) * THREADS
+    return K1Plan(dp, q_tiles, blocks, tiles, (G, H, tiles, dp // 8, TILE_ROWS, 8), smem)
+
+
+def _kernels():
+    global _fns
+    if _fns is None:
+        lib = _cuda_build.load("fused_qkv_attention")
+        tile = lib.mdv2_k1_tile_k
+        tile.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+                         + [ctypes.c_float, ctypes.c_void_p])
+        attend = lib.mdv2_k1_attention
+        attend.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                           + [ctypes.c_float] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        f32 = lib.mdv2_fused_qkv_attention_f32
+        f32.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                        + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+        for fn in (tile, attend, f32):
+            fn.restype = ctypes.c_int
+        _fns = (tile, attend, f32)
+    return _fns
+
+
+def tile_k(qkv: torch.Tensor, kw: Optional[torch.Tensor], plan: K1Plan) -> torch.Tensor:
+    """The bf16 kernel's pre-pass alone: the k rows of qkv, normalised when the
+    fp32 (D,) weight is given, laid out as the plan's zero-padded tiles."""
+    G, N, _, H, D = qkv.shape
+    tiles = torch.empty(plan.scratch_shape, dtype=torch.bfloat16, device=qkv.device)
+    stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    with torch.cuda.device(qkv.device):
+        err = _kernels()[0](qkv.data_ptr(), tiles.data_ptr(),
+                            None if kw is None else kw.data_ptr(),
+                            G, N, H, D, plan.dp, plan.tiles, _EPS, stream)
+    _cuda_build.check(err, "fused_qkv_attention (pre-pass)")
+    return tiles
 
 
 def _perm_tensor(kv_perm, G: int, device) -> Optional[torch.Tensor]:
@@ -123,7 +191,7 @@ def fused_qkv_attention(qkv: torch.Tensor,
                         scale: Optional[float] = None) -> torch.Tensor:
     """qkv: (G, N, 3, H, D) -> (G, N, H, D). q/k_norm_weight: both (D,) or both
     None. kv_perm: None, (G,) or (J, G) group indices. On the card the head dim
-    is at most 144 and, in bf16, a multiple of 8."""
+    is at most 144 in fp32 and one of ``PADDED_WIDTH`` in bf16."""
     if qkv.ndim != 5 or qkv.shape[2] != 3:
         raise ValueError(f"expected qkv of shape (G, N, 3, H, D), got {tuple(qkv.shape)}")
     if (q_norm_weight is None) != (k_norm_weight is None):
@@ -136,27 +204,38 @@ def fused_qkv_attention(qkv: torch.Tensor,
                                          kv_perm, scale)
     if qkv.device.type != "cuda":
         raise ValueError(f"fused_qkv_attention runs on cuda or cpu tensors, got {qkv.device}")
-    code = _cuda_build.dtype_code(qkv.dtype)
-    if D > _cuda_build.MAX_HEAD_DIM:
+    bf16 = _cuda_build.dtype_code(qkv.dtype) == 0
+    if not bf16 and D > _cuda_build.MAX_HEAD_DIM:
         raise ValueError(f"head_dim {D} > {_cuda_build.MAX_HEAD_DIM} is not supported "
                          "by the kernel")
-    if qkv.dtype == torch.bfloat16 and D % 8:
-        raise ValueError(f"the bf16 kernel takes head dims in multiples of 8, got {D}")
-    qkv = qkv.contiguous()
     perm = _perm_tensor(kv_perm, G, qkv.device)
     J = 1 if perm is None else perm.shape[0]
+    plan = plan_bf16(G, N, H, D, J) if bf16 else None
+    qkv = qkv.contiguous()
+    if bf16 and qkv.data_ptr() % 16:
+        raise ValueError("the bf16 kernel reads qkv rows in 16-byte pieces: qkv must "
+                         "start on a 16-byte boundary")
     qw = kw = None
     if q_norm_weight is not None:
         qw = _norm_weight(q_norm_weight, D, qkv.device)
         kw = _norm_weight(k_norm_weight, D, qkv.device)
     out = torch.empty((G, N, H * D), dtype=qkv.dtype, device=qkv.device)
+    perm_ptr = None if perm is None else perm.data_ptr()
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
-    with torch.cuda.device(qkv.device):
-        err = _kernel()(qkv.data_ptr(), out.data_ptr(),
-                        None if perm is None else perm.data_ptr(),
-                        None if qw is None else qw.data_ptr(),
-                        None if kw is None else kw.data_ptr(),
-                        G, N, H, D, J, float(scale), _EPS, code, stream)
+    _, attend, f32 = _kernels()
+    if bf16:
+        tiles = tile_k(qkv, kw, plan)
+        with torch.cuda.device(qkv.device):
+            err = attend(qkv.data_ptr(), tiles.data_ptr(), out.data_ptr(), perm_ptr,
+                         None if qw is None else qw.data_ptr(), G, N, H, D, J,
+                         float(scale), _EPS, plan.dp, plan.q_tiles, plan.blocks,
+                         plan.smem_bytes, stream)
+    else:
+        with torch.cuda.device(qkv.device):
+            err = f32(qkv.data_ptr(), out.data_ptr(), perm_ptr,
+                      None if qw is None else qw.data_ptr(),
+                      None if kw is None else kw.data_ptr(),
+                      G, N, H, D, J, float(scale), _EPS, stream)
     _cuda_build.check(err, "fused_qkv_attention")
     fused_qkv_attention.launches += 1
     return out.view(G, N, H, D)

@@ -23,6 +23,7 @@ from magicdrive_v2_tpu_torch.ops import (adaln_modulate, adaln_modulate_plain,
                                          fused_qkv_attention, fused_qkv_attention_plain,
                                          plain_attention, rope_frequencies,
                                          rotate_half_interleaved)
+from magicdrive_v2_tpu_torch.ops.flash_fused import PADDED_WIDTH, SMEM_LIMIT, plan_bf16
 
 G, N, H, D = 4, 40, 2, 8
 ATOL, RTOL = 2e-5, 1e-4
@@ -163,6 +164,60 @@ def test_fused_qkv_plain_bf16_follows_kernel_cast_points():
                                atol=2 ** -6, rtol=0)
 
 
+def test_cross_view_yardstick_is_two_single_source_attentions(qkv_data):
+    """chip_smoke.py times two scaled_dot_product_attention calls, one per source,
+    summed, beside K1 with J=2 and no norm: the same function."""
+    qkv, _, _ = qkv_data
+    perm = _perms()["2d"]
+    x = t(qkv)
+    both = fused_qkv_attention_plain(x, None, None, perm)
+    sources = [torch.from_numpy(p).long() for p in perm]
+    single = sum(fused_qkv_attention_plain(torch.cat([x[:, :, :1], x[idx][:, :, 1:]], dim=2),
+                                           None, None) for idx in sources)
+    _close(both, single.numpy(), 1e-6, 1e-6)
+    q, k, v = (x[:, :, i].transpose(1, 2) for i in range(3))
+    sdpa = sum(torch.nn.functional.scaled_dot_product_attention(q, k[idx], v[idx])
+               for idx in sources)
+    _close(both, sdpa.transpose(1, 2).numpy())
+
+
+# ---------------------------------------------------------------- K1 bf16 launch plan
+
+
+def test_k1_plan_at_the_main_path_shape():
+    plan = plan_bf16(60, 1350, 16, 72)
+    # head dim 72 padded to 80 (five 16-deep k-steps); 1350 rows = 10 x 128 + 70
+    assert (plan.dp, plan.q_tiles, plan.tiles) == (80, 11, 22)
+    assert plan.blocks == 60 * 16 * 11
+    assert plan.scratch_shape == (60, 16, 22, 10, 64, 8)  # normalised k
+    # two q tiles, three k and three v tiles of 64 x 80 bf16
+    assert plan.smem_bytes == 2 * (2 + 2 * 3) * 64 * 80
+    # cross-view: a two-stage ring and the fp32 sum over sources, 36 floats a thread
+    cross = plan_bf16(60, 1350, 16, 72, J=2)
+    assert cross._replace(smem_bytes=0) == plan._replace(smem_bytes=0)
+    assert cross.smem_bytes == 2 * (2 + 2 * 2) * 64 * 80 + 4 * 36 * 256
+
+
+@pytest.mark.parametrize("D", sorted(PADDED_WIDTH))
+def test_k1_plan_shared_memory_fits_one_block(D):
+    """Every head dim the bf16 body takes: the padded width covers it in 16-deep
+    k-steps, the tiles cover the rows, and the block's shared memory stays under
+    the card's per-block limit, twice over (two blocks on one SM)."""
+    for N in (1, 64, 70, 130, 1350, 5300):
+        for J in (1, 2, 3):
+            plan = plan_bf16(3, N, 2, D, J)
+            assert plan.dp >= D and plan.dp % 16 == 0
+            assert plan.q_tiles * 128 >= N > (plan.q_tiles - 1) * 128
+            assert plan.tiles * 64 >= N
+            assert 2 * plan.smem_bytes < SMEM_LIMIT
+
+
+@pytest.mark.parametrize("D", [12, 40, 64, 144])
+def test_k1_plan_refuses_a_head_dim_the_bf16_body_does_not_take(D):
+    with pytest.raises(ValueError):
+        plan_bf16(2, 100, 2, D)
+
+
 # ---------------------------------------------------------------- K2 adaLN modulate
 
 
@@ -202,26 +257,30 @@ def test_flash_attention_plain_matches_pallas_with_ragged_keys():
         flash_attention(t(q), t(kv)[:, :5, 0], t(kv)[:, :, 1])
 
 
-@pytest.mark.parametrize("N,H", [(1350, 2), (5300, 1)])
-def test_chip_smoke_bf16_limits_reject_a_dropped_k_norm_weight(N, H):
+@pytest.mark.parametrize("N,H,cross_view", [(1350, 2, False), (5300, 1, False),
+                                             (1350, 1, True)],
+                         ids=["1350-2", "5300-1", "1350-1-cross_view"])
+def test_chip_smoke_bf16_limits_reject_a_dropped_k_norm_weight(N, H, cross_view):
     """The limits chip_smoke.py holds the bf16 kernels to on the card, tried here on
     a stand-in for a faulty kernel: the plain version with the k-norm weight
     replaced by ones. Both limits must refuse it and accept the plain version
     computed in another group chunking (bit-equal). The fault's largest error,
     about 0.02-0.03, is of the size of one typical output value, so a limit that
-    is not scaled to the outputs can miss it."""
+    is not scaled to the outputs can miss it. Cross-view: six views, each reading
+    k/v from its two neighbours (J=2), outputs summed over the two sources."""
     import chip_smoke
     gen = torch.Generator().manual_seed(0)
     D = 72
-    qkv = torch.randn(2, N, 3, H, D, generator=gen).bfloat16()
+    G, perm = (6, chip_smoke.cross_view_perm(1)) if cross_view else (2, None)
+    qkv = torch.randn(G, N, 3, H, D, generator=gen).bfloat16()
     qw = torch.randn(D, generator=gen) * 0.1 + 1
     kw = torch.randn(D, generator=gen) * 0.1 + 1
-    ref = fused_qkv_attention_plain(qkv, qw, kw)
+    ref = fused_qkv_attention_plain(qkv, qw, kw, perm)
     with_abs_v = qkv.clone()
     with_abs_v[:, :, 2].abs_()
-    slack = 2.0 ** -7 * fused_qkv_attention_plain(with_abs_v, qw, kw).float()
-    faulty = fused_qkv_attention_plain(qkv, qw, torch.ones(D))
+    slack = 2.0 ** -7 * fused_qkv_attention_plain(with_abs_v, qw, kw, perm).float()
+    faulty = fused_qkv_attention_plain(qkv, qw, torch.ones(D), perm)
     err, elem_ratio, rms_ratio, _ = chip_smoke.compare(torch, faulty, ref, slack)
     assert elem_ratio > 1.5 and rms_ratio > 4.0, (err, elem_ratio, rms_ratio)
-    same = fused_qkv_attention_plain(qkv, qw, kw, group_chunk=1)
+    same = fused_qkv_attention_plain(qkv, qw, kw, perm, group_chunk=1)
     assert chip_smoke.compare(torch, same, ref, slack)[:3] == (0.0, 0.0, 0.0)
