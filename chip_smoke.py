@@ -6,7 +6,8 @@ card. It imports only ``magicdrive_v2_tpu_torch`` and
 
 1. ``device``   reads the card's name and power limit, builds the three CUDA
                 kernels from ``magicdrive_v2_tpu_torch/csrc`` with ``nvcc`` and
-                checks that ptxas spilled no register of the bf16 K1 kernels;
+                checks that ptxas spilled no register of the bf16 K1 and K3
+                kernels;
 2. ``shapes``   builds the model of phase 3, counts each kernel's launches over
                 ``encode_conditions`` and over one denoiser forward, and notes,
                 over a sample of one Euler step, every distinct shape and type
@@ -15,8 +16,9 @@ card. It imports only ``magicdrive_v2_tpu_torch`` and
                 (stated limits), in fp32 and bf16, at every shape of phase 2 and
                 at further shapes (the long-sequence regime, ragged tiles), and
                 times kernel, plain version and the nearest PyTorch library
-                call at the main path's shapes (K1 also: its pre-pass alone, and
-                the achieved TFLOP/s);
+                call at the main path's shapes (K1 also: its pre-pass alone; K1
+                and K3: the achieved TFLOP/s; K3: its share of the bound and the
+                time of each q-tiles-per-block setting of its launch plan);
 4. ``slice``    drives the main path: MagicDriveSTDiT3-XL/2 at full width and depth
                 in bf16, six views of 424x800, 17 frames, batched classifier-free
                 guidance, ``MagicDrivePipeline.sample(decode=False)`` for a few
@@ -142,6 +144,14 @@ def cross_view_perm(n_groups_of_views, neighbors=CAMERA_NEIGHBORS):
                     ).astype(np.int32)
 
 
+# K3 shapes (B, N, M, H, D) for the bf16 body's other branches: k/v too long to
+# stay in shared memory (streamed through the ring) at every head dim; q tiles
+# that do not fill the last run of a block (7 tiles in runs of 4 and 3), the last
+# q tile ragged
+K3_BRANCH_CASES = ((2, 300, 2000, 4, 72), (2, 130, 400, 2, 144), (1, 70, 4000, 2, 8),
+                   (1, 70, 4000, 2, 16), (2, 850, 150, 4, 72))
+
+
 def check_kernels(torch, seen, l_cond):
     """``seen``: what ``recorded_shapes`` noted on the main path."""
     import torch.nn.functional as F
@@ -149,6 +159,7 @@ def check_kernels(torch, seen, l_cond):
                                              flash_attention, flash_attention_plain,
                                              flash_fused, fused_qkv_attention,
                                              fused_qkv_attention_plain)
+    from magicdrive_v2_tpu_torch.ops.flash_attention import attend_bf16, plan_bf16
     dev = "cuda"
     gen = torch.Generator(device="cpu").manual_seed(0)
     both = (torch.float32, torch.bfloat16)
@@ -298,17 +309,33 @@ def check_kernels(torch, seen, l_cond):
         for shape in ((12, 6750, l_cond, 16, 72), (3, 1350, 77, 16, 72),
                       (2, 50, 13, 2, 8), (2, 77, 200, 4, 16)):
             run_k3(*shape, dtype)
+        for shape in K3_BRANCH_CASES:
+            run_k3(*shape, dtype)
     q = randn(B, n, H, D, dtype=torch.bfloat16)
     kv = randn(B, M, 2, H, D, dtype=torch.bfloat16)
     kk, vv = kv[:, :, 0], kv[:, :, 1]
+    plan = plan_bf16(B, n, M, H, D)
     k3 = dict(
         ms=time_ms(torch, lambda: flash_attention(q, kk, vv), 10),
         plain_ms=time_ms(torch, lambda: flash_attention_plain(q, kk, vv), 2),
         library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2)), 10))
-    k3["bound_ms"], k3["bound_by"] = bound(
-        4.0 * B * H * n * M * D, 2.0 * (2 * q.numel() + kv.numel()), PEAK_BF16)
-    del q, kv
+            q.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2)), 10),
+        plan=dict(resident=plan.resident, q_tiles_per_block=plan.run, blocks=plan.blocks,
+                  smem_bytes=plan.smem_bytes))
+    flops = 4.0 * B * H * n * M * D
+    k3["bound_ms"], k3["bound_by"] = bound(flops, 2.0 * (2 * q.numel() + kv.numel()), PEAK_BF16)
+    k3["tflops"] = flops / (k3["ms"] * 1e9)
+    k3["bound_share"] = k3["bound_ms"] / k3["ms"]
+    # every q-tiles-per-block setting of the launch plan, each bit-equal to the
+    # wrapper's output (a q row's arithmetic does not depend on the run)
+    ref = flash_attention(q, kk, vv)
+    k3["ms_by_q_tiles_per_block"] = {}
+    for run in (1, 2, 3, 4, 6, 11):
+        p_run = plan_bf16(B, n, M, H, D, run=run)
+        require(torch.equal(attend_bf16(q, kk, vv, D ** -0.5, p_run), ref), f"run {run}")
+        k3["ms_by_q_tiles_per_block"][str(run)] = time_ms(
+            torch, lambda: attend_bf16(q, kk, vv, D ** -0.5, p_run), 10)
+    del q, kv, ref
     torch.cuda.empty_cache()
     k1["max_abs_err"] = worst_err["fused_qkv_attention"]
     k2["max_abs_err"] = worst_err["adaln_modulate"]
@@ -619,9 +646,14 @@ def main():
                  if "k1_" in r["function"]]
     require(len(k1_bodies) >= 2 and all(r["spill_stores"] == 0 and r["spill_loads"] == 0
                                         for r in k1_bodies), k1_bodies)
+    # the bf16 K3 kernels: resident and streaming, at each of the four head dims
+    k3_bodies = [r for r in _cuda_build.ptxas_report("flash_attention")
+                 if "k3_" in r["function"]]
+    require(len(k3_bodies) == 8 and all(r["spill_stores"] == 0 and r["spill_loads"] == 0
+                                        for r in k3_bodies), k3_bodies)
     emit("device", nvidia_smi=smi, python=sys.version.split()[0], torch=torch.__version__,
          cuda=torch.version.cuda, build_seconds=_cuda_build.build_seconds,
-         k1_ptxas=k1_bodies)
+         k1_ptxas=k1_bodies, k3_ptxas=k3_bodies)
 
     pipe, cond, per_forward, encode_launches, l_cond, seen = build_slice(
         torch, args.steps, args.seed)
@@ -641,6 +673,7 @@ def main():
         "fused_qkv_attention": dict(
             source="magicdrive_v2_tpu_torch/csrc/fused_qkv_attention.cu",
             headers=["magicdrive_v2_tpu_torch/csrc/attn_k1_sm90.cuh",
+                     "magicdrive_v2_tpu_torch/csrc/sm90_common.cuh",
                      "magicdrive_v2_tpu_torch/csrc/attn_core.cuh (fp32 body)"],
             replaces=jax_ops + "flash_fused.py:120",
             also_replaces=[jax_ops + "flash_fused.py:236", jax_ops + "flash_fused.py:363"]),
@@ -649,6 +682,9 @@ def main():
             replaces=jax_ops + "fused_adaln.py:64"),
         "flash_attention": dict(
             source="magicdrive_v2_tpu_torch/csrc/flash_attention.cu",
+            headers=["magicdrive_v2_tpu_torch/csrc/attn_k3_sm90.cuh",
+                     "magicdrive_v2_tpu_torch/csrc/sm90_common.cuh",
+                     "magicdrive_v2_tpu_torch/csrc/attn_core.cuh (fp32 body)"],
             replaces=jax_ops + "flash_attention.py:98"),
     }
     kernels = [dict(name=name, route="cuda", launches=launches[name], **meta[name],

@@ -26,17 +26,15 @@
 // fp32 sum over the sources; the output is rounded once at the end.
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "sm90_common.cuh"
 
 namespace mdv2 {
 namespace k1 {
 
-typedef __nv_bfloat16 bf16;
-
-constexpr int kRows = 64;     // rows of a tile (k/v tile, half a q tile)
+using mdv2::bf16;
+using mdv2::kRows;
 constexpr int kThreads = 256;
 
 // Depth of the k/v ring and shared memory of k1_attention<DP, DV, MULTI>: two
@@ -62,27 +60,6 @@ struct Params {
   float scale;
   float eps;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-__device__ __forceinline__ float ex2(float x) {  // 2^x; -inf gives 0
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h2 = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h2);
-}
 
 // ---------------------------------------------------------------------------
 // pre-pass
@@ -147,130 +124,12 @@ __global__ void __launch_bounds__(kRows) k1_tile_k(const bf16* __restrict__ qkv,
 // attention
 // ---------------------------------------------------------------------------
 
-// wgmma matrix descriptor of a tile in shared memory, no swizzle: start
-// address, then the byte offsets between neighbouring 8x8 core matrices along
-// the reduction dimension (LBO) and along the M / N dimension (SBO), all in
-// 16-byte units. In the tile layout of the pre-pass a core matrix of rows
-// 8i..8i+7 and column chunk c sits at c * 1024 + i * 128 bytes.
-__device__ __forceinline__ uint64_t tile_desc(const bf16* p, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32);
-}
-constexpr uint32_t kChunkBytes = kRows * 16;  // one column chunk of a tile
-constexpr uint32_t kBlock8Bytes = 8 * 16;     // eight rows of one chunk
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Keeps the compiler from moving uses of an accumulator across the
-// asynchronous products that write it.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-// Makes this thread's cp.async writes to shared memory visible to wgmma, which
-// reads through the async proxy.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// d = A * B (acc == 0) or d += A * B, m64n64k16; A and B from shared memory,
-// both K-major.
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(acc));
-}
-
-// d += A * B, m64n16k16; A from registers, B from shared memory, MN-major.
-__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// d += A * B, m64n32k16; A from registers, B from shared memory, MN-major.
-__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// d += A * B, m64n72k16; A from registers, B from shared memory, MN-major.
-__device__ __forceinline__ void wgmma_rs(float (&d)[36], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %41, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35"
-      "}, {%36, %37, %38, %39}, %40, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-
 // Copy one tile (contiguous in the scratch) into shared memory.
 template <int DP>
 __device__ __forceinline__ void copy_tile(bf16* dst, const bf16* src, int tid) {
   constexpr int CHUNKS = kRows * DP / 8;
 #pragma unroll
   for (int idx = tid; idx < CHUNKS; idx += kThreads) cp_async_16(dst + idx * 8, src + idx * 8);
-}
-
-// Copy 64 rows of qkv (row 0 at src, row stride rs elements; `rows` of them
-// exist) into the tile layout in shared memory, zero-filling rows past `rows`
-// and columns past D (v too: a zero probability times a stale non-finite
-// value would poison p v). Eight consecutive threads take one chunk of eight
-// consecutive rows, so the shared-memory writes are free of bank conflicts
-// and a warp reads 64 contiguous bytes of each of its rows.
-template <int DP>
-__device__ __forceinline__ void copy_rows(bf16* dst, const bf16* src, long long rs, int rows,
-                                          int D, int tid) {
-  constexpr int CPR = DP / 8;
-#pragma unroll
-  for (int idx = tid; idx < kRows * CPR; idx += kThreads) {
-    const int c = (idx >> 3) % CPR;
-    const int r = ((idx >> 3) / CPR) * 8 + (idx & 7);
-    bf16* d = dst + c * (kRows * 8) + r * 8;
-    if (r < rows && c * 8 < D)
-      cp_async_16(d, src + r * rs + c * 8);
-    else
-      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
-  }
 }
 
 // DP: padded head dim of the tiles (the depth of the logit product, a multiple

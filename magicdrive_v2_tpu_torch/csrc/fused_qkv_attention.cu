@@ -86,8 +86,6 @@ extern "C" int mdv2_fused_qkv_attention_f32(const void* qkv, void* out, const in
                                             const float* q_w, const float* k_w, int G, int N,
                                             int H, int D, int J, float scale, float eps,
                                             void* stream) {
-  if (G <= 0 || H <= 0 || N <= 0 || D <= 0 || J <= 0 || D > mdv2::kMaxD)
-    return (int)cudaErrorInvalidValue;
   mdv2::AttnParams p;
   const float* base = reinterpret_cast<const float*>(qkv);
   const long long hd = (long long)H * D;
@@ -107,13 +105,5 @@ extern "C" int mdv2_fused_qkv_attention_f32(const void* qkv, void* out, const in
   p.G = G; p.H = H; p.N = N; p.M = N; p.D = D; p.J = J;
   p.scale = scale;
   p.eps = eps;
-  const size_t smem = mdv2::attn_f32_smem_bytes(D);
-  cudaError_t err = cudaFuncSetAttribute(
-      mdv2::attn_fwd_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long blocks = (long long)((N + mdv2::kFQ - 1) / mdv2::kFQ) * H * G;
-  if (blocks > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
-  mdv2::attn_fwd_f32<<<(unsigned)blocks, mdv2::kFThreads, smem,
-                       reinterpret_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
+  return mdv2::launch_attention_f32(p, reinterpret_cast<cudaStream_t>(stream));
 }

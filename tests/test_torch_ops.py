@@ -23,6 +23,8 @@ from magicdrive_v2_tpu_torch.ops import (adaln_modulate, adaln_modulate_plain,
                                          fused_qkv_attention, fused_qkv_attention_plain,
                                          plain_attention, rope_frequencies,
                                          rotate_half_interleaved)
+from magicdrive_v2_tpu_torch.ops.flash_attention import PADDED_WIDTH as K3_WIDTH
+from magicdrive_v2_tpu_torch.ops.flash_attention import plan_bf16 as k3_plan
 from magicdrive_v2_tpu_torch.ops.flash_fused import PADDED_WIDTH, SMEM_LIMIT, plan_bf16
 
 G, N, H, D = 4, 40, 2, 8
@@ -255,6 +257,81 @@ def test_flash_attention_plain_matches_pallas_with_ragged_keys():
            xla_attention(j(q), j(kv[:, :, 0]), j(kv[:, :, 1])))
     with pytest.raises(ValueError):
         flash_attention(t(q), t(kv)[:, :5, 0], t(kv)[:, :, 1])
+
+
+# ---------------------------------------------------------------- K3 bf16 launch plan
+
+
+def test_k3_plan_at_the_main_path_shape():
+    plan = k3_plan(60, 1350, 312, 16, 72)
+    # logit depth 80 (five 16-deep k-steps, the last on a zero chunk), value width
+    # 72; 312 keys = 4 x 64 + 56, 1350 rows = 10 x 128 + 70
+    assert (plan.dp, plan.dv, plan.kv_tiles, plan.q_tiles) == (80, 72, 5, 11)
+    # the whole k/v sequence stays in shared memory; 11 q tiles in runs of 6 and 5
+    assert plan.resident and plan.run == 6 and plan.blocks == 60 * 16 * 2
+    # two q halves of 64 x 72, five k and five v tiles of 64 x 72, the zero chunk
+    assert plan.smem_bytes == 2 * (2 * 64 * 72 + 5 * 2 * 64 * 72) + 1024 == 111_616
+    # two blocks an SM, each with the runtime's reserved kilobyte
+    assert plan.blocks_per_sm == 2 and 2 * (plan.smem_bytes + 1024) <= 233_472
+    # the settings chip_smoke.py times: blocks per (batch, head) = ceil(11 / run)
+    for run, per_pair in ((1, 11), (2, 6), (3, 4), (4, 3), (6, 2), (11, 1)):
+        assert k3_plan(60, 1350, 312, 16, 72, run=run)._replace(run=6, blocks=0) \
+            == plan._replace(blocks=0)
+        assert k3_plan(60, 1350, 312, 16, 72, run=run).blocks == 60 * 16 * per_pair
+    # encode_conditions: head dim 144, 17 rows and keys, one block an SM
+    enc = k3_plan(120, 17, 17, 8, 144)
+    assert (enc.dp, enc.dv, enc.resident, enc.run, enc.blocks, enc.blocks_per_sm) == \
+        (144, 144, True, 1, 120 * 8, 1)
+
+
+@pytest.mark.parametrize("M", [13, 17, 77, 200, 312, 1350, 4096])
+@pytest.mark.parametrize("D", sorted(K3_WIDTH))
+def test_k3_plan_tiles_cover_the_rows_and_fit_shared_memory(D, M):
+    """Every head dim the bf16 body takes: the logit depth covers it in 16-deep
+    k-steps, the tiles cover q rows and keys, every q tile belongs to one block's
+    run, and the block's shared memory stays under the card's per-block limit,
+    twice over where the plan counts on two blocks an SM. The resident kernel
+    takes k/v up to 320 keys at head dim 72; longer ones stream, one q tile a
+    block, in the same bytes at every M."""
+    for N in (1, 17, 70, 600, 1350):
+        plan = k3_plan(3, N, M, 2, D)
+        assert plan.dp >= D and plan.dp % 16 == 0 and plan.dv >= D and plan.dv % 8 == 0
+        assert plan.q_tiles * 128 >= N > (plan.q_tiles - 1) * 128
+        assert plan.kv_tiles * 64 >= M > (plan.kv_tiles - 1) * 64
+        runs = -(-plan.q_tiles // plan.run)
+        assert plan.blocks == 3 * 2 * runs and (runs - 1) * plan.run < plan.q_tiles
+        assert plan.smem_bytes < SMEM_LIMIT
+        assert plan.blocks_per_sm * (plan.smem_bytes + 1024) <= 233_472
+        if plan.blocks_per_sm == 2:
+            assert 2 * plan.smem_bytes < SMEM_LIMIT
+        if not plan.resident:
+            assert plan.run == 1 and plan.smem_bytes == k3_plan(3, N, 8192, 2, D).smem_bytes
+    if D == 72:
+        assert k3_plan(3, 100, M, 2, D).resident == (M <= 320)
+
+
+@pytest.mark.parametrize("D", [12, 24, 32, 64, 80, 128])
+def test_k3_plan_refuses_a_head_dim_the_bf16_body_does_not_take(D):
+    with pytest.raises(ValueError):
+        k3_plan(2, 100, 50, 2, D)
+
+
+def test_chip_smoke_k3_cases_reach_both_kernels_and_a_short_run():
+    """The extra K3 shapes chip_smoke.py holds against the plain version stream
+    k/v at every head dim of the table and leave the last run of a resident
+    block short."""
+    import chip_smoke
+    plans = [k3_plan(*shape) for shape in chip_smoke.K3_BRANCH_CASES]
+    streamed = {shape[4] for shape, plan in zip(chip_smoke.K3_BRANCH_CASES, plans)
+                if not plan.resident}
+    assert streamed == set(K3_WIDTH)
+    assert any(plan.resident and plan.q_tiles % plan.run for plan in plans)
+
+
+def test_k3_plan_refuses_a_run_for_streamed_kv():
+    assert k3_plan(2, 300, 2000, 4, 72, run=1).run == 1
+    with pytest.raises(ValueError):
+        k3_plan(2, 300, 2000, 4, 72, run=2)
 
 
 @pytest.mark.parametrize("N,H,cross_view", [(1350, 2, False), (5300, 1, False),
