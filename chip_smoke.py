@@ -21,24 +21,40 @@ card. It imports only ``magicdrive_v2_tpu_torch`` and
                 time of each q-tiles-per-block setting of its launch plan);
 4. ``slice``    drives the main path: MagicDriveSTDiT3-XL/2 at full width and depth
                 in bf16, six views of 424x800, 17 frames, batched classifier-free
-                guidance, ``MagicDrivePipeline.sample(decode=False)`` for a few
-                requests, with seeded random weights and the ``t5-dummy`` text
-                encoder; checks shape, finiteness, determinism and that the
-                kernels' launch counters moved by the expected amounts;
+                guidance, ``MagicDrivePipeline.sample(decode=True)`` for a few
+                requests: 30 Euler steps, then the CogVideoX-2b VAE decode in bf16
+                one view at a time, with seeded random weights and the
+                ``t5-dummy`` text encoder; checks shape, finiteness, determinism
+                of the decoded video and that the kernels' launch counters moved
+                by the expected amounts; times sampling and decode apart;
 5. ``slice_vs_plain``  one forward of the same model at reduced depth in fp32 with
-                the kernels against one with their plain versions.
+                the kernels against one with their plain versions;
+6. ``decode_vs_cpu``  the VAE decode on the card against the CPU's (fp32, TF32 off,
+                one view of 5 latent frames, so the 3 + 2 streaming runs), and a
+                bf16 against an fp32 decode of one main-path view on the card,
+                beside two controls with one cast point moved;
+7. ``app``      the inference app (``magicdrive_v2_tpu_torch.scripts.
+                inference_magicdrive``) on the 424x800 config with synthetic
+                conditioning, 17 frames, 2 steps; checks its launch counters and
+                the 17 PNG frames of the 2x3 grid it wrote.
 
 Every phase prints one JSON line. Any failure raises: the exit code is then not
 0 and no result line is printed. Without a card the script exits with code 1.
 
 Options (none needed): ``--steps N`` sampling steps (default 30), ``--requests N``
 (default 2), ``--seed S`` weights seed, ``--profile`` to add a ``profile`` phase
-(device time by kernel over one Euler step, from torch.profiler).
+(device time by kernel over one Euler step and over the decode of one view, from
+torch.profiler).
+
+cuDNN keeps its default algorithm choice (``torch.backends.cudnn.benchmark`` off),
+under which the rerun of one seed must give the same video bit for bit.
 """
 import argparse
 import contextlib
 import functools
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -50,6 +66,7 @@ PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 
 NUM_FRAMES, HEIGHT, WIDTH = 17, 424, 800
+APP_CONFIG = "configs/magicdrive/inference/fullx424x800_stdit3_CogVAE_boxTDS_wCT_xCE_wSST.py"
 L_BOX = 10  # box slots per frame in the synthetic batch
 CAMERA_NEIGHBORS = ((5, 1), (0, 2), (1, 3), (2, 4), (3, 5), (4, 0))
 
@@ -359,6 +376,40 @@ def xl2_config(torch, dtype, **overrides):
                               mv_order_map=MV_ORDER_MAP, dtype=dtype, **overrides)
 
 
+def cogvideox_vae(torch, dtype, seed, device="cuda"):
+    """The CogVideoX-2b VAE as the 424x800 config builds it (one view at a time),
+    seeded random weights."""
+    from magicdrive_v2_tpu_torch.models.vae.cogvideox import (CogVAEConfig,
+                                                              VideoAutoencoderKLCogVideoX)
+    from magicdrive_v2_tpu_torch.utils.ckpt import init_weights
+    vae = VideoAutoencoderKLCogVideoX(CogVAEConfig(dtype=dtype), micro_batch_size=1,
+                                      device=device)
+    init_weights(vae.module, seed=seed)
+    return vae
+
+
+def decode_flops(torch, vae, latent_shape):
+    """Multiply-adds x 2 of every convolution of ``vae.decode`` on a latent of
+    ``latent_shape``, counted from the shapes on the meta device."""
+    import torch.nn.functional as F
+    from magicdrive_v2_tpu_torch.models.vae.cogvideox import VideoAutoencoderKLCogVideoX
+    meta = VideoAutoencoderKLCogVideoX(vae.cfg, micro_batch_size=vae.micro_batch_size,
+                                       device="meta")
+    total, conv3d = [0], F.conv3d
+
+    def counting(x, w, *args, **kw):
+        y = conv3d(x, w, *args, **kw)
+        total[0] += 2 * y.numel() * w[0].numel()
+        return y
+
+    F.conv3d = counting
+    try:
+        meta.decode(torch.zeros(latent_shape, device="meta", dtype=vae.dtype))
+    finally:
+        F.conv3d = conv3d
+    return total[0]
+
+
 def expected_launches(cfg):
     """Kernel launches of one denoiser forward with a condition cache."""
     n_ctrl_t = 0 if cfg.control_skip_temporal else cfg.control_depth
@@ -387,18 +438,15 @@ def read_counters():
     return {name: fn.launches for name, fn in counters().items()}
 
 
-def profile_step(torch, pipe, cond):
-    """One single-step sample under torch.profiler: device time by kernel name."""
+def profiled(torch, what, fn):
+    """``fn()`` once under torch.profiler (after one warm-up call): device time by
+    kernel name."""
     from torch.profiler import ProfilerActivity, profile
-    from magicdrive_v2_tpu_torch.config.presets import rflow
-    from magicdrive_v2_tpu_torch.schedulers.rf import build_scheduler
-    pipe.scheduler = build_scheduler(rflow(num_sampling_steps=1))
-    kw = dict(num_frames=NUM_FRAMES, height=HEIGHT, width=WIDTH, torch_seed=1024, decode=False)
-    pipe.sample(cond, **kw)
+    fn()
     torch.cuda.synchronize()
     t0 = time.time()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        pipe.sample(cond, **kw)
+        fn()
         torch.cuda.synchronize()
     wall = time.time() - t0
     rows = [(e.key, e.count, getattr(e, "device_time_total", 0.0) / 1e3)
@@ -407,10 +455,22 @@ def profile_step(torch, pipe, cond):
             and "cuda" in str(e.device_type).lower()]
     rows.sort(key=lambda r: -r[2])
     busy = sum(r[2] for r in rows)
-    emit("profile", what="one Euler step (sample with 1 step, encode_conditions included)",
-         wall_ms=wall * 1e3, device_busy_ms=busy,
+    emit("profile", what=what, wall_ms=wall * 1e3, device_busy_ms=busy,
          device_idle_share=max(0.0, 1.0 - busy / (wall * 1e3)),
          top=[dict(name=n[:90], calls=c, ms=ms) for n, c, ms in rows[:30]])
+
+
+def profile_step(torch, pipe, cond):
+    """One single-step sample, and the decode of one view, under torch.profiler."""
+    from magicdrive_v2_tpu_torch.config.presets import rflow
+    from magicdrive_v2_tpu_torch.schedulers.rf import build_scheduler
+    pipe.scheduler = build_scheduler(rflow(num_sampling_steps=1))
+    kw = dict(num_frames=NUM_FRAMES, height=HEIGHT, width=WIDTH, torch_seed=1024, decode=False)
+    profiled(torch, "one Euler step (sample with 1 step, encode_conditions included)",
+             lambda: pipe.sample(cond, **kw))
+    z = pipe.sample(cond, **kw)[:, ::6].to(pipe.vae.dtype)  # one view's 16 channels
+    profiled(torch, "VAE decode of one view (5 latent frames as 3 + 2)",
+             lambda: pipe.vae.decode(z))
 
 
 def patch_points():
@@ -480,7 +540,8 @@ def build_slice(torch, steps, seed):
 
     cfg = xl2_config(torch, torch.bfloat16)
     t0 = time.time()
-    pipe = MagicDrivePipeline(cfg, build_scheduler(rflow(num_sampling_steps=steps)))
+    pipe = MagicDrivePipeline(cfg, build_scheduler(rflow(num_sampling_steps=steps)),
+                              vae=cogvideox_vae(torch, torch.bfloat16, seed + 1))
     init_weights(pipe.model, seed=seed)
     setup_s = time.time() - t0
     batch = synthetic_batch(cfg, NUM_FRAMES, HEIGHT, WIDTH, l_box=L_BOX)
@@ -519,6 +580,12 @@ def build_slice(torch, steps, seed):
     pipe.scheduler = scheduler
     want = {k: per_forward[k] + encode_launches[k] for k in per_forward}
     require(read_counters() == want, (read_counters(), want))
+    # one view's decode, so that the timed requests find cuDNN's first calls at
+    # these shapes done, as the denoiser's are by the sample above
+    with torch.no_grad():
+        pipe.vae.decode(torch.zeros((1, 16, 5, HEIGHT // 8, WIDTH // 8), device="cuda",
+                                    dtype=pipe.vae.dtype))
+        torch.cuda.synchronize()
     emit("shapes", l_cond=l_cond, setup_seconds=setup_s,
          launches_per_forward=per_forward, launches_encode_conditions=encode_launches,
          fused_qkv_attention=[dict(qkv=list(k[0]), dtype=str(k[1]), norm=k[2], J=k[3])
@@ -532,46 +599,84 @@ def build_slice(torch, steps, seed):
 def run_slice(torch, pipe, cond, per_forward, encode_launches, l_cond, steps, requests,
               with_profile=False):
     n_params = sum(p.numel() for p in pipe.model.parameters())
-    expected_shape = (1, 96, 5, 53, 100)
-    latents, seconds, launches = [], [], None
+    latent_shape = (1, 96, 5, 53, 100)
+    video_shape = (1, 6, 3, NUM_FRAMES, HEIGHT, WIDTH)
+    # the decode's own time: the pipeline's decode step, synchronised around it
+    decode_seconds, latents = [], []
+    pipeline_decode = pipe.decode
+
+    def timed_decode(z):
+        latents.append(z)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = pipeline_decode(z)
+        torch.cuda.synchronize()
+        decode_seconds.append(time.time() - t0)
+        return out
+
+    pipe.decode = timed_decode
+    videos, seconds, launches = [], [], None
     peak = 0
     for r in range(requests):
         torch.cuda.reset_peak_memory_stats()
         reset_counters()
         torch.cuda.synchronize()
         t0 = time.time()
-        z = pipe.sample(cond, num_frames=NUM_FRAMES, height=HEIGHT, width=WIDTH,
-                        torch_seed=1024 + r, decode=False)
+        v = pipe.sample(cond, num_frames=NUM_FRAMES, height=HEIGHT, width=WIDTH,
+                        torch_seed=1024 + r)
         torch.cuda.synchronize()
         seconds.append(time.time() - t0)
         got = read_counters()
         peak = max(peak, torch.cuda.max_memory_allocated())
-        require(tuple(z.shape) == expected_shape, z.shape)
-        require(z.dtype == torch.float32 and bool(z.isfinite().all()), "latents fp32 and finite")
+        require(tuple(latents[-1].shape) == latent_shape, latents[-1].shape)
+        require(tuple(v.shape) == video_shape, v.shape)
+        require(v.dtype == torch.float32 and bool(v.isfinite().all()), "video fp32 and finite")
         # batched CFG: one forward per step; encode_conditions runs once per sample
         want = {k: per_forward[k] * steps + encode_launches[k] for k in per_forward}
         require(got == want, (got, want))
-        require(all(v > 0 for v in got.values()), got)
+        require(all(x > 0 for x in got.values()), got)
         launches = got if launches is None else launches
-        latents.append(z)
+        videos.append(v)
     if requests > 1:
-        require(float((latents[0] - latents[1]).abs().max()) > 1e-3, "seeds gave one result")
+        require(float((videos[0] - videos[1]).abs().max()) > 1e-3, "seeds gave one result")
 
-    # determinism: the first request again, bit for bit
-    z_again = pipe.sample(cond, num_frames=NUM_FRAMES, height=HEIGHT, width=WIDTH,
-                          torch_seed=1024, decode=False)
-    require(torch.equal(z_again, latents[0]), "two runs of one seed differ")
+    # determinism: the first request again, bit for bit, decoded video included
+    v_again = pipe.sample(cond, num_frames=NUM_FRAMES, height=HEIGHT, width=WIDTH,
+                          torch_seed=1024)
+    require(torch.equal(latents[-1], latents[0]), "two runs of one seed differ (latents)")
+    require(torch.equal(v_again, videos[0]), "two runs of one seed differ (video)")
+    pipe.decode = pipeline_decode
+    flops = decode_flops(torch, pipe.vae, (6, 16) + latent_shape[2:])
+    sampling = [s - d for s, d in zip(seconds, decode_seconds)]
     emit("slice", model="MagicDriveSTDiT3-XL/2", dtype="bfloat16", params=n_params,
          views=6, frames=NUM_FRAMES, height=HEIGHT, width=WIDTH, steps=steps,
-         requests=requests, latent_shape=list(expected_shape), l_cond=l_cond,
-         seconds_per_sample=seconds,
-         seconds_per_step=[s / steps for s in seconds],
+         requests=requests, latent_shape=list(latent_shape), video_shape=list(video_shape),
+         l_cond=l_cond, seconds_per_sample=sampling,
+         seconds_per_step=[s / steps for s in sampling],
+         decode_seconds_per_sample=decode_seconds[:requests],
+         seconds_per_sample_with_decode=seconds,
+         decode_tflop=flops / 1e12, decode_bound_seconds=flops / PEAK_BF16,
+         decode_tflops=[flops / (d * 1e12) for d in decode_seconds[:requests]],
          launches_per_forward=per_forward, launches_encode_conditions=encode_launches,
          launches_per_sample=launches, peak_memory_bytes=peak,
-         latent_abs_mean=float(latents[0].abs().mean()), deterministic=True)
+         latent_abs_mean=float(latents[0].abs().mean()),
+         video_abs_mean=float(videos[0].abs().mean()), deterministic=True)
+    del videos, v_again, latents
     if with_profile:
         profile_step(torch, pipe, cond)
     return launches
+
+
+@contextlib.contextmanager
+def no_tf32(torch):
+    """fp32 matmuls and convolutions in full fp32 for the duration; the flags are
+    restored to what they were."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
 @contextlib.contextmanager
@@ -589,15 +694,13 @@ def run_slice_vs_plain(torch, seed):
     from magicdrive_v2_tpu_torch.pipelines.magicdrive import synthetic_batch
     from magicdrive_v2_tpu_torch.utils.ckpt import init_weights
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     cfg = xl2_config(torch, torch.float32, depth=2, control_depth=1)
     with torch.device("cuda"):
         model = MagicDriveSTDiT3(cfg).eval()
     init_weights(model, seed=seed)
     batch = synthetic_batch(cfg, NUM_FRAMES, HEIGHT, WIDTH, l_box=L_BOX)
     dev = to_card(torch, batch)
-    with torch.no_grad():
+    with torch.no_grad(), no_tf32(torch):
         reset_counters()
         out = model(**dev)
         torch.cuda.synchronize()
@@ -616,6 +719,126 @@ def run_slice_vs_plain(torch, seed):
          output_shape=list(out.shape), max_abs_err=err, ref_max=scale, limit=limit,
          launches=with_kernels)
     require(scale > 1e-3 and err <= limit, (err, scale, limit))
+
+
+DECODE_FP32_LIMIT = 1e-4  # absolute, frames of order 1: fp32 in another summation order
+DECODE_BF16_RMS_LIMIT = 2.0 ** -5.5  # rms(bf16 - fp32) / rms(fp32), see run_decode_vs_cpu
+
+
+def _group_norm_in_bf16(self, x):
+    """GroupNorm wholly in the input's dtype, statistics and affine included: the
+    cast point that a missing ``.float()`` gives (control only)."""
+    import torch
+    n, c = x.shape[:2]
+    var, mean = torch.var_mean(x.view(n, self.num_groups, -1), dim=2, unbiased=False)
+    per_group = c // self.num_groups
+    a = torch.rsqrt(var + self.eps).repeat_interleave(per_group, 1) * self.weight.to(x.dtype)
+    b = self.bias.to(x.dtype) - mean.repeat_interleave(per_group, 1) * a
+    shape = (n, c) + (1,) * (x.dim() - 2)
+    return torch.addcmul(b.view(shape), x, a.view(shape))
+
+
+@contextlib.contextmanager
+def wrong_cast_point(torch, kind):
+    """Move one cast point of the port's VAE, for the controls of
+    ``run_decode_vs_cpu``; the package itself has no such switch. Every
+    convolution of the VAE goes through ``F.conv3d``."""
+    import torch.nn.functional as F
+    from magicdrive_v2_tpu_torch.models.vae import cogvideox
+    conv3d = F.conv3d
+
+    def conv_bias_after_rounding(x, w, bias=None, *args, **kw):
+        y = conv3d(x, w, None, *args, **kw)  # rounded to bf16, then the bias added
+        return y if bias is None else y + bias.view(1, -1, 1, 1, 1)
+
+    owner, name, fn = {"group_norm_in_bf16": (cogvideox.GroupNorm, "forward",
+                                              _group_norm_in_bf16),
+                       "conv_bias_after_rounding": (F, "conv3d",
+                                                    conv_bias_after_rounding)}[kind]
+    saved = getattr(owner, name)
+    setattr(owner, name, fn)
+    try:
+        yield
+    finally:
+        setattr(owner, name, saved)
+
+
+def run_decode_vs_cpu(torch, seed):
+    """fp32 decode on the card (TF32 off) against the CPU's, one view of 5 latent
+    frames of 8x10 (3 + 2 streamed); then bf16 against fp32 on the card for one
+    view at the main path's latent size, for the port's cast points and for two
+    controls that each move one of them (GroupNorm wholly in bf16; the conv bias
+    added after rounding). The bf16 limit bounds the drift of ~60 layers that each
+    round their output to bf16 (relative 2**-9), measured on an H100 at 2**-6.8 to
+    2**-6.7 of the rms over three seeds, so it leaves 2.3x: it catches arithmetic that loses
+    more than rounding does (a wrong scale, a dropped term). It does not catch a
+    misplaced cast point: the controls read 1.00x and 1.05-1.07x the sound
+    reading, and are reported, not judged."""
+    gen = torch.Generator().manual_seed(seed)
+    with no_tf32(torch):
+        on_card = cogvideox_vae(torch, torch.float32, seed + 1)
+        on_cpu = cogvideox_vae(torch, torch.float32, seed + 1, device="cpu")
+        z = torch.randn(1, 16, 5, 8, 10, generator=gen)
+        out, ref = on_card.decode(z.cuda()).cpu(), on_cpu.decode(z)
+        require(tuple(out.shape) == (1, 3, 17, 64, 80), out.shape)
+        err, scale = max_err(out, ref)
+        require(scale > 1e-2 and err <= DECODE_FP32_LIMIT, (err, scale))
+        del on_cpu
+        z = torch.randn(1, 16, 5, 53, 100, generator=gen).cuda()
+        f32 = on_card.decode(z)
+        del on_card
+    torch.cuda.empty_cache()
+    vae = cogvideox_vae(torch, torch.bfloat16, seed + 1)
+    rms = float(f32.square().mean().sqrt())
+
+    def rms_ratio(video):
+        require(bool(video.isfinite().all()), "bf16 decode not finite")
+        return float((video.float() - f32).square().mean().sqrt()) / rms
+
+    b16 = vae.decode(z.bfloat16())
+    ratio = rms_ratio(b16)
+    controls = {}
+    for kind in ("group_norm_in_bf16", "conv_bias_after_rounding"):
+        with wrong_cast_point(torch, kind):
+            controls[kind] = rms_ratio(vae.decode(z.bfloat16()))
+    emit("decode_vs_cpu", fp32_shape=list(out.shape), fp32_max_abs_err=err, fp32_ref_max=scale,
+         fp32_limit=DECODE_FP32_LIMIT, bf16_shape=list(f32.shape), fp32_rms=rms,
+         bf16_rms_err_ratio=ratio, bf16_rms_ratio_limit=DECODE_BF16_RMS_LIMIT,
+         bf16_max_abs_err=float((b16.float() - f32).abs().max()),
+         control_rms_err_ratio=controls)
+    require(rms > 1e-2, rms)
+    require(ratio <= DECODE_BF16_RMS_LIMIT, (ratio, DECODE_BF16_RMS_LIMIT))
+
+
+def run_app(torch, per_forward, encode_launches):
+    """The inference app on the 424x800 config, synthetic conditioning, 17 frames,
+    2 steps; its frames are written under outputs/ in the checkout, read back, and
+    removed."""
+    from magicdrive_v2_tpu_torch.scripts import inference_magicdrive
+    from magicdrive_v2_tpu_torch.utils.inference_utils import read_png
+    out_dir = os.path.join("outputs", "chip_smoke_app")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    t0 = time.time()
+    reset_counters()
+    saved = inference_magicdrive.main(
+        [APP_CONFIG, "--synthetic", "--num-frames", str(NUM_FRAMES), "--num-samples", "1",
+         "--cfg-options", "scheduler.num_sampling_steps=2", f"outputs={out_dir}"])
+    got = read_counters()
+    seconds = time.time() - t0
+    want = {k: per_forward[k] * 2 + encode_launches[k] for k in per_forward}
+    require(got == want, (got, want))
+    require(len(saved) == 1, len(saved))
+    path, frames = saved[0]
+    names = sorted(os.listdir(path))
+    require(names == [f"{i:04d}.png" for i in range(NUM_FRAMES)], names)
+    require(frames.shape == (NUM_FRAMES, 2 * HEIGHT, 3 * WIDTH, 3), frames.shape)
+    for i, name in enumerate(names):
+        require(bool((read_png(os.path.join(path, name)) == frames[i]).all()), name)
+    require(float(frames.std()) > 1.0, "constant frames")
+    nbytes = sum(os.path.getsize(os.path.join(path, n)) for n in names)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    emit("app", config=APP_CONFIG, frames=len(names), frame_shape=list(frames.shape[1:]),
+         png_bytes=nbytes, seconds=seconds, launches=got)
 
 
 def main():
@@ -665,6 +888,9 @@ def main():
     del pipe
     torch.cuda.empty_cache()
     run_slice_vs_plain(torch, args.seed)
+    run_decode_vs_cpu(torch, args.seed)
+    torch.cuda.empty_cache()
+    run_app(torch, per_forward, encode_launches)
 
     # where the Pallas kernels sit in the JAX package (a path only: nothing of that
     # package is imported)

@@ -1,5 +1,5 @@
-"""Config presets of the port (its own copy of what the sampling slice needs
-from the JAX package's config/presets.py)."""
+"""Config presets of the port: its own copy of the JAX package's
+config/presets.py, the names the experiment files under configs/ import."""
 from __future__ import annotations
 
 MV_ORDER_MAP = {0: [5, 1], 1: [0, 2], 2: [1, 3], 3: [2, 4], 4: [3, 5], 5: [4, 0]}
@@ -47,3 +47,36 @@ def rflow(num_sampling_steps=30, cfg_scale=2.0, **kw) -> dict:
     kind = kw.pop("type", "rflow")
     return dict(type=kind, use_timestep_transform=True, cog_style_trans=True,
                 num_sampling_steps=num_sampling_steps, cfg_scale=cfg_scale, **kw)
+
+
+NUSCENES_CLASSES = ["car", "truck", "construction_vehicle", "bus", "trailer", "barrier",
+                    "motorcycle", "bicycle", "pedestrian", "traffic_cone"]
+
+
+def cogvae(micro_frame_size=None, micro_batch_size=1,
+           from_pretrained="./pretrained/CogVideoX-2b") -> dict:
+    return dict(type="VideoAutoencoderKLCogVideoX", from_pretrained=from_pretrained,
+                subfolder="vae", micro_frame_size=micro_frame_size,
+                micro_batch_size=micro_batch_size)
+
+
+def t5_xxl(from_pretrained="./pretrained/t5-v1_1-xxl", model_max_length=300) -> dict:
+    return dict(type="t5", from_pretrained=from_pretrained,
+                model_max_length=model_max_length)
+
+
+def default_mask_ratios() -> dict:
+    """~25 % frame-mask training."""
+    return {
+        "random": 0.01, "intepolate": 0.002, "quarter_random": 0.002,
+        "quarter_head": 0.002, "quarter_tail": 0.002, "quarter_head_tail": 0.002,
+        "image_random": 0.0, "image_head": 0.22, "image_tail": 0.005,
+        "image_head_tail": 0.005,
+    }
+
+
+def img_collate_param(bbox_mode: str = "all-xyz", is_train: bool = True) -> dict:
+    return dict(frame_emb="next2top", bbox_mode=bbox_mode, bbox_view_shared=False,
+                keyframe_rate=6, bbox_drop_ratio=0.4 if is_train else 0.0,
+                bbox_add_ratio=0.1 if is_train else 0.0, bbox_add_num=3,
+                bbox_processor_type=2)

@@ -1,5 +1,6 @@
-"""Text encoders of the port. Only the deterministic ``DummyTextEncoder``
-("t5-dummy") is here so far; the T5-XXL wrapper needs a local snapshot.
+"""Text encoders of the port, registered as "t5-dummy" (``DummyTextEncoder``,
+deterministic) and "t5" (``T5Encoder``, T5-XXL through ``transformers`` from a
+local snapshot).
 
 API: ``encode(texts) -> {y: (B, 1, L, D), mask: (B, L)}`` and ``null(n)``, the
 DiT's learned null caption embedding set through ``set_null_embedding``.
@@ -8,12 +9,14 @@ from __future__ import annotations
 
 import hashlib
 import html
+import os
 import re
 from typing import List, Optional
 
 import numpy as np
 import torch
 
+from ...registry import MODELS
 from ...utils.misc import resolve_device
 
 try:
@@ -54,6 +57,46 @@ def text_preprocessing(text: str, use_text_preprocessing: bool = True) -> str:
     return text.lower().strip()
 
 
+@MODELS.register_module("t5")
+class T5Encoder:
+    """T5 encoder of ``transformers`` from a local snapshot directory. Raises
+    ``OSError`` when the directory is missing (nothing is downloaded) and
+    ``ImportError`` without ``transformers``; ``MagicDrivePipeline.from_config``
+    then falls back to "t5-dummy"."""
+
+    def __init__(self, from_pretrained: str, model_max_length: int = 120,
+                 device="cuda", dtype=torch.float32, **kwargs):
+        if not os.path.isdir(from_pretrained):
+            raise OSError(f"T5 snapshot {from_pretrained!r} is not a local directory")
+        from transformers import AutoTokenizer, T5EncoderModel
+        self.device = resolve_device(device)
+        self.tokenizer = AutoTokenizer.from_pretrained(from_pretrained,
+                                                       local_files_only=True)
+        self.model = T5EncoderModel.from_pretrained(
+            from_pretrained, local_files_only=True, torch_dtype=dtype).to(self.device).eval()
+        self.model_max_length = model_max_length
+        self.output_dim = self.model.config.d_model
+        self.null_y: Optional[torch.Tensor] = None
+
+    @torch.no_grad()
+    def encode(self, texts: List[str]):
+        tok = self.tokenizer([text_preprocessing(t) for t in texts],
+                             max_length=self.model_max_length, padding="max_length",
+                             truncation=True, return_attention_mask=True,
+                             add_special_tokens=True, return_tensors="pt")
+        ids, mask = tok["input_ids"].to(self.device), tok["attention_mask"].to(self.device)
+        emb = self.model(input_ids=ids, attention_mask=mask)[0]
+        return dict(y=emb[:, None], mask=mask)
+
+    def set_null_embedding(self, y_embedding: torch.Tensor):
+        self.null_y = y_embedding.detach()
+
+    def null(self, n: int) -> torch.Tensor:
+        assert self.null_y is not None, "call set_null_embedding(y_embedding) first"
+        return self.null_y[None, None].expand((n, 1) + tuple(self.null_y.shape))
+
+
+@MODELS.register_module("t5-dummy")
 class DummyTextEncoder:
     """Deterministic stand-in with the T5 encoder's API: embeddings are seeded
     per text from a hash (numpy), so both packages produce the same arrays."""

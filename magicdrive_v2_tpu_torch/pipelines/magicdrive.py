@@ -1,6 +1,7 @@
-"""End-to-end generation pipeline of the port, up to the denoised latents
-(counterpart of the JAX package's pipelines/magicdrive.py; the VAE decode is not
-ported yet, so ``sample(decode=True)`` raises).
+"""End-to-end generation pipeline of the port (counterpart of the JAX package's
+pipelines/magicdrive.py): conditions -> CFG Euler sampling of the latents ->
+CogVideoX VAE decode of each view. ``from_config`` builds it from an experiment
+config.
 
 Classifier-free guidance:
 - "rflow": batched — cond and null conditions concatenated on the batch axis,
@@ -12,18 +13,25 @@ The step-independent conditioning is embedded once per sample
 """
 from __future__ import annotations
 
+import logging
 from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
+from ..config.presets import NUSCENES_CLASSES
 from ..models.magicdrive.stdit3 import (MagicDriveSTDiT3, MagicDriveSTDiT3Config,
-                                        cast_model)
+                                        build_model_config, cast_model)
 from ..models.text_encoder.t5 import DummyTextEncoder
-from ..models.vae.cogvideox import get_latent_size
-from ..schedulers.rf import RFLOW
+from ..models.vae.cogvideox import (CogVAEConfig, VideoAutoencoderKLCogVideoX,
+                                    get_latent_size)
+from ..registry import MODELS
+from ..schedulers.rf import RFLOW, build_scheduler
+from ..utils.ckpt import init_weights
 from ..utils.inference_utils import add_null_condition, replace_with_null_condition
 from ..utils.misc import resolve_device, torch_randn
+
+logger = logging.getLogger(__name__)
 
 _MODEL_KEYS = ("y", "maps", "bbox", "cams", "rel_pos", "fps", "frame_valid")
 
@@ -39,16 +47,18 @@ def _to_device(v, device):
 
 
 class MagicDrivePipeline:
-    """Model + scheduler + text encoder on one device.
+    """Model + scheduler + text encoder + VAE on one device.
 
     ``device`` defaults to ``"cuda"`` and raises when no card is present; pass
-    ``device="cpu"`` for the plain PyTorch versions of the kernels.
+    ``device="cpu"`` for the plain PyTorch versions of the kernels. Without a
+    ``vae`` the pipeline samples latents only (``decode=False``).
     """
 
     def __init__(self, model_cfg: MagicDriveSTDiT3Config, scheduler: RFLOW,
                  text_encoder=None, model: Optional[MagicDriveSTDiT3] = None,
-                 device="cuda"):
+                 device="cuda", vae: Optional[VideoAutoencoderKLCogVideoX] = None):
         self.device = resolve_device(device)
+        self.vae = vae
         self.model_cfg = model_cfg
         if model is None:
             with torch.device(self.device):  # parameters are created on the device
@@ -60,6 +70,60 @@ class MagicDrivePipeline:
                                             output_dim=model_cfg.caption_channels,
                                             device=self.device)
         self.text_encoder = text_encoder
+
+    @classmethod
+    def from_config(cls, cfg, device="cuda") -> "MagicDrivePipeline":
+        """Model, VAE, text encoder and scheduler from an experiment config (see
+        configs/magicdrive/). Weights without a snapshot are random, seeded by the
+        config's ``seed``; a configured VAE snapshot that is missing leaves the VAE
+        random with a warning, one that is present but unreadable raises."""
+        dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}.get(
+            cfg.get("dtype", "bf16"), torch.bfloat16)
+        seed = int(cfg.get("seed", 42))
+        if int(cfg.get("sp_size", 1) or 1) > 1:
+            raise NotImplementedError(
+                "sp_size > 1: sequence-parallel sampling is not ported yet; set sp_size=1")
+        if "BrushNet" in str(cfg.get("model", {}).get("type", "")):
+            raise NotImplementedError("BrushNet models are not ported yet")
+
+        vae_kw = dict(cfg.get("vae", {}))
+        vae_cls = MODELS.get(vae_kw.pop("type", "VideoAutoencoderKLCogVideoX"))
+        tiling_px = cfg.get("vae_tiling")  # N: tiled decode with N-pixel tiles
+        if tiling_px and "tiling" not in vae_kw:
+            vae_kw["tiling"] = dict(tile_sample_min_height=int(tiling_px),
+                                    tile_sample_min_width=int(tiling_px))
+        vae = vae_cls(CogVAEConfig(dtype=dtype), device=device, **vae_kw)
+        loaded = False
+        if vae.from_pretrained:
+            try:
+                vae.load_pretrained()
+                loaded = True
+                logger.info("VAE: loaded pretrained weights from %s", vae.from_pretrained)
+            except FileNotFoundError as e:  # absent; a malformed snapshot raises
+                logger.warning(
+                    "VAE pretrained weights unavailable (%s) - USING RANDOM INIT; "
+                    "decoded videos will be noise. Point vae.from_pretrained at a local "
+                    "CogVideoX VAE snapshot.", e)
+        if not loaded:
+            init_weights(vae.module, seed=seed + 1)
+
+        model_cfg = build_model_config(
+            cfg.model, vae_out_channels=cfg.get("vae_out_channels", 16),
+            mv_order_map=cfg.get("mv_order_map"), dtype=dtype)
+        te_cfg = dict(cfg.get("text_encoder", {"type": "t5-dummy"}))
+        te_kind = te_cfg.pop("type", "t5-dummy")
+        try:
+            text_encoder = MODELS.get(te_kind)(**te_cfg, device=device)
+        except (OSError, ImportError, ValueError) as e:
+            # only a missing snapshot or package falls back; a wrong type or
+            # argument (KeyError, TypeError) fails
+            logger.warning("text encoder %r unavailable (%s); using t5-dummy", te_kind, e)
+            text_encoder = MODELS.get("t5-dummy")(
+                model_max_length=te_cfg.get("model_max_length", 300), device=device)
+        pipe = cls(model_cfg, build_scheduler(cfg.scheduler), text_encoder, device=device,
+                   vae=vae)
+        init_weights(pipe.model, seed=seed)
+        return pipe
 
     # ------------------------------------------------------------------
     @property
@@ -73,6 +137,23 @@ class MagicDrivePipeline:
     def null_y(self, n: int) -> torch.Tensor:
         self.text_encoder.set_null_embedding(self.model.y_embedder.y_embedding)
         return self.text_encoder.null(n)
+
+    @torch.no_grad()
+    def prepare_text_embedding(self):
+        """Set the box class tokens to the mean text embedding of each class name
+        and the base token to the embedding of the empty caption, both from the
+        text encoder."""
+        classes = list(getattr(self.text_encoder, "class_names", None) or NUSCENES_CLASSES)
+
+        def embed(text):
+            ret = self.text_encoder.encode([text])
+            y = self.model.encode_text(ret["y"].to(self.device))
+            return y[0, :int(ret["mask"].sum())].float()
+
+        tokens = self.model.bbox_embedder._class_tokens
+        for i, name in enumerate(classes):
+            tokens[i] = embed(name).mean(dim=0).to(tokens.dtype)
+        self.model.base_token.copy_(embed("")[0])
 
     # ------------------------------------------------------------------
     def _build_predict_fn(self, model_args: Dict, guidance_scale: float,
@@ -141,12 +222,12 @@ class MagicDrivePipeline:
         cams, rel_pos, fps (numpy arrays or tensors). num_frames/height/width:
         the pixel-space target. The starting latent comes from ``z``, else from
         the CPU generator seeded with ``torch_seed``, else from ``generator``.
-        Returns the denoised latents (b, C*NC, T', H', W'), fp32.
+        Returns the decoded views (b, NC, 3, T, H, W), fp32; with
+        ``decode=False`` the denoised latents (b, C*NC, T', H', W'), fp32.
         """
-        if decode:
-            raise NotImplementedError(
-                "sample(decode=True) needs the CogVideoX VAE decoder, which is the "
-                "next slice of the port; call sample(..., decode=False) for latents")
+        if decode and self.vae is None:
+            raise ValueError("sample(decode=True) needs a VAE: build the pipeline with "
+                             "vae= or from_config, or pass decode=False")
         sched = self.scheduler
         guidance_scale = guidance_scale if guidance_scale is not None else sched.cfg_scale
         batch = dict(batch)
@@ -158,7 +239,8 @@ class MagicDrivePipeline:
         model_args = {k: _to_device(batch[k], self.device) for k in _MODEL_KEYS
                       if k in batch}
         b = model_args["y"].shape[0]
-        lat_t, lat_h, lat_w = get_latent_size([num_frames, height, width])
+        lat_t, lat_h, lat_w = (self.vae.get_latent_size if self.vae is not None
+                               else get_latent_size)([num_frames, height, width])
         if z is None:
             z_shape = (b, cfg.in_channels * nc, lat_t, lat_h, lat_w)
             if torch_seed is not None or generator is None:
@@ -184,8 +266,19 @@ class MagicDrivePipeline:
                   else torch.as_tensor(nf_valid, dtype=torch.float32))
         if mask is not None:
             mask = torch.as_tensor(mask, dtype=torch.float32).to(self.device)
-        return sched.sample(predict, z, mask=mask, noise_fn=noise_fn,
-                            generator=generator, **hw)
+        latents = sched.sample(predict, z, mask=mask, noise_fn=noise_fn,
+                               generator=generator, **hw)
+        return self.decode(latents) if decode else latents
+
+    @torch.no_grad()
+    def decode(self, latents: torch.Tensor) -> torch.Tensor:
+        """(b, C*NC, T', H', W') latents -> (b, NC, 3, T, H, W) fp32 video, every
+        view decoded in the VAE's dtype."""
+        b, _, t, h, w = latents.shape
+        C, nc = self.model_cfg.in_channels, self.model_cfg.nc
+        lat = latents.reshape(b, C, nc, t, h, w).transpose(1, 2).reshape(b * nc, C, t, h, w)
+        vids = self.vae.decode(lat.to(self.vae.dtype))
+        return vids.float().reshape(b, nc, *vids.shape[1:])
 
 
 def synthetic_batch(model_cfg, num_frames: int, height: int, width: int,

@@ -1,5 +1,5 @@
-"""Weights for the port: conversion from the JAX package's parameter tree, and a
-seeded random fill.
+"""Weights for the port: conversion from the JAX package's parameter tree, the
+reading of torch checkpoints and diffusers snapshots, and a seeded random fill.
 
 ``from_jax_params`` maps a flax parameter tree (nested dicts of numpy arrays)
 to a state dict in the port's key names and layouts, which are the reference
@@ -11,11 +11,16 @@ torch checkpoint's:
   tables and buffers                unchanged
 
 Scanned layer groups (a leading layer axis) are unstacked into
-``base_blocks_s.{i}`` etc., the plain segment offset by ``control_depth``.
+``base_blocks_s.{i}`` etc., the plain segment offset by ``control_depth``. The
+VAE's ``down_blocks_N`` / ``resnets_N`` / ... become ``down_blocks.N`` / ...
+and a GroupNorm ``scale`` its ``weight``.
 """
 from __future__ import annotations
 
+import json
+import os
 import re
+import struct
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -32,6 +37,13 @@ _NAME_REWRITES = [
     (re.compile(r"^qkv_kernel$"), "qkv.weight"),
     (re.compile(r"^qkv_bias$"), "qkv.bias"),
     (re.compile(r"^kernel$"), "weight"),
+    # the CogVideoX VAE's module tree
+    (re.compile(r"^down_blocks_(\d+)$"), r"down_blocks.\1"),
+    (re.compile(r"^up_blocks_(\d+)$"), r"up_blocks.\1"),
+    (re.compile(r"^resnets_(\d+)$"), r"resnets.\1"),
+    (re.compile(r"^downsamplers_(\d+)$"), r"downsamplers.\1"),
+    (re.compile(r"^upsamplers_(\d+)$"), r"upsamplers.\1"),
+    (re.compile(r"^scale$"), "weight"),  # GroupNorm
 ]
 
 # scanned layer containers: (group, block) -> (module list, offset by control_depth?)
@@ -102,17 +114,103 @@ def from_jax_params(tree: Any, control_depth: int = 13) -> Dict[str, np.ndarray]
     return out
 
 
-def load_numpy_state_dict(module: torch.nn.Module, state: Dict[str, np.ndarray],
-                          strict: bool = True):
-    """``load_state_dict`` from numpy arrays, cast to each parameter's dtype."""
+def load_state_dict_cast(module: torch.nn.Module, state: Dict[str, Any],
+                         strict: bool = True):
+    """``load_state_dict`` from numpy arrays or tensors, each cast to the dtype of
+    the module's entry of that name."""
     own = module.state_dict()
     tensors = {}
     for k, v in state.items():
-        t = torch.from_numpy(np.array(v))  # a copy: the source may be read-only
+        # a copy: a numpy source may be read-only
+        t = v.detach() if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v))
         if k in own:
             t = t.to(own[k].dtype)
         tensors[k] = t
     return module.load_state_dict(tensors, strict=strict)
+
+
+# ---------------------------------------------------------------------------
+# torch checkpoints and diffusers snapshots, read without extra packages
+# ---------------------------------------------------------------------------
+
+_SAFETENSORS_DTYPES = {
+    "F64": torch.float64, "F32": torch.float32, "F16": torch.float16,
+    "BF16": torch.bfloat16, "I64": torch.int64, "I32": torch.int32, "I16": torch.int16,
+    "I8": torch.int8, "U8": torch.uint8, "BOOL": torch.bool,
+}
+
+
+def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """A ``.safetensors`` file: an 8-byte little-endian header length, a JSON
+    header of {name: {dtype, shape, data_offsets}}, then the raw little-endian
+    buffers, offsets relative to the end of the header."""
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
+        data = bytearray(f.read())
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        begin, end = info["data_offsets"]
+        dtype = _SAFETENSORS_DTYPES[info["dtype"]]
+        t = torch.frombuffer(data, dtype=dtype, offset=begin,
+                             count=(end - begin) // dtype.itemsize) if end > begin \
+            else torch.empty(0, dtype=dtype)
+        out[name] = t.reshape(info["shape"]).clone()
+    return out
+
+
+def load_torch_file(path: str) -> Dict[str, torch.Tensor]:
+    """A state dict from ``.safetensors`` or a torch ``.pt`` / ``.pth`` / ``.bin``
+    file (``torch.load(weights_only=True)``; a ``"state_dict"`` entry is
+    unwrapped). Tensors on the CPU in their stored dtype."""
+    if path.endswith(".safetensors"):
+        return read_safetensors(path)
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    return {k: v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
+            for k, v in sd.items()}
+
+
+def resolve_pretrained_dir(path: str, subfolder: Optional[str] = None
+                           ) -> Tuple[Optional[dict], Dict[str, torch.Tensor]]:
+    """(config.json as a dict or None, state dict) of a local diffusers snapshot:
+    a directory (``subfolder`` inside it, e.g. "vae", when present) holding
+    ``config.json`` and ``diffusion_pytorch_model.{safetensors,bin}``, one
+    weights file, or an index of shards; or a weights file itself. A hub id is
+    not fetched: anything but a local path raises ``FileNotFoundError``."""
+    if os.path.isfile(path):
+        return None, load_torch_file(path)
+    if not os.path.isdir(path):
+        raise FileNotFoundError(
+            f"pretrained path {path!r} is not a local file or directory (nothing is "
+            "downloaded; pass a snapshot directory)")
+    d = path
+    if subfolder and os.path.isdir(os.path.join(d, subfolder)):
+        d = os.path.join(d, subfolder)
+    cfg = None
+    if os.path.isfile(os.path.join(d, "config.json")):
+        with open(os.path.join(d, "config.json")) as f:
+            cfg = json.load(f)
+    for name in ("diffusion_pytorch_model.safetensors", "diffusion_pytorch_model.bin",
+                 "model.safetensors", "pytorch_model.bin"):
+        if os.path.isfile(os.path.join(d, name)):
+            return cfg, load_torch_file(os.path.join(d, name))
+    index = [f for f in sorted(os.listdir(d)) if f.endswith(".index.json")]
+    if index:  # a sharded snapshot: every shard, or the model would be part random
+        with open(os.path.join(d, index[0])) as f:
+            shards = sorted(set(json.load(f)["weight_map"].values()))
+        merged: Dict[str, torch.Tensor] = {}
+        for shard in shards:
+            merged.update(load_torch_file(os.path.join(d, shard)))
+        return cfg, merged
+    cands = [f for f in sorted(os.listdir(d))
+             if f.endswith((".safetensors", ".bin", ".pt", ".pth"))]
+    if len(cands) != 1:
+        raise FileNotFoundError(f"expected one weights file under {d!r}, found {cands}")
+    return cfg, load_torch_file(os.path.join(d, cands[0]))
 
 
 @torch.no_grad()
@@ -121,7 +219,10 @@ def init_weights(model: torch.nn.Module, seed: int = 0, std: float = 0.02,
     """Fill every parameter and buffer with small normal values from
     ``np.random.default_rng``: one stream per tensor, keyed by (seed, position in
     the state dict). The projections the reference zero-initialises are filled
-    too, so every branch of the network contributes to the output."""
+    too, so every branch of the network contributes to the output. RMSNorm and
+    GroupNorm weights centre on 1."""
+    centred = {f"{n}.weight" for n, m in model.named_modules()
+               if isinstance(m, torch.nn.GroupNorm)}
     for i, (name, t) in enumerate(model.state_dict().items()):
         if not t.is_floating_point():
             continue
@@ -131,6 +232,6 @@ def init_weights(model: torch.nn.Module, seed: int = 0, std: float = 0.02,
             n = min(chunk, flat.numel() - s)
             vals = torch.from_numpy(rng.standard_normal(n, np.float32))
             flat[s:s + n] = (vals * std).to(device=t.device, dtype=t.dtype)
-        if name.endswith("_norm.weight"):
-            t.add_(1.0)  # RMSNorm weights centre on 1
+        if name.endswith("_norm.weight") or name in centred:
+            t.add_(1.0)
     return model

@@ -1,8 +1,9 @@
 """Small shared helpers."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 
@@ -16,6 +17,26 @@ def torch_randn(shape, seed: Optional[int] = None,
         if seed is not None:
             generator.manual_seed(int(seed))
     return torch.randn(*shape, generator=generator)
+
+
+def torch_randn_stream(seed: int) -> Callable:
+    """The reference's seed contract for one sample: ``torch.manual_seed(s)``
+    followed by several ``torch.randn`` calls (z first, then the box latents), as
+    ``draw(shape) -> tensor`` on one CPU generator."""
+    gen = torch.Generator()
+    gen.manual_seed(int(seed))
+    return lambda shape: torch_randn(shape, generator=gen)
+
+
+def add_box_latent(bboxes: Dict, b: int, nc: int, t: int, sample_fn: Callable) -> Dict:
+    """Attach per-instance latents shared across views and time: ``sample_fn(n)``
+    draws (n, D) for the b*n_boxes instances, broadcast to (b*nc, t, n_boxes, D)."""
+    n_boxes = bboxes["bboxes"].shape[-3]
+    latent = np.asarray(sample_fn(b * n_boxes)).reshape(b, 1, 1, n_boxes, -1)
+    latent = np.broadcast_to(latent, (b, nc, t, n_boxes, latent.shape[-1]))
+    bboxes = dict(bboxes)
+    bboxes["box_latent"] = latent.reshape(b * nc, t, n_boxes, -1)
+    return bboxes
 
 
 def resolve_device(device) -> torch.device:

@@ -18,7 +18,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from magicdrive_v2_tpu_torch.utils.ckpt import from_jax_params, load_numpy_state_dict
+from magicdrive_v2_tpu_torch.utils.ckpt import from_jax_params, load_state_dict_cast
 
 
 def fill_tree(shapes, seed=0, std=0.05):
@@ -50,7 +50,7 @@ def np_tree(tree):
 def load_into(torch_module, params, control_depth=13):
     """from_jax_params + load_state_dict(strict=True)."""
     state = from_jax_params(np_tree(params), control_depth)
-    load_numpy_state_dict(torch_module, state, strict=True)
+    load_state_dict_cast(torch_module, state, strict=True)
     return torch_module.eval()
 
 

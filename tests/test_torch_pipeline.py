@@ -1,5 +1,6 @@
-"""PyTorch port, the slice as a whole: ``MagicDrivePipeline.sample(decode=False)``
-at the tiny flagship config against the JAX pipeline on the CPU, fp32.
+"""PyTorch port, the slice as a whole: ``MagicDrivePipeline.sample`` at the tiny
+flagship config (and a tiny VAE for ``decode=True``) against the JAX pipeline on
+the CPU, fp32; ``from_config`` and the inference app on the CPU.
 
 The starting latent comes from the CPU torch generator both packages share
 (``torch_seed``), the conditioning from the numpy-seeded ``synthetic_batch``, the
@@ -7,6 +8,7 @@ weights through ``from_jax_params``. Tolerance 3e-4 absolute on latents of order
 1: two Euler steps of batched-CFG (guidance 2.0 doubles the model's fp32 error)
 through a model that itself agrees to 1e-4.
 """
+import json
 import os
 import subprocess
 import sys
@@ -15,23 +17,49 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_common import assert_close, j, load_into, random_params, tiny_configs
+from test_torch_common import (assert_close, fill_tree, j, load_into, np_tree,
+                               random_params, tiny_configs)
 
+import jax
+import jax.numpy as jnp
 from magicdrive_v2_tpu.models.magicdrive.stdit3 import MagicDriveSTDiT3 as JModel
 from magicdrive_v2_tpu.models.text_encoder.t5 import DummyTextEncoder as JDummy
+from magicdrive_v2_tpu.models.vae.cogvideox import AutoencoderKLCogVideoX as JVAE
+from magicdrive_v2_tpu.models.vae.cogvideox import CogVAEConfig as JVAECfg
 from magicdrive_v2_tpu.models.vae.cogvideox import VideoAutoencoderKLCogVideoX
 from magicdrive_v2_tpu.pipelines.magicdrive import MagicDrivePipeline as JPipeline
 from magicdrive_v2_tpu.schedulers import rf as JR
 from magicdrive_v2_tpu_torch.config.presets import rflow
 from magicdrive_v2_tpu_torch.models.magicdrive.stdit3 import MagicDriveSTDiT3 as TModel
 from magicdrive_v2_tpu_torch.models.text_encoder.t5 import DummyTextEncoder
-from magicdrive_v2_tpu_torch.models.vae.cogvideox import get_latent_size
+from magicdrive_v2_tpu_torch.models.vae.cogvideox import (CogVAEConfig,
+                                                          VideoAutoencoderKLCogVideoX as TVAE,
+                                                          get_latent_size)
 from magicdrive_v2_tpu_torch.pipelines.magicdrive import MagicDrivePipeline, synthetic_batch
 from magicdrive_v2_tpu_torch.schedulers.rf import build_scheduler
+from magicdrive_v2_tpu_torch.utils.ckpt import from_jax_params, load_state_dict_cast
 from magicdrive_v2_tpu_torch.utils.misc import torch_randn
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NF, HH, WW, L_TXT, STEPS = 9, 64, 80, 20, 2
+# a tiny VAE with the model's 16 latent channels
+TINY_VAE = dict(block_out_channels=(8, 8, 8, 16), latent_channels=16, layers_per_block=1,
+                norm_num_groups=4)
+
+
+def _tiny_vaes():
+    """(JAX wrapper, port wrapper) of the tiny VAE over the same random weights
+    (GroupNorm scales around 1); the JAX decode runs under ``jax.jit``."""
+    jvae = VideoAutoencoderKLCogVideoX(JVAECfg(**TINY_VAE))
+    shapes = jax.eval_shape(lambda: JVAE(jvae.cfg).init(jax.random.PRNGKey(0),
+                                                        jnp.zeros((1, 3, 1, 16, 16))))
+    jvae.params = jax.tree_util.tree_map_with_path(
+        lambda p, v: v + 1.0 if getattr(p[-1], "key", "") == "scale" else v,
+        fill_tree(shapes, 3, std=0.1))
+    jvae.decode = jax.jit(jvae.decode)
+    tvae = TVAE(CogVAEConfig(**TINY_VAE), device="cpu")
+    load_state_dict_cast(tvae.module, from_jax_params(np_tree(jvae.params)), strict=True)
+    return jvae, tvae
 
 
 def _jax_tree(v):
@@ -47,10 +75,12 @@ def pipes():
     jmodel = JModel(jcfg)
     params = random_params(jmodel, **_jax_tree(batch))
     sched_kw = rflow(num_sampling_steps=STEPS)
-    jpipe = JPipeline(jmodel, params, VideoAutoencoderKLCogVideoX(),
-                      JDummy(model_max_length=L_TXT), JR.build_scheduler(sched_kw))
+    jvae, tvae = _tiny_vaes()
+    jpipe = JPipeline(jmodel, params, jvae, JDummy(model_max_length=L_TXT),
+                      JR.build_scheduler(sched_kw))
     tmodel = load_into(TModel(tcfg), params, control_depth=tcfg.control_depth)
-    tpipe = MagicDrivePipeline(tcfg, build_scheduler(sched_kw), model=tmodel, device="cpu")
+    tpipe = MagicDrivePipeline(tcfg, build_scheduler(sched_kw), model=tmodel, device="cpu",
+                               vae=tvae)
     cond = {k: v for k, v in batch.items() if k not in ("x", "timestep", "height", "width")}
     return jpipe, tpipe, cond
 
@@ -114,16 +144,120 @@ def test_captions_and_neg_prompts_go_through_the_text_encoder(pipes):
                                   tpipe.model.y_embedder.y_embedding.numpy())
 
 
+def test_prepare_text_embedding_matches_the_jax_pipeline(pipes):
+    """Box class tokens and the base token from the text encoder, as in JAX (the
+    fixture's models are restored afterwards)."""
+    jpipe, tpipe, _ = pipes
+    jparams, model = jpipe.params, tpipe.model
+    saved = (model.bbox_embedder._class_tokens.clone(), model.base_token.clone())
+    try:
+        jpipe.prepare_text_embedding()
+        tpipe.prepare_text_embedding()
+        jp = jpipe.params["params"]
+        assert_close(model.bbox_embedder._class_tokens, jp["bbox_embedder"]["class_tokens"], 1e-5)
+        assert_close(model.base_token, jp["base_token"], 1e-5)
+        assert float((model.base_token - saved[1]).abs().max()) > 1e-3
+    finally:
+        jpipe.params = jparams
+        model.bbox_embedder._class_tokens.copy_(saved[0])
+        model.base_token.copy_(saved[1])
+
+
 def test_decode_is_not_silently_skipped_and_latent_size(pipes):
-    _, tpipe, cond = pipes
-    with pytest.raises(NotImplementedError, match="VAE"):
-        tpipe.sample(cond, num_frames=NF, height=HH, width=WW, torch_seed=1)
+    """``sample(decode=True)`` against the JAX pipeline's: the six views of the
+    latents decoded one by one through the tiny VAE. Tolerance 2e-3 absolute on
+    frames of order 1: the latents' 3e-4 through the decoder's ~20 layers."""
+    jpipe, tpipe, cond = pipes
+    kw = dict(num_frames=NF, height=HH, width=WW, torch_seed=1027)
+    ref = jpipe.sample(_jax_tree(cond), **kw)
+    out = tpipe.sample(cond, **kw)
+    assert out.shape == (1, 6, 3, NF, HH, WW) and out.dtype == torch.float32
+    assert torch.isfinite(out).all()
+    assert_close(out, ref, 2e-3)
+    # the decode of the latents the same call samples, view by view
+    lat = tpipe.sample(cond, decode=False, **kw)
+    np.testing.assert_array_equal(tpipe.decode(lat).numpy(), out.numpy())
+    with pytest.raises(ValueError, match="VAE"):
+        MagicDrivePipeline(tpipe.model_cfg, tpipe.scheduler, model=tpipe.model,
+                           device="cpu").sample(cond, **kw)
     vae = VideoAutoencoderKLCogVideoX()
     for size in ([17, 424, 800], [9, 64, 80], [1, 224, 400], [16, 848, 1600], [33, 424, 800]):
         assert get_latent_size(size) == vae.get_latent_size(size), size
     assert get_latent_size([17, 424, 800]) == [5, 53, 100]
     assert get_latent_size([34, 64, 80], 17) == vae.get_latent_size([34, 64, 80], 17)
     assert get_latent_size([35, 64, 80], 17) == vae.get_latent_size([35, 64, 80], 17)
+
+
+def test_inference_app_writes_the_six_view_grid(tmp_path):
+    """The app on the CPU: the smoke_tiny config, synthetic conditioning, 2 steps,
+    the tiny VAE from a diffusers snapshot the test writes. 9 frames -> 9 PNGs of
+    the 2x3 grid (128x240) equal to the arrays the app returns; 1 frame -> one
+    PNG. A missing T5 snapshot falls back to "t5-dummy"; a config with a dataset
+    needs --synthetic; sp_size > 1 and a missing --ckpt-path are refused."""
+    from magicdrive_v2_tpu_torch.scripts.inference_magicdrive import main
+    from magicdrive_v2_tpu_torch.utils.inference_utils import read_png
+    _, tvae = _tiny_vaes()
+    snap = tmp_path / "snapshot" / "vae"
+    snap.mkdir(parents=True)
+    (snap / "config.json").write_text(json.dumps(
+        dict(TINY_VAE, block_out_channels=list(TINY_VAE["block_out_channels"]))))
+    torch.save(tvae.module.state_dict(), snap / "diffusion_pytorch_model.bin")
+    config = os.path.join(REPO, "configs/magicdrive/inference/smoke_tiny.py")
+    argv = [config, "--device", "cpu", "--num-samples", "1", "--cfg-options",
+            f"outputs={tmp_path / 'out'}", f"vae.from_pretrained={snap.parent}",
+            "vae.subfolder=vae", "scheduler.num_sampling_steps=2"]
+    # a T5 snapshot that is not there falls back to the dummy encoder
+    t5 = ["text_encoder.type=t5", f"text_encoder.from_pretrained={tmp_path / 'no_t5'}"]
+    [(path, frames)] = main(argv[:1] + ["--synthetic", "--num-frames", "9"] + argv[1:] + t5)
+    assert path == str(tmp_path / "out" / "sample_0_0") and frames.shape == (9, 128, 240, 3)
+    assert sorted(os.listdir(path)) == [f"{i:04d}.png" for i in range(9)]
+    for i in range(9):
+        np.testing.assert_array_equal(read_png(os.path.join(path, f"{i:04d}.png")), frames[i])
+    assert frames.std() > 1.0  # not a constant image
+    [(path1, frames1)] = main(argv[:1] + ["--synthetic", "--num-frames", "1"] + argv[1:])
+    assert path1.endswith("sample_0_0.png") and frames1.shape == (1, 128, 240, 3)
+    np.testing.assert_array_equal(read_png(path1), frames1[0])
+    with pytest.raises(NotImplementedError, match="--synthetic"):
+        main(argv + ["dataset.data.val.type=NuScenesTDataset"])
+    with pytest.raises(NotImplementedError, match="sp_size"):
+        main(argv[:1] + ["--synthetic"] + argv[1:] + ["sp_size=2"])
+    with pytest.raises(FileNotFoundError, match="ckpt_path"):
+        main(argv[:1] + ["--synthetic", "--ckpt-path", str(tmp_path / "no.pt")] + argv[1:])
+
+
+@pytest.mark.parametrize("broken", ["config.json", "safetensors header"])
+def test_from_config_raises_on_a_malformed_vae_snapshot(tmp_path, broken):
+    """A VAE snapshot that is there but unreadable raises; only an absent one
+    leaves the VAE random (the no-JAX script's config names no local snapshot)."""
+    from magicdrive_v2_tpu_torch.config.config import Config
+    (tmp_path / "config.json").write_text(
+        "{not json" if broken == "config.json" else json.dumps(
+            dict(TINY_VAE, block_out_channels=list(TINY_VAE["block_out_channels"]))))
+    with open(tmp_path / "diffusion_pytorch_model.safetensors", "wb") as f:
+        f.write((64).to_bytes(8, "little") + b'{"decoder.conv_in.conv.weight": {"dty')
+    cfg = Config.fromfile(os.path.join(REPO, "configs/magicdrive/inference/smoke_tiny.py"))
+    cfg.set_path("vae.from_pretrained", str(tmp_path))
+    with pytest.raises(json.JSONDecodeError):
+        MagicDrivePipeline.from_config(cfg, device="cpu")
+
+
+def test_inference_helpers_match_the_jax_package():
+    from magicdrive_v2_tpu.utils import inference_utils as J
+    from magicdrive_v2_tpu_torch.utils import inference_utils as T
+    vids = np.random.default_rng(0).uniform(-1.2, 1.2, (6, 3, 2, 4, 5)).astype(np.float32)
+    grid = J.concat_6_views(vids)
+    np.testing.assert_array_equal(T.concat_6_views(vids), grid)
+    np.testing.assert_array_equal(T.concat_6_views(torch.from_numpy(vids)).numpy(), grid)
+    np.testing.assert_array_equal(T.to_uint8_video(torch.from_numpy(grid)),
+                                  J.to_uint8_video(grid))
+    for flags in ({}, {"force_daytime": True}, {"force_rainy": True}, {"force_night": True}):
+        for prompt in ("A driving scene image at boston-seaport. Rain, night.", "Sunny."):
+            assert T.edit_prompt(prompt, **flags) == J.edit_prompt(prompt, **flags)
+    for cfg, cli in (({"num_frames": 9}, None), ({"num_frames": "full", "full_bucket_t": 233},
+                                                 None), ({"num_frames": "full"}, 17)):
+        assert T.resolve_num_frames(cfg, cli) == J.resolve_num_frames(cfg, cli)
+    with pytest.raises(ValueError, match="full_bucket_t"):
+        T.resolve_num_frames({"num_frames": "full"})
 
 
 def test_device_defaults_to_cuda_and_raises_without_a_card():
@@ -156,10 +290,20 @@ init_weights(pipe.model, seed=0)
 batch = synthetic_batch(cfg, 9, 32, 40, l_txt=8, caption_channels=16, map_size=(8, 40, 40))
 out = pipe.sample(batch, num_frames=9, height=32, width=40, torch_seed=1, decode=False)
 assert out.shape == (1, 24, 3, 4, 5) and bool(torch.isfinite(out).all())
+
+# from a config file, with the CogVideoX-2b VAE it builds; one frame keeps the
+# CPU decode short
+from magicdrive_v2_tpu_torch.config.config import Config
+cfg = Config.fromfile("configs/magicdrive/inference/smoke_tiny.py")
+pipe = MagicDrivePipeline.from_config(cfg, device="cpu")
+batch = synthetic_batch(pipe.model_cfg, 1, 64, 80, l_txt=32)
+vid = pipe.sample(batch, num_frames=1, height=64, width=80, torch_seed=1024, decode=True)
+assert vid.shape == (1, 6, 3, 1, 64, 80) and bool(torch.isfinite(vid).all()), vid.shape
+assert float(vid.std()) > 1e-3
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "magicdrive_v2_tpu"))
 assert not bad, bad
-print("NO_JAX_OK", float(out.abs().mean()))
+print("NO_JAX_OK", float(out.abs().mean()), float(vid.abs().mean()))
 """
 
 
