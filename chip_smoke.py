@@ -5,9 +5,9 @@ Run ``python3 chip_smoke.py`` from the repository root on a machine with one
 card. It imports only ``magicdrive_v2_tpu_torch`` and
 
 1. ``device``   reads the card's name and power limit, builds the three CUDA
-                kernels from ``magicdrive_v2_tpu_torch/csrc`` with ``nvcc`` and
-                checks that ptxas spilled no register of the bf16 K1 and K3
-                kernels;
+                kernels from ``magicdrive_v2_tpu_torch/csrc`` with ``nvcc``, checks
+                that ptxas spilled no register of the bf16 K1 and K3 kernels, and
+                records whether PIL, transformers and imageio import;
 2. ``shapes``   builds the model of phase 3, counts each kernel's launches over
                 ``encode_conditions`` and over one denoiser forward, and notes,
                 over a sample of one Euler step, every distinct shape and type
@@ -29,11 +29,25 @@ card. It imports only ``magicdrive_v2_tpu_torch`` and
                 by the expected amounts; times sampling and decode apart;
 5. ``slice_vs_plain``  one forward of the same model at reduced depth in fp32 with
                 the kernels against one with their plain versions;
-6. ``decode_vs_cpu``  the VAE decode on the card against the CPU's (fp32, TF32 off,
+6. ``grads``    training's gradients: XL/2 at full width and depth 2/1, stage-2
+                bucket (4 samples, six views of 224x400, 17 frames), one
+                ``training_loss`` backward through the kernels against one through
+                their plain versions, in fp32 (TF32 off) and in bf16 (casts of fp32
+                masters); no parameter may lose its grad; then each kernel's
+                ``autograd.Function`` against autograd through its plain version at
+                every shape the step hands it, and each backward's time;
+7. ``train``    the trainer: XL/2 at full width and depth from the stage-2 config
+                (``configs/magicdrive/train/stage2_17x224x400.py``: batch 4, remat,
+                bf16 over fp32 masters, AdamW, EMA 0.99), 4 steps, the first one
+                untimed; finite loss and grad norm, moved parameters, the EMA
+                identity, launch counters equal to the remat layout's; s/step,
+                samples/s, tokens/s, peak memory; then the train app on the tiny
+                config for 2 steps and a resume of 2;
+8. ``decode_vs_cpu``  the VAE decode on the card against the CPU's (fp32, TF32 off,
                 one view of 5 latent frames, so the 3 + 2 streaming runs), and a
                 bf16 against an fp32 decode of one main-path view on the card,
                 beside two controls with one cast point moved;
-7. ``app``      the inference app (``magicdrive_v2_tpu_torch.scripts.
+9. ``app``      the inference app (``magicdrive_v2_tpu_torch.scripts.
                 inference_magicdrive``) on the 424x800 config with synthetic
                 conditioning, 17 frames, 2 steps; checks its launch counters and
                 the 17 PNG frames of the 2x3 grid it wrote.
@@ -42,9 +56,9 @@ Every phase prints one JSON line. Any failure raises: the exit code is then not
 0 and no result line is printed. Without a card the script exits with code 1.
 
 Options (none needed): ``--steps N`` sampling steps (default 30), ``--requests N``
-(default 2), ``--seed S`` weights seed, ``--profile`` to add a ``profile`` phase
-(device time by kernel over one Euler step and over the decode of one view, from
-torch.profiler).
+(default 2), ``--seed S`` weights seed, ``--profile`` to add ``profile`` phases
+(device time by kernel over one Euler step, over the decode of one view and over
+one train step, from torch.profiler).
 
 cuDNN keeps its default algorithm choice (``torch.backends.cudnn.benchmark`` off),
 under which the rerun of one seed must give the same video bit for bit.
@@ -53,6 +67,8 @@ import argparse
 import contextlib
 import functools
 import json
+import logging
+import math
 import os
 import shutil
 import subprocess
@@ -67,8 +83,25 @@ PEAK_BYTES = 3.35e12
 
 NUM_FRAMES, HEIGHT, WIDTH = 17, 424, 800
 APP_CONFIG = "configs/magicdrive/inference/fullx424x800_stdit3_CogVAE_boxTDS_wCT_xCE_wSST.py"
+TRAIN_CONFIG = "configs/magicdrive/train/stage2_17x224x400.py"
+TRAIN_APP_CONFIG = "configs/magicdrive/train/smoke_tiny.py"
+TRAIN_FRAMES, TRAIN_HEIGHT, TRAIN_WIDTH = 17, 224, 400  # the stage-2 bucket
 L_BOX = 10  # box slots per frame in the synthetic batch
 CAMERA_NEIGHBORS = ((5, 1), (0, 2), (1, 3), (2, 4), (3, 5), (4, 0))
+
+
+def optional_packages():
+    """Version of each package outside torch / numpy that a later slice may want
+    (image decoding, a real T5, video files), or why it does not import; a
+    record, not a gate."""
+    import importlib
+    found = {}
+    for name in ("PIL", "transformers", "imageio"):
+        try:
+            found[name] = getattr(importlib.import_module(name), "__version__", "no __version__")
+        except Exception as e:  # a record of what the machine has, whatever the error
+            found[name] = f"does not import: {type(e).__name__}: {e}"
+    return found
 
 
 def require(ok, what):
@@ -410,15 +443,16 @@ def decode_flops(torch, vae, latent_shape):
     return total[0]
 
 
-def expected_launches(cfg):
-    """Kernel launches of one denoiser forward with a condition cache."""
+def expected_launches(cfg, x_mask=False):
+    """Kernel launches of one denoiser forward with a condition cache; with a frame
+    mask every adaLN runs twice (the t and t0 modulations)."""
     n_ctrl_t = 0 if cfg.control_skip_temporal else cfg.control_depth
     n_base_t = cfg.depth if cfg.with_temp_block else 0
     spatial = cfg.depth + cfg.control_depth
     cross_view = cfg.depth + (0 if cfg.control_skip_cross_view else cfg.control_depth)
     blocks = spatial + n_base_t + n_ctrl_t
     return {"fused_qkv_attention": spatial + cross_view,
-            "adaln_modulate": 2 * blocks + cross_view,
+            "adaln_modulate": (2 * blocks + cross_view) * (2 if x_mask else 1),
             "flash_attention": blocks}
 
 
@@ -436,6 +470,18 @@ def reset_counters():
 
 def read_counters():
     return {name: fn.launches for name, fn in counters().items()}
+
+
+def reset_backward_calls():
+    from magicdrive_v2_tpu_torch.ops.plain_vjp import backward_calls
+    backward_calls.clear()
+
+
+def read_backward_calls():
+    """Backwards of each kernel's ``PlainVJPFunction`` (each a recompute through
+    the plain version: no launch)."""
+    from magicdrive_v2_tpu_torch.ops.plain_vjp import backward_calls
+    return {name: backward_calls.get(name, 0) for name in counters()}
 
 
 def profiled(torch, what, fn):
@@ -720,6 +766,425 @@ def run_slice_vs_plain(torch, seed):
          launches=with_kernels)
     require(scale > 1e-3 and err <= limit, (err, scale, limit))
 
+# ---------------------------------------------------------------------------
+# phases 6 and 7: training
+# ---------------------------------------------------------------------------
+
+GRAD_FP32_LIMIT = 1e-3       # per tensor: max|g_kernels - g_plain| / max|g_plain|
+# per tensor, bf16: rms(g_kernels - g_plain) <= 2**-6 * rms(g_plain) + rms(g_plain - g_fp32),
+# the last term how far bf16 arithmetic itself moves that grad (the plain versions in
+# bf16 against fp32, same weights and inputs): the kernels round at other points than
+# the plain versions, so their grads may differ by up to rounding's own reach
+GRAD_BF16_RMS_LIMIT = 2.0 ** -6
+FN_FP32_LIMIT = 1e-5         # per grad: max|g_function - g_autograd| / max|g_autograd|
+FN_BF16_LIMIT = 2.0 ** -7    # the same in bf16 (one ulp of the largest element)
+
+
+def train_config(torch):
+    """The stage-2 config as the port loads it (4 samples a step), at the stage-2
+    bucket."""
+    from magicdrive_v2_tpu_torch.config.config import Config
+    cfg = Config.fromfile(TRAIN_CONFIG)
+    require(cfg.batch_size == 4, f"stage-2 batch_size {cfg.batch_size}")
+    cfg.synthetic_buckets = [(TRAIN_FRAMES, TRAIN_HEIGHT, TRAIN_WIDTH)]
+    return cfg
+
+
+def train_model_config(torch, cfg, dtype, **overrides):
+    from magicdrive_v2_tpu_torch.models.magicdrive.stdit3 import build_model_config
+    return build_model_config(cfg.model, vae_out_channels=cfg.vae_out_channels,
+                              mv_order_map=cfg.mv_order_map, dtype=dtype,
+                              grad_checkpoint=cfg.grad_checkpoint, **overrides)
+
+
+def train_batches(cfg, model_cfg, seed):
+    """The app's synthetic batches of steps 0, 1, ... with their frame masks and
+    condition dropout, as numpy; captions of the text encoder's full length."""
+    from magicdrive_v2_tpu_torch.scripts.train_magicdrive import (SyntheticLoader,
+                                                                   step_inputs)
+    from magicdrive_v2_tpu_torch.utils.train_utils import MaskGenerator
+    holder = {"step": 0}
+    mask_gen = MaskGenerator(dict(cfg.get("mask_ratios", {})))
+    for step, batch in enumerate(SyntheticLoader(model_cfg, cfg, holder,
+                                                 l_txt=model_cfg.model_max_length)):
+        holder["step"] = step + 1
+        yield step_inputs(batch, cfg, mask_gen, seed, step)
+
+
+def check_functions(torch, seen):
+    """Each kernel's autograd.Function (forward on the card, backward the plain
+    version's, recomputed) against autograd through the plain version, at every
+    shape and type ``seen`` noted on the training path, including K1 with two
+    sources and K3 on strided k/v views at head dims 72 and 144."""
+    from magicdrive_v2_tpu_torch.ops import (adaln_modulate, adaln_modulate_plain,
+                                             flash_attention, flash_attention_plain,
+                                             fused_qkv_attention, fused_qkv_attention_plain)
+    gen = torch.Generator().manual_seed(1)
+    cases = []
+
+    def randn(*shape, dtype, scale=1.0, shift=0.0):
+        x = torch.randn(*shape, generator=gen) * scale + shift
+        return x.to("cuda", dtype).requires_grad_()
+
+    def judge(kernel, out, inputs, plain_out, what):
+        require(type(out.grad_fn).__name__ == "PlainVJPFunctionBackward",
+                f"{kernel}: output not from PlainVJPFunction: {out.grad_fn}")
+        g = torch.randn(out.shape, generator=gen).to("cuda", out.dtype)
+        got = torch.autograd.grad(out, inputs, g)
+        want = torch.autograd.grad(plain_out, inputs, g)
+        limit = FN_FP32_LIMIT if out.dtype == torch.float32 else FN_BF16_LIMIT
+        ratios = []
+        for a, b in zip(got, want):
+            require(a is not None and b is not None, f"{kernel}: a grad is missing")
+            a, b = a.float(), b.float()
+            require(bool(a.isfinite().all()), f"{kernel}: grad not finite")
+            scale = float(b.abs().max())
+            require(scale > 0 and bool((a != 0).any()), f"{kernel}: zero grad")
+            ratios.append(float((a - b).abs().max()) / (limit * scale))
+        cases.append(dict(kernel=kernel, dtype=str(out.dtype), **what,
+                          err_over_limit=max(ratios)))
+        require(max(ratios) <= 1.0, cases[-1])
+
+    for (shape, dtype, norm, J), perm in sorted(seen["fused_qkv_attention"].items(), key=str):
+        qkv = randn(*shape, dtype=dtype)
+        inputs, qw, kw = [qkv], None, None
+        if norm:
+            qw = randn(shape[-1], dtype=torch.float32, scale=0.1, shift=1.0)
+            kw = randn(shape[-1], dtype=torch.float32, scale=0.1, shift=1.0)
+            inputs += [qw, kw]
+        judge("fused_qkv_attention",
+              fused_qkv_attention(qkv, qw, kw, perm), inputs,
+              fused_qkv_attention_plain(qkv, qw, kw, perm), dict(qkv=list(shape), J=J))
+    for shape, dtype in sorted(seen["adaln_modulate"], key=str):
+        x = randn(*shape, dtype=dtype, scale=3.0, shift=0.5)
+        sh, sc = randn(shape[0], shape[2], dtype=dtype), randn(shape[0], shape[2], dtype=dtype)
+        judge("adaln_modulate", adaln_modulate(x, sh, sc),
+              [x, sh, sc], adaln_modulate_plain(x, sh, sc), dict(x=list(shape)))
+    for qshape, M, dtype in sorted(seen["flash_attention"], key=str):
+        B, N, H, D = qshape
+        q = randn(*qshape, dtype=dtype)
+        kv = randn(B, M, 2, H, D, dtype=dtype)  # k and v: strided views of one tensor
+        k, v = kv[:, :, 0], kv[:, :, 1]
+        judge("flash_attention", flash_attention(q, k, v), [q, kv],
+              flash_attention_plain(q, k, v), dict(q=list(qshape), M=M))
+    return cases
+
+
+def compare_grads(torch, got_by_name, ref_by_name, fp32_ref=None):
+    """Hold the grads through the kernels (``got_by_name``) against those through
+    the plain versions (``ref_by_name``), {parameter name: grad or None}: the same
+    parameters have a grad, none all zero where the plain one is not (the check
+    that sees kernel outputs fall outside autograd), each within its limit: fp32
+    ``GRAD_FP32_LIMIT``; bf16 ``GRAD_BF16_RMS_LIMIT`` plus the distance of the plain
+    bf16 grad from ``fp32_ref``'s. Returns ((worst ratio to the limit, its tensor),
+    tensors with a grad, the bf16 rounding ratios)."""
+    worst, with_grad, roundings = (0.0, ""), 0, []
+    for name, ref in ref_by_name.items():
+        got = got_by_name[name]
+        if ref is None:
+            require(got is None, f"{name}: a grad through the kernels only")
+            continue
+        with_grad += 1
+        require(got is not None, f"{name}: no grad through the kernels ({ref.dtype})")
+        bf16 = fp32_ref is not None
+        ref, got = ref.float(), got.float()
+        require(bool(got.isfinite().all()), f"{name}: grad not finite")
+        if not bool((ref != 0).any()):
+            continue
+        require(bool((got != 0).any()), f"{name}: all-zero grad through the kernels")
+        if not bf16:
+            ratio = float((got - ref).abs().max()) / (GRAD_FP32_LIMIT * float(ref.abs().max()))
+        else:
+            rms_ref = float(ref.square().mean().sqrt())
+            rounding = float((ref - fp32_ref[name]).square().mean().sqrt())
+            roundings.append(rounding / rms_ref)
+            ratio = float((got - ref).square().mean().sqrt()) / (
+                GRAD_BF16_RMS_LIMIT * rms_ref + rounding)
+        worst = max(worst, (ratio, name))
+    return worst, with_grad, roundings
+
+
+def run_grads(torch, seed):
+    """Grads of one training loss through the kernels against those through their
+    plain versions, XL/2 at full width, depth 2/1, the stage-2 bucket; returns the
+    shapes the bf16 step handed to each wrapper."""
+    from magicdrive_v2_tpu_torch.models.magicdrive.stdit3 import MagicDriveSTDiT3
+    from magicdrive_v2_tpu_torch.schedulers.rf import build_scheduler
+    from magicdrive_v2_tpu_torch.training.trainer import step_generator, training_loss
+    from magicdrive_v2_tpu_torch.utils.ckpt import init_weights
+    from magicdrive_v2_tpu_torch.utils.misc import to_device
+
+    cfg = train_config(torch)
+    model_cfg = train_model_config(torch, cfg, torch.float32, depth=2, control_depth=1)
+    with torch.device("cuda"):
+        model = MagicDriveSTDiT3(model_cfg)
+    init_weights(model, seed=seed)
+    sched = build_scheduler(cfg.scheduler)
+    batch, (nf, h, w) = next(train_batches(cfg, model_cfg, seed))
+    batch["mask"][:, 0] = 0.0  # one condition frame in every sample: the t0 path runs
+    dev = to_device(batch, "cuda")
+    gen = step_generator(seed, 0)
+    b = cfg.batch_size
+    t = sched.sample_t(gen, b, height=torch.full((b,), h), width=torch.full((b,), w),
+                       num_frames=torch.full((b,), float(nf)))
+    noise = torch.randn(dev["x"].shape, generator=gen)
+    seen = {"fused_qkv_attention": {}, "adaln_modulate": set(), "flash_attention": set()}
+
+    def grads_of(dtype, plain):
+        model.zero_grad(set_to_none=True)
+        reset_counters()
+        reset_backward_calls()
+        with (plain_versions() if plain else recorded_shapes(seen)):
+            loss, _ = training_loss(model, sched, dev, height=h, width=w, num_frames=nf,
+                                    dtype=dtype, t=t, noise=noise)
+            loss.backward()
+        torch.cuda.synchronize()
+        grads = {n: None if p.grad is None else p.grad.detach().clone()
+                 for n, p in model.named_parameters()}
+        return float(loss.detach()), grads, read_counters(), read_backward_calls()
+
+    result, fp32_plain = {}, None
+    for dtype in (torch.float32, torch.bfloat16):
+        with no_tf32(torch):
+            loss_k, gk, launches, backwards = grads_of(dtype, plain=False)
+            loss_p, gp, plain_launches, plain_backwards = grads_of(dtype, plain=True)
+        require(all(v > 0 for v in launches.values()) and all(
+            v > 0 for v in backwards.values()), (launches, backwards))
+        require(sum(plain_launches.values()) + sum(plain_backwards.values()) == 0,
+                (plain_launches, plain_backwards))
+        worst, with_grad, roundings = compare_grads(torch, gk, gp, fp32_plain)
+        require(with_grad == sum(p.requires_grad for p in model.parameters()), with_grad)
+        result[str(dtype)] = dict(loss_kernels=loss_k, loss_plain=loss_p, tensors=with_grad,
+                                  worst_err_over_limit=worst[0], worst_tensor=worst[1],
+                                  launches=launches, backward_calls=backwards)
+        if roundings:
+            roundings.sort()
+            result[str(dtype)].update(
+                plain_bf16_vs_fp32_rms_ratio_median=roundings[len(roundings) // 2],
+                plain_bf16_vs_fp32_rms_ratio_max=roundings[-1])
+        require(worst[0] <= 1.0, result[str(dtype)])
+        if dtype == torch.float32:
+            fp32_plain = gp
+        del gk, gp
+    del model, dev
+    torch.cuda.empty_cache()
+    cases = check_functions(torch, seen)
+    emit("grads", model="MagicDriveSTDiT3-XL/2", depth=model_cfg.depth,
+         control_depth=model_cfg.control_depth, batch=b, frames=nf, height=h,
+         width=w, x_shape=list(batch["x"].shape), fp32_limit=f"per tensor max|err| <= "
+         f"{GRAD_FP32_LIMIT} * max|g_plain|", bf16_limit=f"per tensor rms(err) <= "
+         f"2**{math.log2(GRAD_BF16_RMS_LIMIT):g} * rms(g_plain) + rms(g_plain - g_plain_fp32)",
+         by_dtype=result,
+         function_limit=f"per grad max|err| <= {FN_FP32_LIMIT} (fp32) / "
+         f"2**{math.log2(FN_BF16_LIMIT):g} (bf16) * max|g_plain|", function_cases=cases)
+    return seen
+
+
+def time_backwards(torch, seen, per_step):
+    """ms of one backward of each Function at the training step's bf16 shapes (a
+    recompute through the plain version), its bound, and the forward+backward of
+    the nearest PyTorch call at the same shape as the yardstick."""
+    import torch.nn.functional as F
+    from magicdrive_v2_tpu_torch.ops import adaln_modulate, flash_attention, fused_qkv_attention
+    gen = torch.Generator().manual_seed(2)
+    bf16 = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to("cuda", bf16).requires_grad_()
+
+    def backward_ms(out, inputs):
+        g = torch.randn(out.shape, generator=gen).to("cuda", out.dtype)
+        return time_ms(torch, lambda: torch.autograd.grad(out, inputs, g, retain_graph=True),
+                       3)
+
+    def fwd_bwd_ms(fn, inputs):
+        out = fn()
+        g = torch.randn(out.shape, generator=gen).to("cuda", out.dtype)
+        return time_ms(torch, lambda: torch.autograd.grad(fn(), inputs, g), 3)
+
+    rows = {}
+    k1 = {J: (shape, perm) for (shape, dtype, norm, J), perm in
+          seen["fused_qkv_attention"].items() if dtype == bf16 and shape[-1] == 72}
+    for J, (shape, perm) in sorted(k1.items()):
+        G, N, _, H, D = shape
+        qkv = randn(*shape)
+        qw = (torch.randn(D, generator=gen) * 0.1 + 1).cuda().requires_grad_()
+        ms = backward_ms(fused_qkv_attention(qkv, qw, qw, perm), [qkv, qw])
+        # the yardstick: one SDPA a source on its own k/v leaves, outputs summed
+        q = randn(G, H, N, D)
+        kvs = [(randn(G, H, N, D), randn(G, H, N, D)) for _ in range(J)]
+        lib = fwd_bwd_ms(lambda: sum(F.scaled_dot_product_attention(q, kk, vv)
+                                     for kk, vv in kvs), [q] + [t for kv in kvs for t in kv])
+        flops = 2.5 * 4.0 * G * H * N * N * D * J
+        nbytes = 2.0 * (2 * qkv.numel() + G * N * H * D)
+        bound_ms, by = bound(flops, nbytes, PEAK_BF16)
+        rows["K1 spatial" if J == 1 else "K1 cross-view"] = dict(
+            qkv=list(shape), J=J, plain_backward_ms=ms, bound_ms=bound_ms, bound_by=by,
+            library_fwd_bwd_ms=lib, library="scaled_dot_product_attention fwd+bwd"
+            + (" x2 summed" if J > 1 else ""))
+    x_shape = max(sh for sh, dtype in seen["adaln_modulate"] if dtype == bf16)
+    x = randn(*x_shape)
+    sh, sc = randn(x_shape[0], x_shape[2]), randn(x_shape[0], x_shape[2])
+    C = x_shape[2]
+    rows["K2"] = dict(
+        x=list(x_shape), plain_backward_ms=backward_ms(adaln_modulate(x, sh, sc), [x, sh, sc]),
+        library_fwd_bwd_ms=fwd_bwd_ms(lambda: F.layer_norm(x, (C,), eps=1e-6)
+                                      * (1 + sc[:, None]) + sh[:, None], [x, sh, sc]),
+        library="layer_norm + modulate fwd+bwd")
+    rows["K2"]["bound_ms"], rows["K2"]["bound_by"] = bound(
+        10.0 * x.numel(), 2.0 * (3 * x.numel() + 4 * sh.numel()), PEAK_FP32)
+    qshape, M = max((q, m) for q, m, dtype in seen["flash_attention"]
+                    if dtype == bf16 and q[-1] == 72)
+    B, N, H, D = qshape
+    q, kv = randn(*qshape), randn(B, M, 2, H, D)
+    ms = backward_ms(flash_attention(q, kv[:, :, 0], kv[:, :, 1]), [q, kv])
+    qt, kt, vt = randn(B, H, N, D), randn(B, H, M, D), randn(B, H, M, D)
+    lib = fwd_bwd_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), [qt, kt, vt])
+    bound_ms, by = bound(2.5 * 4.0 * B * H * N * M * D,
+                         2.0 * (2 * q.numel() + 2 * kv.numel() + q.numel()), PEAK_BF16)
+    rows["K3"] = dict(q=list(qshape), M=M, plain_backward_ms=ms, bound_ms=bound_ms,
+                      bound_by=by, library_fwd_bwd_ms=lib,
+                      library="scaled_dot_product_attention fwd+bwd")
+    for name, row in rows.items():
+        row["backward_calls_per_step"] = per_step[name]
+    torch.cuda.empty_cache()
+    return rows
+
+
+def run_train(torch, seed, seen, encode_launches, steps=4, with_profile=False):
+    """The trainer at full width and depth from the stage-2 config: ``steps``
+    steps, the first untimed (with ``with_profile``, two more, the second under
+    torch.profiler); then the Functions' backward times."""
+    from magicdrive_v2_tpu_torch.models.magicdrive.stdit3 import MagicDriveSTDiT3
+    from magicdrive_v2_tpu_torch.schedulers.rf import build_scheduler
+    from magicdrive_v2_tpu_torch.training.trainer import build_training
+    from magicdrive_v2_tpu_torch.utils.ckpt import init_weights
+    from magicdrive_v2_tpu_torch.utils.misc import to_device
+
+    cfg = train_config(torch)
+    batch_size = cfg.batch_size
+    model_cfg = train_model_config(torch, cfg, torch.bfloat16,
+                                   remat_policy=cfg.get("remat_policy", "full"))
+    require((model_cfg.depth, model_cfg.control_depth, model_cfg.hidden_size,
+             model_cfg.grad_checkpoint) == (28, 13, 1152, True), model_cfg)
+    t0 = time.time()
+    with torch.device("cuda"):
+        model = MagicDriveSTDiT3(model_cfg)
+    init_weights(model, seed=seed)
+    scheduler = build_scheduler(cfg.scheduler)
+    state, step_fn = build_training(model, scheduler, cfg, height=TRAIN_HEIGHT,
+                                    width=TRAIN_WIDTH, num_frames=TRAIN_FRAMES, seed=seed + 1)
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    state_bytes = torch.cuda.memory_allocated()
+    n_params = sum(p.numel() for p in model.parameters())
+    # remat: the forward and the recompute each launch every layer group's kernels,
+    # the backward launches none; encode_conditions runs once, outside the groups
+    per_forward = expected_launches(model_cfg, x_mask=True)
+    want = {k: 2 * per_forward[k] + encode_launches[k] for k in per_forward}
+    want_backward = {k: per_forward[k] + encode_launches[k] for k in per_forward}
+    name = "base_blocks_s.27.attn.qkv.weight"
+    param, ema = dict(model.named_parameters())[name], dict(state.ema.named_parameters())[name]
+    seconds, losses, grad_norms, t_means, launches = [], [], [], [], None
+    batches = train_batches(cfg, model_cfg, seed)
+    tokens = None
+    for i in range(steps):
+        batch, (nf, h, w) = next(batches)
+        require((nf, h, w) == (TRAIN_FRAMES, TRAIN_HEIGHT, TRAIN_WIDTH), (nf, h, w))
+        dev = to_device(batch, "cuda")
+        p_before, e_before = param.detach().clone(), ema.detach().clone()
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        reset_counters()
+        reset_backward_calls()
+        t_step = time.time()
+        state, metrics = step_fn(state, dev)
+        torch.cuda.synchronize()
+        seconds.append(time.time() - t_step)
+        got, backwards = read_counters(), read_backward_calls()
+        require(got == want and backwards == want_backward, (got, want, backwards,
+                                                             want_backward))
+        launches = got
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        require(math.isfinite(loss) and math.isfinite(gnorm) and gnorm > 0, (loss, gnorm))
+        losses.append(loss)
+        grad_norms.append(gnorm)
+        t_means.append(float(metrics["t_mean"]))
+        require(not torch.equal(param.detach(), p_before), f"{name} did not move")
+        expect = e_before * cfg.ema_decay + param.detach() * (1 - cfg.ema_decay)
+        ema_err = float((ema.detach() - expect).abs().max())
+        require(ema_err <= 2.0 ** -21 * float(expect.abs().max()), ("EMA", ema_err))
+        B, _, T, Hl, Wl = dev["x"].shape
+        tokens = B * model_cfg.nc * T * (Hl // 2) * (Wl // 2)
+    peak = torch.cuda.max_memory_allocated()
+    require(state.step == steps, state.step)
+    if with_profile:
+        profiled(torch, f"one train step (XL/2, stage-2 bucket, b={batch_size})",
+                 lambda: step_fn(state, dev))
+    del state, model, param, ema, dev
+    torch.cuda.empty_cache()
+    timed = seconds[1:]
+    s_step = sum(timed) / len(timed)
+    per_step_backward = {"K1 spatial": model_cfg.depth + model_cfg.control_depth,
+                         "K1 cross-view": per_forward["fused_qkv_attention"]
+                         - model_cfg.depth - model_cfg.control_depth,
+                         "K2": want_backward["adaln_modulate"],
+                         "K3": per_forward["flash_attention"]}
+    backward_rows = time_backwards(torch, seen, per_step_backward)
+    emit("train", config=TRAIN_CONFIG, model="MagicDriveSTDiT3-XL/2", params=n_params,
+         dtype="bfloat16 compute, float32 masters", batch=batch_size, frames=TRAIN_FRAMES,
+         height=TRAIN_HEIGHT, width=TRAIN_WIDTH, tokens_per_step=tokens,
+         grad_checkpoint=True, setup_seconds=setup_s, state_bytes=state_bytes,
+         seconds_per_step=seconds, seconds_per_step_timed_mean=s_step,
+         samples_per_second=batch_size / s_step, tokens_per_second=tokens / s_step,
+         peak_memory_bytes=peak, losses=losses, grad_norms=grad_norms, t_means=t_means,
+         launches_per_step=launches, backward_calls_per_step=want_backward,
+         ema_identity=True, backward=backward_rows)
+    return launches, backward_rows
+
+
+def run_train_app(torch):
+    """The train app on the tiny config: 2 steps, then a resume of 2 more; its
+    files are written under outputs/ in the checkout, checked, and removed."""
+    from magicdrive_v2_tpu_torch.scripts import train_magicdrive
+    out_dir = os.path.join("outputs", "chip_smoke_train_app")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    messages = []
+    handler = logging.Handler()
+    handler.emit = lambda record: messages.append(record.getMessage())
+    log = logging.getLogger("train")
+    log.addHandler(handler)
+    log.setLevel(logging.INFO)
+    argv = [TRAIN_APP_CONFIG, "--synthetic", "--max-steps", "2", "--cfg-options",
+            f"outputs={out_dir}"]
+    t0 = time.time()
+    reset_counters()
+    try:
+        first = train_magicdrive.main(argv)
+        second = train_magicdrive.main(argv)
+    finally:
+        log.removeHandler(handler)
+    seconds = time.time() - t0
+    got = read_counters()
+    require(all(v > 0 for v in got.values()), got)
+    require(any(m.startswith("resumed from") and m.endswith("at step 2") for m in messages),
+            "no resume message")
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    require([line["step"] for line in lines] == [1, 2, 3, 4] and lines == first + second,
+            lines)
+    require(all(math.isfinite(line["loss"]) for line in lines), lines)
+    for step in (2, 4):
+        names = sorted(os.listdir(os.path.join(out_dir, f"global_step{step}")))
+        require(names == ["ema.pt", "model.pt", "optimizer.pt", "rng_state.json",
+                          "running_states.json"], names)
+    frames = os.listdir(os.path.join(out_dir, "validation", "step4_val0_0"))
+    require(len(frames) == 9, frames)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    emit("train_app", config=TRAIN_APP_CONFIG, steps=[1, 2, 3, 4], seconds=seconds,
+         losses=[line["loss"] for line in lines], launches=got, validation_frames=len(frames))
+
 
 DECODE_FP32_LIMIT = 1e-4  # absolute, frames of order 1: fp32 in another summation order
 DECODE_BF16_RMS_LIMIT = 2.0 ** -5.5  # rms(bf16 - fp32) / rms(fp32), see run_decode_vs_cpu
@@ -847,7 +1312,8 @@ def main():
     ap.add_argument("--requests", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one Euler step with torch.profiler")
+                    help="also trace one Euler step, one view's decode and one train "
+                         "step with torch.profiler")
     args = ap.parse_args()
 
     import torch
@@ -876,7 +1342,7 @@ def main():
                                         for r in k3_bodies), k3_bodies)
     emit("device", nvidia_smi=smi, python=sys.version.split()[0], torch=torch.__version__,
          cuda=torch.version.cuda, build_seconds=_cuda_build.build_seconds,
-         k1_ptxas=k1_bodies, k3_ptxas=k3_bodies)
+         k1_ptxas=k1_bodies, k3_ptxas=k3_bodies, optional_packages=optional_packages())
 
     pipe, cond, per_forward, encode_launches, l_cond, seen = build_slice(
         torch, args.steps, args.seed)
@@ -888,6 +1354,10 @@ def main():
     del pipe
     torch.cuda.empty_cache()
     run_slice_vs_plain(torch, args.seed)
+    seen_train = run_grads(torch, args.seed)
+    train_launches, backward_rows = run_train(torch, args.seed, seen_train, encode_launches,
+                                              with_profile=args.profile)
+    run_train_app(torch)
     run_decode_vs_cpu(torch, args.seed)
     torch.cuda.empty_cache()
     run_app(torch, per_forward, encode_launches)
@@ -913,10 +1383,17 @@ def main():
                      "magicdrive_v2_tpu_torch/csrc/attn_core.cuh (fp32 body)"],
             replaces=jax_ops + "flash_attention.py:98"),
     }
-    kernels = [dict(name=name, route="cuda", launches=launches[name], **meta[name],
-                    **kernel_numbers[name]) for name in meta]
+    backward = {"fused_qkv_attention": {"spatial": backward_rows["K1 spatial"],
+                                        "cross_view": backward_rows["K1 cross-view"]},
+                "adaln_modulate": backward_rows["K2"],
+                "flash_attention": backward_rows["K3"]}
+    kernels = [dict(name=name, route="cuda", launches=launches[name],
+                    launches_by_path={"sample": launches[name],
+                                      "train_step": train_launches[name]},
+                    **meta[name], **kernel_numbers[name], backward=backward[name])
+               for name in meta]
     for k in kernels:
-        require(k["launches"] > 0, k)
+        require(k["launches"] > 0 and k["launches_by_path"]["train_step"] > 0, k)
     emit("done", seconds=time.time() - t_start)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

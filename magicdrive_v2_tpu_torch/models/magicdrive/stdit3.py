@@ -9,8 +9,13 @@
 - adaLN (LayerNorm + modulate) runs through ``ops.adaln_modulate``, spatial and
   cross-view attention through ``ops.fused_qkv_attention``, condition
   cross-attention through ``ops.dot_product_attention``.
-- Inference only. Parameter names and layouts are the reference torch
-  checkpoint's.
+- Training: with ``grad_checkpoint`` each layer group (depth i's base s,
+  control s, base t and control t, what the JAX package remats as one scanned
+  step) runs under ``torch.utils.checkpoint`` when autograd records; the compute
+  dtype comes from ``compute_params``, bf16 casts of fp32 master parameters
+  handed to ``torch.func.functional_call`` (flax's ``param_dtype`` fp32 and
+  ``dtype`` bf16).
+- Parameter names and layouts are the reference torch checkpoint's.
 """
 from __future__ import annotations
 
@@ -22,6 +27,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from ...ops.fused_adaln import adaln_modulate
 from ..layers.blocks import (
@@ -64,8 +71,9 @@ DEFAULT_MV_ORDER_MAP = {0: [5, 1], 1: [0, 2], 2: [1, 3], 3: [2, 4], 4: [3, 5], 5
 
 @dataclasses.dataclass(frozen=True)
 class MagicDriveSTDiT3Config:
-    """Architecture hyper-parameters: the JAX package's config without its
-    training-only and sharding fields (``from_dict`` drops keys it does not know)."""
+    """Architecture hyper-parameters and the remat switch: the JAX package's
+    config without its sharding fields (``from_dict`` drops keys it does not
+    know)."""
     input_sq_size: int = 512
     in_channels: int = 4
     patch_size: Tuple[int, int, int] = (1, 2, 2)
@@ -95,6 +103,10 @@ class MagicDriveSTDiT3Config:
     control_skip_cross_view: bool = True
     control_skip_temporal: bool = True
     force_pad_h_for_sp_size: Optional[int] = None
+    # training: remat each layer group when autograd records. Only "full" is
+    # ported; "dots" and "offload_carry" raise (ROADMAP queue A item 2)
+    grad_checkpoint: bool = True
+    remat_policy: str = "full"
     mv_order_map: Tuple[Tuple[int, ...], ...] = tuple(
         tuple(v) for v in DEFAULT_MV_ORDER_MAP.values())
     dtype: Any = torch.bfloat16
@@ -233,6 +245,33 @@ class MVSTDiTBlock(nn.Module):
         return x
 
 
+class LayerGroup(nn.Module):
+    """Depth i of the layer stack: base s, control s (its skip added to x), base t,
+    control t (its skip added to x); the unit the JAX package remats (one step of
+    its scanned ``CtrlLayerGroup`` / ``PlainLayerGroup``). It holds the model's own
+    blocks and is not part of the model's module tree."""
+
+    def __init__(self, base_s, control_s=None, base_t=None, control_t=None):
+        super().__init__()
+        self.base_s, self.control_s = base_s, control_s
+        self.base_t, self.control_t = base_t, control_t
+
+    def forward(self, x, c, y, t, x_mask, t0, pad_mask):
+        x = self.base_s(x, y, t, x_mask, t0)
+        if self.control_s is not None:
+            c, c_skip = self.control_s(c, y, t, x_mask, t0)
+            x = x + c_skip
+        if self.base_t is not None:
+            x = self.base_t(x, y, t, x_mask, t0, pad_mask)
+        if self.control_t is not None:
+            c, c_skip = self.control_t(c, y, t, x_mask, t0, pad_mask)
+            x = x + c_skip
+        return x, c
+
+
+REMAT_POLICIES = ("full", "dots", "offload_carry")
+
+
 class MagicDriveSTDiT3(nn.Module):
     """Main DiT."""
 
@@ -282,6 +321,24 @@ class MagicDriveSTDiT3(nn.Module):
              for _ in range(cfg.control_depth)]
             if not cfg.control_skip_temporal else [])
         self.final_layer = T2IFinalLayer(hidden, int(np.prod(patch)), cfg.out_channels)
+
+        if cfg.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}: expected one of "
+                             f"{REMAT_POLICIES}")
+        if cfg.grad_checkpoint and cfg.remat_policy != "full":
+            raise NotImplementedError(
+                f"remat_policy={cfg.remat_policy!r} is not ported yet (ROADMAP.md queue A "
+                "item 2); use 'full'")
+
+        def at(blocks, i):
+            return blocks[i] if i < len(blocks) else None
+
+        # a plain list: the groups share the blocks above and stay out of the
+        # module tree (and the state dict)
+        self._layer_groups = [
+            LayerGroup(self.base_blocks_s[i], at(self.control_blocks_s, i),
+                       at(self.base_blocks_t, i), at(self.control_blocks_t, i))
+            for i in range(cfg.depth)]
 
     @property
     def dtype(self):
@@ -498,17 +555,17 @@ class MagicDriveSTDiT3(nn.Module):
             x_mask_rep = x_mask.bool().repeat_interleave(NC, dim=0)  # (B, T)
         pad_mask_rep = self._latent_pad_mask(frame_valid, T_img, T, NC)
 
-        args = (y_cond, t_mlp, x_mask_rep, t0_mlp)
-        for i in range(cfg.depth):
-            x = self.base_blocks_s[i](x, *args)
-            if i < cfg.control_depth:
-                c, c_skip = self.control_blocks_s[i](c, *args)
-                x = x + c_skip
-            if cfg.with_temp_block:
-                x = self.base_blocks_t[i](x, *args, pad_mask_rep)
-            if i < cfg.control_depth and not cfg.control_skip_temporal:
-                c, c_skip = self.control_blocks_t[i](c, *args, pad_mask_rep)
-                x = x + c_skip
+        args = (y_cond, t_mlp, x_mask_rep, t0_mlp, pad_mask_rep)
+        remat = cfg.grad_checkpoint and torch.is_grad_enabled()
+        for group in self._layer_groups:
+            if remat:
+                # the recompute runs in the backward, after a caller's
+                # functional_call has returned: it gets the group's parameters as
+                # they are now (the caller's casts) handed in again
+                x, c = checkpoint(functional_call, group, dict(group.named_parameters()),
+                                  (x, c) + args, use_reentrant=False)
+            else:
+                x, c = group(x, c, *args)
 
         x = x.reshape(B, T * S, -1)
         t_fin = t_emb.repeat_interleave(NC, dim=0)
@@ -558,12 +615,29 @@ def build_model_config(model_cfg: Dict, vae_out_channels: int = 16,
     return MagicDriveSTDiT3Config.from_dict(d)
 
 
+# parameters that enter fp32 arithmetic: the RMSNorm weights, the unconditional
+# camera parameters and the box-id statistics
+_KEEP_FP32 = ("_norm.weight", "uncond_cam", "mean_var")
+
+
+def needs_cast(name: str, p: torch.Tensor, dtype) -> bool:
+    """Whether a forward in ``dtype`` reads parameter ``name`` through a cast
+    (floating point, not one of the fp32-kept ones, not in ``dtype`` already)."""
+    return p.is_floating_point() and not name.endswith(_KEEP_FP32) and dtype != p.dtype
+
+
 def cast_model(model: nn.Module, dtype) -> nn.Module:
-    """Cast the model to its compute dtype. Parameters that enter fp32 arithmetic
-    stay fp32: the RMSNorm weights, the unconditional camera parameters and the
-    box-id statistics. Buffers are cast where they are used."""
-    keep = ("_norm.weight", "uncond_cam", "mean_var")
+    """Cast the model to its compute dtype, in place (inference). Parameters that
+    enter fp32 arithmetic stay fp32. Buffers are cast where they are used."""
     for name, p in model.named_parameters():
-        if p.is_floating_point() and not name.endswith(keep):
+        if needs_cast(name, p, dtype):
             p.data = p.data.to(dtype)
     return model
+
+
+def compute_params(model: nn.Module, dtype) -> Dict[str, torch.Tensor]:
+    """The parameters as a forward in ``dtype`` reads them (training): casts of the
+    fp32 masters by ``cast_model``'s rule, for ``torch.func.functional_call``. The
+    casts are in the autograd graph, so the grads land on the fp32 masters."""
+    return {name: p.to(dtype) if needs_cast(name, p, dtype) else p
+            for name, p in model.named_parameters()}

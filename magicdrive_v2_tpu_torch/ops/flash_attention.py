@@ -5,8 +5,10 @@ The kernels are in ``csrc/flash_attention.cu``: in bf16 the wgmma bodies of
 ``csrc/attn_k3_sm90.cuh``, whose launch plan (``plan_bf16``) is computed here, in
 Python, and handed to the C entry point; in fp32 the CUDA-core body of
 ``csrc/attn_core.cuh``. On a CUDA tensor the wrapper launches the kernel or
-raises; on a CPU tensor it runs the plain version. Inference only (no backward
-yet).
+raises; on a CPU tensor it runs the plain version. Where autograd records (grad
+enabled, an input requires grad) the launch goes through
+``plain_vjp.PlainVJPFunction``, whose backward is the plain version's, recomputed, as
+the JAX ``_fa_bwd`` recomputes through XLA.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import torch
 from . import _cuda_build
 from .attention import plain_attention
 from .flash_fused import Q_ROWS, TILE_ROWS
+from .plain_vjp import PlainVJPFunction, needs_grad
 
 _fns = None
 
@@ -155,6 +158,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_plain(q, k, v, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, got {q.device}")
+    if needs_grad(q, k, v):
+        return PlainVJPFunction.apply(_launch, flash_attention_plain, "flash_attention",
+                                      q, k, v, scale)
+    return _launch(q, k, v, scale)
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
+    """One launch of the kernel on CUDA tensors the wrapper has checked."""
+    B, N, H, D = q.shape
     code = _cuda_build.dtype_code(q.dtype)
     if D > _cuda_build.MAX_HEAD_DIM:
         raise ValueError(f"head_dim {D} > {_cuda_build.MAX_HEAD_DIM} is not supported "
@@ -166,13 +178,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError("the bf16 kernel takes head dims in multiples of 8 and q/k/v "
                              f"rows on 16-byte boundaries, got head_dim {D}, strides "
                              f"{q.stride()} {k.stride()} {v.stride()}")
-        out = attend_bf16(q, k, v, scale, plan_bf16(B, N, M, H, D))
+        out = attend_bf16(q, k, v, scale, plan_bf16(B, N, k.shape[1], H, D))
     else:
         out = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         with torch.cuda.device(q.device):
             err = _kernels()[1](q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                B, N, M, H, D, *_strides(q, k, v), float(scale), stream)
+                                B, N, k.shape[1], H, D, *_strides(q, k, v), float(scale),
+                                stream)
         _cuda_build.check(err, "flash_attention")
     flash_attention.launches += 1
     return out

@@ -15,7 +15,10 @@ here one kernel, ``csrc/fused_qkv_attention.cu``, covers every sequence length.
   are summed over j in fp32.
 
 On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor it
-runs the plain version. Inference only (no backward yet). In bf16 the kernel is
+runs the plain version. Where autograd records (grad enabled, an input requires
+grad) the launch goes through ``plain_vjp.PlainVJPFunction``, whose backward is
+the plain version's, recomputed, as the JAX ``_bwd`` recomputes through XLA: it
+gives the grads of qkv and of both norm weights. In bf16 the kernel is
 two launches: a pre-pass that normalises k once per row into a scratch buffer
 of zero-padded tiles, then the attention, which reads q and v from qkv and k
 from those tiles; their launch plan (``plan_bf16``) is computed here, in Python,
@@ -30,6 +33,7 @@ import numpy as np
 import torch
 
 from . import _cuda_build
+from .plain_vjp import PlainVJPFunction, needs_grad
 
 _EPS = 1e-6
 _fns = None
@@ -196,14 +200,24 @@ def fused_qkv_attention(qkv: torch.Tensor,
         raise ValueError(f"expected qkv of shape (G, N, 3, H, D), got {tuple(qkv.shape)}")
     if (q_norm_weight is None) != (k_norm_weight is None):
         raise ValueError("give both norm weights or neither")
-    G, N, _, H, D = qkv.shape
     if scale is None:
-        scale = D ** -0.5
+        scale = qkv.shape[-1] ** -0.5
     if qkv.device.type == "cpu":
         return fused_qkv_attention_plain(qkv, q_norm_weight, k_norm_weight,
                                          kv_perm, scale)
     if qkv.device.type != "cuda":
         raise ValueError(f"fused_qkv_attention runs on cuda or cpu tensors, got {qkv.device}")
+    if needs_grad(qkv, q_norm_weight, k_norm_weight):
+        return PlainVJPFunction.apply(_launch, fused_qkv_attention_plain,
+                                      "fused_qkv_attention", qkv, q_norm_weight,
+                                      k_norm_weight, kv_perm, scale)
+    return _launch(qkv, q_norm_weight, k_norm_weight, kv_perm, scale)
+
+
+def _launch(qkv: torch.Tensor, q_norm_weight: Optional[torch.Tensor],
+            k_norm_weight: Optional[torch.Tensor], kv_perm, scale: float) -> torch.Tensor:
+    """One call of the kernel (two launches in bf16) on a CUDA qkv."""
+    G, N, _, H, D = qkv.shape
     bf16 = _cuda_build.dtype_code(qkv.dtype) == 0
     if not bf16 and D > _cuda_build.MAX_HEAD_DIM:
         raise ValueError(f"head_dim {D} > {_cuda_build.MAX_HEAD_DIM} is not supported "

@@ -3,7 +3,10 @@
 
 Counterpart of the JAX package's ops/fused_adaln.py (Pallas ``_kernel``). The
 kernel is ``csrc/adaln_modulate.cu``. On a CUDA tensor the wrapper launches the
-kernel or raises; on a CPU tensor it runs the plain version.
+kernel or raises; on a CPU tensor it runs the plain version. Where autograd
+records (grad enabled, an input requires grad) the launch goes through
+``plain_vjp.PlainVJPFunction``, whose backward is the plain version's, recomputed: the
+JAX trainer differentiates the plain composition (``_xla_fallback``) too.
 """
 from __future__ import annotations
 
@@ -12,6 +15,7 @@ import ctypes
 import torch
 
 from . import _cuda_build
+from .plain_vjp import PlainVJPFunction, needs_grad
 
 MAX_C = 1280  # 32 lanes x kMaxFloatsPerLane of csrc/adaln_modulate.cu
 _fn = None
@@ -60,13 +64,24 @@ def adaln_modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"adaln_modulate runs on cuda or cpu tensors, got {x.device}")
     if not (shift.device == x.device and scale.device == x.device):
         raise ValueError("x, shift and scale lie on different devices")
-    code = _cuda_build.dtype_code(x.dtype)
+    _cuda_build.dtype_code(x.dtype)  # raises on a type the kernel does not take
     if shift.dtype != x.dtype or scale.dtype != x.dtype:
         raise TypeError(f"shift/scale must have x's dtype {x.dtype}, got "
                         f"{shift.dtype} / {scale.dtype}")
     if C > MAX_C or (C * x.element_size()) % 16:
         raise ValueError(f"adaln_modulate: the kernel takes rows of at most {MAX_C} "
                          f"elements in whole 16-byte chunks, got C={C} {x.dtype}")
+    if needs_grad(x, shift, scale):
+        return PlainVJPFunction.apply(_launch, adaln_modulate_plain, "adaln_modulate",
+                                      x, shift, scale, eps)
+    return _launch(x, shift, scale, eps)
+
+
+def _launch(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor,
+            eps: float) -> torch.Tensor:
+    """One launch of the kernel on tensors the wrapper has checked."""
+    B, N, C = x.shape
+    code = _cuda_build.dtype_code(x.dtype)
     x, shift, scale = x.contiguous(), shift.contiguous(), scale.contiguous()
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream

@@ -29,21 +29,11 @@ from ..registry import MODELS
 from ..schedulers.rf import RFLOW, build_scheduler
 from ..utils.ckpt import init_weights
 from ..utils.inference_utils import add_null_condition, replace_with_null_condition
-from ..utils.misc import resolve_device, torch_randn
+from ..utils.misc import resolve_device, to_device, torch_randn
 
 logger = logging.getLogger(__name__)
 
 _MODEL_KEYS = ("y", "maps", "bbox", "cams", "rel_pos", "fps", "frame_valid")
-
-
-def _to_device(v, device):
-    if isinstance(v, dict):
-        return {k: _to_device(x, device) for k, x in v.items()}
-    if isinstance(v, np.ndarray):
-        v = torch.from_numpy(v)
-    if isinstance(v, torch.Tensor):
-        return v.to(device)
-    return v
 
 
 class MagicDrivePipeline:
@@ -236,7 +226,7 @@ class MagicDrivePipeline:
 
         cfg = self.model_cfg
         nc = cfg.nc
-        model_args = {k: _to_device(batch[k], self.device) for k in _MODEL_KEYS
+        model_args = {k: to_device(batch[k], self.device) for k in _MODEL_KEYS
                       if k in batch}
         b = model_args["y"].shape[0]
         lat_t, lat_h, lat_w = (self.vae.get_latent_size if self.vae is not None

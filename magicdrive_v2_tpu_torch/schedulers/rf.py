@@ -1,17 +1,32 @@
-"""Rectified-flow sampling (counterpart of the JAX package's schedulers/rf.py;
-the training losses and the BrushNet / repaint variants are not ported yet).
+"""Rectified-flow sampling and training loss (counterpart of the JAX package's
+schedulers/rf.py; the BrushNet / repaint variants are not ported yet).
 
-The scheduler is purely numerical: it receives a ``predict_fn(z, t, x_mask) -> v``
-that already folds in conditioning and classifier-free guidance.
+The scheduler is purely numerical: sampling receives a ``predict_fn(z, t, x_mask)
+-> v`` that already folds in conditioning and classifier-free guidance, the loss a
+``model_fn(x_t, t, x_mask) -> v``. Where JAX draws from a key, the port draws from
+a ``torch.Generator`` or takes the values as arguments.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from ..utils.misc import resolve_device
+
+
+def mean_flat(tensor: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean over the non-batch dims; with a (b, T) frame mask, over the masked
+    frames of a (b, C, T, H, W) tensor only."""
+    if mask is None:
+        return tensor.mean(dim=tuple(range(1, tensor.ndim)))
+    assert tensor.ndim == 5 and tensor.shape[2] == mask.shape[1], (tensor.shape, mask.shape)
+    b, c, t, h, w = tensor.shape
+    flat = tensor.transpose(1, 2).reshape(b, t, c * h * w)
+    mask = mask.to(flat.dtype)
+    denom = mask.sum(dim=1) * flat.shape[-1]
+    return (flat * mask[:, :, None]).sum(dim=(1, 2)) / denom
 
 
 def _as_f32(v, device) -> torch.Tensor:
@@ -57,6 +72,9 @@ class RFLOW:
     use_timestep_transform: bool = False
     transform_scale: float = 1.0
     cog_style_trans: bool = False
+    sample_method: str = "uniform"
+    loc: float = 0.0
+    scale: float = 1.0
     slice_cfg: bool = False
 
     def prepare_timesteps(self, batch: int, *, height, width, num_frames,
@@ -121,6 +139,61 @@ class RFLOW:
             z = torch.where(mask_t_upper[:, None, :, None, None], z_new, x0)
             noise_added = mask_t_upper
         return z
+
+
+    # ---------------- training ----------------
+
+    def sample_t(self, generator: Optional[torch.Generator], batch: int, *, height=None,
+                 width=None, num_frames=None, device=None) -> torch.Tensor:
+        """Training timesteps (b,), fp32, drawn from ``generator`` (on its device)
+        and moved to ``device``: discrete, uniform or logit-normal, then the
+        resolution/duration shift when ``use_timestep_transform``."""
+        gdev = generator.device if generator is not None else "cpu"
+        if self.use_discrete_timesteps:
+            t = torch.randint(0, self.num_timesteps, (batch,), generator=generator,
+                              device=gdev).float()
+        elif self.sample_method == "uniform":
+            t = torch.rand((batch,), generator=generator, device=gdev) * self.num_timesteps
+        elif self.sample_method == "logit-normal":
+            t = torch.sigmoid(torch.randn((batch,), generator=generator, device=gdev)
+                              * self.scale + self.loc) * self.num_timesteps
+        else:
+            raise ValueError(self.sample_method)
+        t = t.to(device if device is not None else gdev)
+        if self.use_timestep_transform:
+            t = timestep_transform(t, height=height, width=width, num_frames=num_frames,
+                                   scale=self.transform_scale,
+                                   num_timesteps=self.num_timesteps,
+                                   cog_style=self.cog_style_trans)
+        return t
+
+    def training_losses(self, model_fn: Callable, x_start: torch.Tensor, *, height,
+                        width, num_frames, mask: Optional[torch.Tensor] = None,
+                        noise: Optional[torch.Tensor] = None,
+                        t: Optional[torch.Tensor] = None,
+                        generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """Velocity-matching MSE per sample. ``t`` and ``noise`` are drawn from
+        ``generator`` when not given, t first (as JAX splits t's key first).
+        With a (b, T') frame mask, unmasked frames enter the model at t = 0
+        (the clean latents) and leave the loss."""
+        if t is None:
+            t = self.sample_t(generator, x_start.shape[0], height=height, width=width,
+                              num_frames=num_frames, device=x_start.device)
+        t = t.to(x_start.device)
+        if noise is None:
+            noise = torch.randn(x_start.shape, generator=generator, dtype=x_start.dtype,
+                                device=generator.device if generator is not None
+                                else x_start.device)
+        noise = noise.to(x_start.device, x_start.dtype)
+        x_t = add_noise(x_start, noise, t, self.num_timesteps)
+        if mask is not None:
+            mask = mask.to(x_start.device)
+            x_t0 = add_noise(x_start, noise, torch.zeros_like(t), self.num_timesteps)
+            x_t = torch.where(mask.bool()[:, None, :, None, None], x_t, x_t0)
+        velocity_pred = model_fn(x_t, t, mask)
+        target = x_start - noise
+        loss = mean_flat((velocity_pred.float() - target.float()) ** 2, mask=mask)
+        return {"loss": loss, "t": t}
 
 
 @dataclasses.dataclass

@@ -14,17 +14,26 @@ Scanned layer groups (a leading layer axis) are unstacked into
 ``base_blocks_s.{i}`` etc., the plain segment offset by ``control_depth``. The
 VAE's ``down_blocks_N`` / ``resnets_N`` / ... become ``down_blocks.N`` / ...
 and a GroupNorm ``scale`` its ``weight``.
+
+Training checkpoints keep the JAX package's layout, one ``global_step{N}/``
+directory each with ``running_states.json`` and ``rng_state.json``; the tensors are
+the port's own: ``torch.save`` of the model's, the EMA's and the optimizer's state
+dicts (``model.pt``, ``ema.pt``, ``optimizer.pt``).
 """
 from __future__ import annotations
 
 import json
+import logging
 import os
+import random as pyrandom
 import re
 import struct
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+logger = logging.getLogger(__name__)
 
 _NAME_REWRITES = [
     (re.compile(r"^t_block_1$"), "t_block.1"),
@@ -235,3 +244,97 @@ def init_weights(model: torch.nn.Module, seed: int = 0, std: float = 0.02,
         if name.endswith("_norm.weight") or name in centred:
             t.add_(1.0)
     return model
+
+
+# ---------------------------------------------------------------------------
+# training checkpoints
+# ---------------------------------------------------------------------------
+
+
+def _ckpt_name(step: int) -> str:
+    return f"global_step{step}"
+
+
+def find_latest(ckpt_dir: str) -> Optional[str]:
+    """The ``global_step*`` directory with the largest step, or None."""
+    if not os.path.isdir(ckpt_dir):
+        return None
+    steps = []
+    for name in os.listdir(ckpt_dir):
+        m = re.fullmatch(r"global_step(\d+)", name)
+        if m and os.path.isdir(os.path.join(ckpt_dir, name)):
+            steps.append(int(m.group(1)))
+    if not steps:
+        return None
+    return os.path.join(ckpt_dir, _ckpt_name(max(steps)))
+
+
+def save_rng_state(path: str, extra: Optional[dict] = None):
+    """Persist the host's python and numpy global random states as JSON."""
+    version, internal, gauss = pyrandom.getstate()
+    kind, keys, pos, has_gauss, cached = np.random.get_state()
+    state = {"python": [version, list(internal), gauss],
+             "numpy": [kind, keys.tolist(), int(pos), int(has_gauss), float(cached)]}
+    if extra:
+        state.update(extra)
+    with open(path, "w") as f:
+        json.dump(state, f)
+
+
+def load_rng_state(path: str) -> dict:
+    """Restore what ``save_rng_state`` wrote. The file is read as JSON, so a
+    file from elsewhere can set the random states but run no code."""
+    with open(path) as f:
+        state = json.load(f)
+    version, internal, gauss = state["python"]
+    pyrandom.setstate((version, tuple(internal), gauss))
+    kind, keys, pos, has_gauss, cached = state["numpy"]
+    np.random.set_state((kind, np.asarray(keys, dtype=np.uint32), pos, has_gauss, cached))
+    return state
+
+
+def save_checkpoint(ckpt_dir: str, step: int, *, model: torch.nn.Module,
+                    optimizer=None, ema: Optional[torch.nn.Module] = None,
+                    running_states: Optional[dict] = None) -> str:
+    """Write one resumable checkpoint directory; returns its path."""
+    path = os.path.abspath(os.path.join(ckpt_dir, _ckpt_name(step)))
+    os.makedirs(path, exist_ok=True)
+    torch.save(model.state_dict(), os.path.join(path, "model.pt"))
+    if ema is not None:
+        torch.save(ema.state_dict(), os.path.join(path, "ema.pt"))
+    if optimizer is not None:
+        torch.save(optimizer.state_dict(), os.path.join(path, "optimizer.pt"))
+    running = dict(running_states or {})
+    running["step"] = step
+    with open(os.path.join(path, "running_states.json"), "w") as f:
+        json.dump(running, f, indent=2, default=str)
+    save_rng_state(os.path.join(path, "rng_state.json"))
+    logger.info("saved checkpoint: %s", path)
+    return path
+
+
+def load_checkpoint(path: str, *, model: Optional[torch.nn.Module] = None,
+                    ema: Optional[torch.nn.Module] = None, optimizer=None) -> dict:
+    """Load a directory ``save_checkpoint`` wrote into the given model, EMA and
+    optimizer (each that is given and was saved), in place, onto their devices.
+    Returns the running states (``step``, ...)."""
+    def read(name):
+        f = os.path.join(path, name)
+        return torch.load(f, map_location="cpu", weights_only=True) \
+            if os.path.isfile(f) else None
+
+    if model is not None:
+        model.load_state_dict(read("model.pt"))
+    if ema is not None and (sd := read("ema.pt")) is not None:
+        ema.load_state_dict(sd)
+    if optimizer is not None and (sd := read("optimizer.pt")) is not None:
+        optimizer.load_state_dict(sd)
+    rs = os.path.join(path, "running_states.json")
+    running = {}
+    if os.path.isfile(rs):
+        with open(rs) as f:
+            running = json.load(f)
+    rng = os.path.join(path, "rng_state.json")
+    if os.path.isfile(rng):
+        load_rng_state(rng)
+    return running

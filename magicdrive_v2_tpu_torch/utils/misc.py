@@ -48,3 +48,15 @@ def resolve_device(device) -> torch.device:
             "device='cuda' was requested (the default) but torch.cuda.is_available() "
             "is False; pass device='cpu' to run the plain PyTorch versions")
     return device
+
+
+def to_device(v, device):
+    """numpy arrays and tensors, in nested dicts too, onto ``device``; other values
+    as they are."""
+    if isinstance(v, dict):
+        return {k: to_device(x, device) for k, x in v.items()}
+    if isinstance(v, np.ndarray):
+        v = torch.from_numpy(v)
+    if isinstance(v, torch.Tensor):
+        return v.to(device)
+    return v

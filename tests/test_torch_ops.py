@@ -12,6 +12,8 @@ import torch
 
 from test_torch_common import j, t
 
+import jax
+
 from magicdrive_v2_tpu.ops import flash_fused
 from magicdrive_v2_tpu.ops import rope as jrope
 from magicdrive_v2_tpu.ops.attention import xla_attention
@@ -361,3 +363,108 @@ def test_chip_smoke_bf16_limits_reject_a_dropped_k_norm_weight(N, H, cross_view)
     assert elem_ratio > 1.5 and rms_ratio > 4.0, (err, elem_ratio, rms_ratio)
     same = fused_qkv_attention_plain(qkv, qw, kw, perm, group_chunk=1)
     assert chip_smoke.compare(torch, same, ref, slack)[:3] == (0.0, 0.0, 0.0)
+
+
+# ---------------------------------------------------------------- autograd Functions
+#
+# On the card each wrapper goes through PlainVJPFunction when autograd records;
+# the Function's forward is the kernel, its backward the plain version's,
+# recomputed. Here the plain version is handed in as the forward: the backward code
+# runs on the CPU and is held against autograd straight through the plain version
+# (the same arithmetic: equal to the last bit) and against jax.vjp of the JAX
+# function (its custom_vjp backward, Pallas forward in interpret mode).
+
+from magicdrive_v2_tpu_torch.ops.plain_vjp import PlainVJPFunction, backward_calls, needs_grad
+
+GRAD_ATOL = 2e-5  # fp32 grads of the two packages: summation order only
+
+
+def _leaf(x):
+    return t(x).requires_grad_()
+
+
+def _check_function(out, plain_out, inputs, g, name):
+    assert type(out.grad_fn).__name__ == "PlainVJPFunctionBackward"
+    torch.testing.assert_close(out, plain_out, rtol=0, atol=0)
+    calls = backward_calls.get(name, 0)
+    got = torch.autograd.grad(out, inputs, g)
+    assert backward_calls[name] == calls + 1
+    want = torch.autograd.grad(plain_out, inputs, g)
+    for a, b in zip(got, want):
+        assert a is not None and bool((a != 0).any())
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    return got
+
+
+@pytest.mark.parametrize("norm", [True, False], ids=["norm", "no_norm"])
+@pytest.mark.parametrize("perm_kind", ["none", "2d"], ids=["J1", "J2"])
+def test_fused_qkv_function_backward(qkv_data, perm_kind, norm):
+    """Grads of qkv and of both norm weights; with J=2 the k/v grads of a group
+    sum over the two groups that read it."""
+    qkv, qw, kw = qkv_data
+    perm = _perms()[perm_kind]
+    scale = D ** -0.5
+    tq, tw_q, tw_k = _leaf(qkv), _leaf(qw) if norm else None, _leaf(kw) if norm else None
+    inputs = [tq] + ([tw_q, tw_k] if norm else [])
+    out = PlainVJPFunction.apply(fused_qkv_attention_plain, fused_qkv_attention_plain,
+                                 "fused_qkv_attention", tq, tw_q, tw_k, perm, scale)
+    g = np.random.default_rng(7).standard_normal(out.shape).astype(np.float32)
+    got = _check_function(out, fused_qkv_attention_plain(tq, tw_q, tw_k, perm, scale),
+                          inputs, t(g), "fused_qkv_attention")
+    perm_t = None if perm is None else tuple(tuple(p) for p in perm.tolist())
+    args = (j(qkv), j(qw), j(kw)) if norm else (j(qkv),)
+    _, vjp = jax.vjp(lambda *a: flash_fused.fused_qkv_attention(
+        *(a if norm else a + (None, None)), perm_t, scale), *args)
+    for a, b in zip(got, vjp(j(g))):
+        _close(a, b, GRAD_ATOL, RTOL)
+
+
+def test_adaln_function_backward():
+    """Grads of x, shift and scale against autograd through the plain version and
+    against jax.vjp of the composition the JAX trainer differentiates."""
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((2, 37, 64)).astype(np.float32) * 3 + 0.5
+    sh, sc = (rng.standard_normal((2, 64)).astype(np.float32) for _ in range(2))
+    g = rng.standard_normal(x.shape).astype(np.float32)
+    inputs = [_leaf(x), _leaf(sh), _leaf(sc)]
+    out = PlainVJPFunction.apply(adaln_modulate_plain, adaln_modulate_plain,
+                                 "adaln_modulate", *inputs, 1e-6)
+    got = _check_function(out, adaln_modulate_plain(*inputs), inputs, t(g),
+                          "adaln_modulate")
+    _, vjp = jax.vjp(lambda a, b, c: _xla_fallback(a, b[:, None], c[:, None], 1e-6),
+                     j(x), j(sh), j(sc))
+    for a, b in zip(got, vjp(j(g))):
+        _close(a, b, 1e-4, 1e-5)
+
+
+@pytest.mark.parametrize("D_", [8, 16], ids=["D8", "D16"])
+def test_flash_attention_function_backward_on_strided_kv(D_):
+    """k and v are strided views of one (B, M, 2, H, D) projection: their grads land
+    on that one tensor, through the views."""
+    rng = np.random.default_rng(9)
+    q = rng.standard_normal((2, 40, 2, D_)).astype(np.float32)
+    kv = rng.standard_normal((2, 13, 2, 2, D_)).astype(np.float32)
+    tq, tkv = _leaf(q), _leaf(kv)
+    scale = D_ ** -0.5
+    out = PlainVJPFunction.apply(flash_attention_plain, flash_attention_plain,
+                                 "flash_attention", tq, tkv[:, :, 0], tkv[:, :, 1], scale)
+    g = rng.standard_normal(out.shape).astype(np.float32)
+    got = _check_function(out, flash_attention_plain(tq, tkv[:, :, 0], tkv[:, :, 1]),
+                          [tq, tkv], t(g), "flash_attention")
+    _, vjp = jax.vjp(lambda a, b: jax_flash_attention(a, b[:, :, 0], b[:, :, 1], None,
+                                                      128, 128), j(q), j(kv))
+    for a, b in zip(got, vjp(j(g))):
+        _close(a, b, GRAD_ATOL, RTOL)
+
+
+def test_functions_run_only_where_autograd_records():
+    x = torch.ones(2, requires_grad=True)
+    assert needs_grad(None, x) and not needs_grad(x.detach(), None)
+    with torch.no_grad():
+        assert not needs_grad(x)
+    # the plain path on the CPU stays differentiable, with no Function node
+    qkv = torch.randn(2, 5, 3, 1, 8, requires_grad=True)
+    out = fused_qkv_attention(qkv, None, None)
+    assert "PlainVJPFunction" not in type(out.grad_fn).__name__
+    out.sum().backward()
+    assert qkv.grad is not None

@@ -300,8 +300,18 @@ batch = synthetic_batch(pipe.model_cfg, 1, 64, 80, l_txt=32)
 vid = pipe.sample(batch, num_frames=1, height=64, width=80, torch_seed=1024, decode=True)
 assert vid.shape == (1, 6, 3, 1, 64, 80) and bool(torch.isfinite(vid).all()), vid.shape
 assert float(vid.std()) > 1e-3
+
+# one step of the train app on the tiny training config
+import tempfile
+from magicdrive_v2_tpu_torch.scripts import train_magicdrive
+with tempfile.TemporaryDirectory() as d:
+    lines = train_magicdrive.main(["configs/magicdrive/train/smoke_tiny.py", "--synthetic",
+                                   "--device", "cpu", "--max-steps", "1",
+                                   "--cfg-options", f"outputs={d}"])
+assert [x["step"] for x in lines] == [1], lines
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "magicdrive_v2_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
+                                    "magicdrive_v2_tpu"))
 assert not bad, bad
 print("NO_JAX_OK", float(out.abs().mean()), float(vid.abs().mean()))
 """
@@ -317,7 +327,8 @@ def test_port_runs_without_importing_jax_or_the_jax_package():
 
 def test_port_sources_name_no_jax_import():
     import re
-    pat = re.compile(r"import (jax|flax|optax)|from (jax|flax|optax)|magicdrive_v2_tpu[^_]")
+    pat = re.compile(r"import (jax|flax|optax|orbax)|from (jax|flax|optax|orbax)"
+                     r"|magicdrive_v2_tpu[^_]")
     roots = [os.path.join(REPO, "magicdrive_v2_tpu_torch"), os.path.join(REPO, "chip_smoke.py")]
     hits = []
     for root in roots:

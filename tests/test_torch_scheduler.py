@@ -102,3 +102,72 @@ def test_sample_masked_with_injected_noise():
     b = TR.build_scheduler(kw).sample(_toy("torch"), t(z), mask=t(mask), generator=g(),
                                       **{k: t(v) for k, v in HW.items()})
     np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+# ---------------------------------------------------------------- training
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["plain", "frame_mask"])
+def test_mean_flat(masked):
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2, 4, 3, 5, 6)).astype(np.float32)
+    mask = np.array([[1.0, 0.0, 1.0], [0.0, 0.0, 1.0]], np.float32) if masked else None
+    ref = JR.mean_flat(j(x), None if mask is None else j(mask))
+    out = TR.mean_flat(t(x), None if mask is None else t(mask))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-6)
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["plain", "frame_mask"])
+def test_training_losses_with_t_and_noise_given(masked):
+    """Same t and noise as JAX draws them, a toy velocity field: the same loss per
+    sample, and the port's loss carries grads back into the model's output."""
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, 4, 3, 5, 6)).astype(np.float32)
+    noise = rng.standard_normal(x.shape).astype(np.float32)
+    tt = np.array([123.0, 870.0], np.float32)
+    mask = np.array([[1.0, 0.0, 1.0], [0.0, 1.0, 1.0]], np.float32) if masked else None
+    kw = rflow(sample_method="logit-normal")
+    ref = JR.build_scheduler(kw).training_losses(
+        _toy("jax"), jax.random.PRNGKey(0), j(x), mask=None if mask is None else j(mask),
+        noise=j(noise), t=j(tt), **{k: j(v) for k, v in HW.items()})
+    w = torch.ones((), requires_grad=True)
+    toy = _toy("torch")
+    out = TR.build_scheduler(kw).training_losses(
+        lambda z, tt_, m: w * toy(z, tt_, m), t(x), mask=None if mask is None else t(mask),
+        noise=t(noise), t=t(tt), **{k: t(v) for k, v in HW.items()})
+    np.testing.assert_allclose(out["loss"].detach().numpy(), np.asarray(ref["loss"]),
+                               rtol=1e-5)
+    np.testing.assert_array_equal(out["t"].numpy(), tt)
+    out["loss"].mean().backward()
+    assert w.grad is not None and float(w.grad.abs()) > 0
+
+
+@pytest.mark.parametrize("method", ["uniform", "logit-normal", "discrete"])
+def test_sample_t_draws_from_the_generator_then_shifts(method):
+    """t from a torch.Generator (JAX draws from a key, so the draws differ): the
+    distribution's formula on the generator's draws, then JAX's
+    timestep_transform."""
+    kw = rflow(sample_method=method, loc=0.3, scale=1.2)
+    if method == "discrete":
+        kw = rflow(use_discrete_timesteps=True)
+    sched = TR.build_scheduler(kw)
+    hw = {k: v[:2] for k, v in HW.items()}
+    out = sched.sample_t(torch.Generator().manual_seed(5), 2, **{k: t(v) for k, v in hw.items()})
+    g = torch.Generator().manual_seed(5)
+    if method == "uniform":
+        raw = torch.rand((2,), generator=g) * 1000
+    elif method == "logit-normal":
+        raw = torch.sigmoid(torch.randn((2,), generator=g) * 1.2 + 0.3) * 1000
+    else:
+        raw = torch.randint(0, 1000, (2,), generator=g).float()
+    ref = JR.timestep_transform(j(raw.numpy()), **{k: j(v) for k, v in hw.items()},
+                                num_timesteps=1000, cog_style=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-6, atol=1e-4)
+    again = sched.sample_t(torch.Generator().manual_seed(5), 2,
+                           **{k: t(v) for k, v in hw.items()})
+    np.testing.assert_array_equal(out.numpy(), again.numpy())
+    # the loss draws t first, then the noise, from the one generator
+    x = torch.zeros(2, 4, 3, 5, 6)
+    res = sched.training_losses(lambda z, tt_, m: z, x, generator=torch.Generator()
+                                .manual_seed(5), **{k: t(v) for k, v in hw.items()})
+    np.testing.assert_array_equal(res["t"].numpy(), out.numpy())
