@@ -50,7 +50,23 @@ card. It imports only ``magicdrive_v2_tpu_torch`` and
 9. ``app``      the inference app (``magicdrive_v2_tpu_torch.scripts.
                 inference_magicdrive``) on the 424x800 config with synthetic
                 conditioning, 17 frames, 2 steps; checks its launch counters and
-                the 17 PNG frames of the 2x3 grid it wrote.
+                the 17 PNG frames of the 2x3 grid it wrote;
+10. ``dataset`` writes a nuScenes-format set to a temporary directory (two scenes
+                of 41 frames at 12 Hz, six 1600x900 JPEG views a frame, 3-20 boxes
+                of the ten classes), builds the 224x400 and 424x800 pipelines from
+                the dataset yamls through the port's composition, and times a clip
+                and 3 batches of 4 through the threaded loader; requires the native
+                polygon fill (timed on the BEV object layers);
+11. ``test_app`` the W-CODA test app (``scripts.test_magicdrive``) on a config
+                whose ``_base_`` is the 424x800 inference config, with a dataset on
+                that set: XL/2 bf16, 17 frames, 2 Euler steps, the CogVideoX-2b VAE
+                decode, back-transform to 900x1600, 16 all-in-one frames read back;
+                launch counters; host and device seconds apart;
+12. ``train_data`` the train app on a config whose ``_base_`` is the stage-2 config,
+                with a dataset on that set: XL/2 at full width and depth, b=4,
+                remat, the bf16 CogVideoX-2b VAE encode in front of every step, 3
+                steps (the first untimed): s/step, VAE-encode s/step, loader wait,
+                peak memory, launch counters.
 
 Every phase prints one JSON line. Any failure raises: the exit code is then not
 0 and no result line is printed. Without a card the script exits with code 1.
@@ -73,6 +89,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 # data-sheet peaks of an H100 SXM: dense bf16 tensor-core rate, fp32 CUDA-core
@@ -86,17 +103,26 @@ APP_CONFIG = "configs/magicdrive/inference/fullx424x800_stdit3_CogVAE_boxTDS_wCT
 TRAIN_CONFIG = "configs/magicdrive/train/stage2_17x224x400.py"
 TRAIN_APP_CONFIG = "configs/magicdrive/train/smoke_tiny.py"
 TRAIN_FRAMES, TRAIN_HEIGHT, TRAIN_WIDTH = 17, 224, 400  # the stage-2 bucket
+# the generated nuScenes-format set of phases dataset, test_app and train_data
+DATA_SCENES, DATA_FRAMES, DATA_W, DATA_H = 2, 41, 1600, 900
+DATA_YAML_224 = "Nuscenes_map_cache_box_t_with_n2t_12Hz"
+DATA_YAML_424 = "Nuscenes_400_map_cache_box_t_with_n2t_12Hz"
+NUSCENES_CLASSES = ("car", "truck", "construction_vehicle", "bus", "trailer", "barrier",
+                    "motorcycle", "bicycle", "pedestrian", "traffic_cone")
+CAMERAS = ("CAM_FRONT_LEFT", "CAM_FRONT", "CAM_FRONT_RIGHT", "CAM_BACK_RIGHT", "CAM_BACK",
+           "CAM_BACK_LEFT")
+WCODA_POST = dict(resize=[848, 1600], padding=[0, 52, 0, 0], cut_length=16)
 L_BOX = 10  # box slots per frame in the synthetic batch
 CAMERA_NEIGHBORS = ((5, 1), (0, 2), (1, 3), (2, 4), (3, 5), (4, 0))
 
 
 def optional_packages():
-    """Version of each package outside torch / numpy that a later slice may want
-    (image decoding, a real T5, video files), or why it does not import; a
-    record, not a gate."""
+    """Version of each package outside torch / numpy that the port uses or a later
+    slice may want (image decoding, dataset yamls, map caches, a real T5, video
+    files), or why it does not import; a record, not a gate."""
     import importlib
     found = {}
-    for name in ("PIL", "transformers", "imageio"):
+    for name in ("PIL", "yaml", "h5py", "transformers", "imageio"):
         try:
             found[name] = getattr(importlib.import_module(name), "__version__", "no __version__")
         except Exception as e:  # a record of what the machine has, whatever the error
@@ -1141,7 +1167,7 @@ def run_train(torch, seed, seen, encode_launches, steps=4, with_profile=False):
          peak_memory_bytes=peak, losses=losses, grad_norms=grad_norms, t_means=t_means,
          launches_per_step=launches, backward_calls_per_step=want_backward,
          ema_identity=True, backward=backward_rows)
-    return launches, backward_rows
+    return launches, backward_rows, s_step
 
 
 def run_train_app(torch):
@@ -1305,6 +1331,282 @@ def run_app(torch, per_forward, encode_launches):
     emit("app", config=APP_CONFIG, frames=len(names), frame_shape=list(frames.shape[1:]),
          png_bytes=nbytes, seconds=seconds, launches=got)
 
+# ---------------------------------------------------------------------------
+# phases 10-12: the nuScenes data path, the W-CODA test app, training on data
+# ---------------------------------------------------------------------------
+
+
+def write_nuscenes_set(root, seed=0):
+    """A nuScenes-format set in the schema of tests/helpers_mini_nuscenes.py at
+    nuScenes' size: DATA_SCENES scenes of DATA_FRAMES frames at 12 Hz (a key frame
+    every 6th), six 1600x900 JPEG views a frame (smooth random scenes shifted from
+    frame to frame, fine noise on top, quality 90), intrinsics of a 1600x900
+    camera, 20 instances a scene of the ten classes of which 3-20 carry lidar
+    points in a frame. Returns the path of the infos pickle."""
+    import pickle
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from PIL import Image
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "samples"), exist_ok=True)
+    bases = {}
+    for scene in range(DATA_SCENES):
+        for cam in CAMERAS:
+            small = rng.integers(0, 256, (18, 32, 3), dtype=np.uint8)
+            bases[scene, cam] = np.asarray(Image.fromarray(small).resize(
+                (DATA_W + 8 * DATA_FRAMES, DATA_H), Image.BICUBIC))
+    jobs, infos, scene_tokens, ts = [], [], [], 0
+    n_inst = 20
+    for scene in range(DATA_SCENES):
+        tokens = []
+        start = np.concatenate([rng.uniform(-40, 40, (n_inst, 2)), rng.uniform(-1, 0, (n_inst, 1)),
+                                rng.uniform(1, 4, (n_inst, 3)), rng.uniform(-3, 3, (n_inst, 1)),
+                                np.zeros((n_inst, 2))], axis=1)
+        velocity = rng.uniform(-0.5, 0.5, (n_inst, 2))
+        for fi in range(DATA_FRAMES):
+            token = f"s{scene}f{fi}" if fi % 6 == 0 else f"s{scene}f{fi};interp"
+            tokens.append(token)
+            cams = {}
+            for ci, cam in enumerate(CAMERAS):
+                path = os.path.join(root, "samples", f"{token}_{cam}.jpg")
+                jobs.append((path, scene, cam, fi, int(rng.integers(1 << 31))))
+                yaw = ci * np.pi / 3
+                c, s_ = np.cos(yaw), np.sin(yaw)
+                cams[cam] = dict(
+                    data_path=path,
+                    camera_intrinsics=np.array([[1266.0, 0, 800], [0, 1266.0, 450], [0, 0, 1]]),
+                    sensor2lidar_rotation=np.array([[0, 0, 1], [-1, 0, 0], [0, -1, 0]])
+                    @ np.array([[c, -s_, 0], [s_, c, 0], [0, 0, 1]]).T,
+                    sensor2lidar_translation=np.array([1.5 * c, 1.5 * s_, 1.6]),
+                    sensor2ego_rotation=[1, 0, 0, 0], sensor2ego_translation=[0, 0, 1.6])
+            boxes = start.copy()
+            boxes[:, :2] += velocity * fi
+            points = np.zeros(n_inst, np.int64)
+            points[rng.choice(n_inst, int(rng.integers(3, n_inst + 1)), replace=False)] = 5
+            infos.append(dict(
+                token=token, timestamp=ts, lidar_path="", sweeps=[],
+                location="singapore-onenorth", description="sunny day, parked cars",
+                timeofday="day", lidar2ego_rotation=[1, 0, 0, 0],
+                lidar2ego_translation=[0, 0, 1.8],
+                ego2global_rotation=[np.cos(.05 * fi), 0, 0, np.sin(.05 * fi)],
+                ego2global_translation=[2. * fi, .1 * fi, 0], cams=cams, gt_boxes=boxes,
+                gt_names=np.array([NUSCENES_CLASSES[i % 10] for i in range(n_inst)]),
+                gt_box_ids=[f"inst{scene}_{i}" for i in range(n_inst)],
+                num_lidar_pts=points, valid_flag=points > 0))
+            ts += 1
+        scene_tokens.append(tokens)
+
+    def write(job):
+        path, scene, cam, fi, s = job
+        img = bases[scene, cam][:, 8 * fi:8 * fi + DATA_W].astype(np.int16)
+        img = img + np.random.default_rng(s).integers(-6, 7, img.shape, dtype=np.int16)
+        Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(path, quality=90)
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write, jobs))
+    ann = os.path.join(root, "infos.pkl")
+    with open(ann, "wb") as f:
+        pickle.dump({"infos": infos, "scene_tokens": scene_tokens,
+                     "metadata": {"version": "generated"}}, f)
+    return ann
+
+
+def dataset_config(yaml_name, ann, split, collate=None):
+    """``dataset`` of an experiment config: the dataset yaml composed by the port's
+    ``merge_dataset_cfg``, its ``split`` on the generated set; with ``collate``, the
+    split's collate parameters and the yaml's caption template."""
+    from magicdrive_v2_tpu_torch.config.config import Config, merge_dataset_cfg
+    cfg = merge_dataset_cfg(Config(), yaml_name, overrides=[
+        (f"dataset.data.{split}.ann_file", ann), (f"dataset.data.{split}.dataset_root", "")])
+    if collate is not None:
+        cfg.dataset.data[split].img_collate_param = dict(collate,
+                                                         template=cfg.dataset.template)
+    return cfg.dataset
+
+
+def run_dataset(torch, root):
+    """Writes the set, then per pipeline (224x400 train split, 424x800 val split, 17
+    frames): ms of two clips on one thread, and of batches of 4 through the loader
+    with its worker threads; then the BEV object layers and aux channels (the
+    polygon fill) of one frame, and which fill ran."""
+    import numpy as np
+    from magicdrive_v2_tpu_torch import native
+    from magicdrive_v2_tpu_torch.config.presets import img_collate_param
+    from magicdrive_v2_tpu_torch.datasets import LoadBEVSegmentation, prepare_dataloader
+    from magicdrive_v2_tpu_torch.registry import DATASETS, build_module
+    t0 = time.time()
+    ann = write_nuscenes_set(root)
+    write_s = time.time() - t0
+    jpeg_bytes = sum(os.path.getsize(os.path.join(root, "samples", n))
+                     for n in os.listdir(os.path.join(root, "samples")))
+    pipelines = {}
+    for name, yaml_name, split, is_train, shape in (
+            ("224x400 train", DATA_YAML_224, "train", True, (TRAIN_HEIGHT, TRAIN_WIDTH)),
+            ("424x800 val", DATA_YAML_424, "val", False, (HEIGHT, WIDTH))):
+        ds_cfg = dict(dataset_config(yaml_name, ann, split, img_collate_param(
+            "all-xyz", is_train=is_train)).data[split], video_length=NUM_FRAMES)
+        dataset = build_module(ds_cfg, DATASETS)
+        clip_ms = []
+        for i in range(2):
+            t1 = time.time()
+            clip = dataset[i]
+            clip_ms.append((time.time() - t1) * 1e3)
+        require(clip["pixel_values"].shape == (NUM_FRAMES, 6, 3) + shape,
+                clip["pixel_values"].shape)
+        require(bool(np.isfinite(clip["pixel_values"]).all()), "clip pixels not finite")
+        loader, _ = prepare_dataloader(dataset, batch_size=4, num_workers=4, seed=0)
+        batch_ms, t1 = [], time.time()
+        for bi, batch in enumerate(loader):
+            now = time.time()
+            batch_ms.append((now - t1) * 1e3)
+            t1 = now
+            require(batch["pixel_values"].shape[:2] == (4, NUM_FRAMES),
+                    batch["pixel_values"].shape)
+            if bi == 2:
+                break
+        pipelines[name] = dict(clips=len(dataset), clip_ms=clip_ms,
+                               batch_of_4_ms=batch_ms, map_shape=list(
+                                   clip["bev_map_with_aux"].shape[1:]),
+                               boxes=int(clip["bboxes_3d_data"]["bboxes"].shape[2]))
+    # the 25-channel map variant: object layers and aux channels of one frame
+    yaml = dataset_config(DATA_YAML_424, ann, "val")
+    bev = LoadBEVSegmentation("", yaml.map_bound.x, yaml.map_bound.y, yaml.map_classes,
+                              object_classes=yaml.object_classes, aux_data=yaml.aux_data)
+    dataset = build_module(dict(yaml.data.val, video_length=1, pipeline=None), DATASETS)
+    frame = dataset.get_data_info(0)[0]
+    t1 = time.time()
+    out = bev(dict(frame))
+    fill_ms = (time.time() - t1) * 1e3
+    require(float(out["gt_masks_bev"][8:].sum()) > 0, "no object was filled")
+    lib = native.library_path()
+    require(lib in (str(native.COMMITTED),) or lib.startswith(str(native.BUILD_DIR)), lib)
+    emit("dataset", scenes=DATA_SCENES, frames_per_scene=DATA_FRAMES, views=6,
+         jpeg_size=[DATA_W, DATA_H], jpeg_bytes=jpeg_bytes, write_seconds=write_s,
+         pipelines=pipelines, bev_object_layers_ms=fill_ms,
+         bev_shape=list(out["gt_masks_bev"].shape), polygon_fill="native",
+         polygon_fill_library=lib,
+         polygon_fill_is_committed_library=lib == str(native.COMMITTED))
+    return ann
+
+
+def write_config(path, lines):
+    with open(path, "w") as f:
+        f.write("\n".join(f"{k} = {v!r}" for k, v in lines.items()) + "\n")
+
+
+def run_test_app(torch, per_forward, encode_launches, ann, root):
+    """The W-CODA test app on the 424x800 config with a dataset on the generated
+    set; its frames are written under outputs/ in the checkout, read back and
+    removed."""
+    from magicdrive_v2_tpu_torch.config.presets import img_collate_param
+    from magicdrive_v2_tpu_torch.scripts import test_magicdrive
+    from magicdrive_v2_tpu_torch.utils.inference_utils import read_png
+    out_dir = os.path.join("outputs", "chip_smoke_test_app")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    config = os.path.join(root, "test_app_config.py")
+    write_config(config, {
+        "_base_": os.path.abspath(APP_CONFIG), "num_frames": NUM_FRAMES,
+        "validation_index": [0], "outputs": out_dir, "save_mode": "all-in-one",
+        "post": WCODA_POST, "scheduler": {"num_sampling_steps": 2},
+        "dataset": dict(dataset_config(DATA_YAML_424, ann, "val",
+                                       img_collate_param("all-xyz", is_train=False)))})
+    messages = []
+    handler = logging.Handler()
+    handler.emit = lambda record: messages.append(record.getMessage())
+    log = logging.getLogger("test")
+    log.addHandler(handler)
+    log.setLevel(logging.INFO)
+    t0 = time.time()
+    reset_counters()
+    try:
+        saved = test_magicdrive.main([config, "--num-samples", "1"])
+    finally:
+        log.removeHandler(handler)
+    seconds = time.time() - t0
+    got = read_counters()
+    want = {k: per_forward[k] * 2 + encode_launches[k] for k in per_forward}
+    require(got == want, (got, want))
+    require(len(saved) == 1, len(saved))
+    path, frames = saved[0]
+    cut = WCODA_POST["cut_length"]
+    out_h = WCODA_POST["resize"][0] + WCODA_POST["padding"][1] + WCODA_POST["padding"][3]
+    out_w = WCODA_POST["resize"][1] + WCODA_POST["padding"][0] + WCODA_POST["padding"][2]
+    names = sorted(os.listdir(path))
+    require(names == [f"{i:04d}.png" for i in range(cut)], names)
+    require(frames.shape == (cut, 2 * out_h, 3 * out_w, 3), frames.shape)
+    t1 = time.time()
+    for i, name in enumerate(names):
+        require(bool((read_png(os.path.join(path, name)) == frames[i]).all()), name)
+    read_s = time.time() - t1
+    require(float(frames.std()) > 1.0, "constant frames")
+    # the zero padding of [-1, 1] frames is mid-grey in the written frames
+    require(bool((frames[:, :WCODA_POST["padding"][1]] == 128).all()), "top padding")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    timings = json.loads(next(m for m in messages if m.startswith("timings "))[8:])
+    emit("test_app", config=f"_base_ {APP_CONFIG}, dataset {DATA_YAML_424} val",
+         frames=len(names), frame_shape=list(frames.shape[1:]), seconds=seconds,
+         host_seconds={k: timings[k] for k in ("setup_s", "load_s", "text_s",
+                                                "back_transform_s", "write_s")},
+         device_seconds={"sample_and_decode_s": timings["sample_s"]},
+         read_back_seconds=read_s, launches=got)
+    return got
+
+
+def run_train_data(torch, encode_launches, ann, root, synthetic_s_step, steps=3):
+    """The train app on the stage-2 config with a dataset on the generated set:
+    XL/2 b=4, the VAE encode in front of each step, ``steps`` steps (the first
+    untimed), no checkpoint, no validation; beside phase ``train``'s s/step on
+    synthetic latents (``synthetic_s_step``)."""
+    import gc
+    from magicdrive_v2_tpu_torch.models.magicdrive.stdit3 import build_model_config
+    from magicdrive_v2_tpu_torch.scripts import train_magicdrive
+    cfg = train_config(torch)
+    config = os.path.join(root, "train_data_config.py")
+    write_config(config, {
+        "_base_": os.path.abspath(TRAIN_CONFIG), "outputs": os.path.join(root, "train_out"),
+        "img_collate_param_train": dict(cfg.img_collate_param_train,
+                                        template="A driving scene image at {location}. "
+                                                 "{description}."),
+        "dataset": dict(dataset_config(DATA_YAML_224, ann, "train")),
+        "ckpt_every": 0, "log_every": 1, "record_time": True, "num_workers": 4})
+    model_cfg = build_model_config(cfg.model, vae_out_channels=cfg.vae_out_channels,
+                                   mv_order_map=cfg.mv_order_map, dtype=torch.bfloat16,
+                                   grad_checkpoint=True)
+    per_forward = expected_launches(model_cfg, x_mask=True)
+    want = {k: steps * (2 * per_forward[k] + encode_launches[k]) for k in per_forward}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.time()
+    lines = train_magicdrive.main([config, "--max-steps", str(steps)])
+    seconds = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
+    got = read_counters()
+    require(got == want, (got, want))
+    require([x["step"] for x in lines] == list(range(1, steps + 1)), lines)
+    require(all(math.isfinite(x["loss"]) and x["grad_norm"] > 0 for x in lines), lines)
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed = lines[1:]
+    mean = lambda key: sum(x[key] for x in timed) / len(timed)  # noqa: E731
+    tokens = cfg.batch_size * 6 * 5 * (TRAIN_HEIGHT // 16) * (TRAIN_WIDTH // 16)
+    s_total = mean("step_s") + mean("encode_s") + mean("loader_wait_s")
+    emit("train_data", config=f"_base_ {TRAIN_CONFIG}, dataset {DATA_YAML_224} train",
+         batch=cfg.batch_size, frames=TRAIN_FRAMES, height=TRAIN_HEIGHT, width=TRAIN_WIDTH,
+         steps=steps, seconds=seconds, tokens_per_step=tokens,
+         train_step_seconds=[x["step_s"] for x in lines],
+         vae_encode_seconds=[x["encode_s"] for x in lines],
+         loader_wait_seconds=[x["loader_wait_s"] for x in lines],
+         seconds_per_step_timed_mean=s_total, train_step_seconds_timed_mean=mean("step_s"),
+         vae_encode_seconds_timed_mean=mean("encode_s"),
+         loader_wait_seconds_timed_mean=mean("loader_wait_s"),
+         tokens_per_second=tokens / s_total, samples_per_second=cfg.batch_size / s_total,
+         synthetic_seconds_per_step=synthetic_s_step,
+         synthetic_tokens_per_second=tokens / synthetic_s_step,
+         peak_memory_bytes=peak, losses=[x["loss"] for x in lines],
+         grad_norms=[x["grad_norm"] for x in lines], launches=got)
+    return {k: v // steps for k, v in got.items()}
+
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1340,9 +1642,13 @@ def main():
                  if "k3_" in r["function"]]
     require(len(k3_bodies) == 8 and all(r["spill_stores"] == 0 and r["spill_loads"] == 0
                                         for r in k3_bodies), k3_bodies)
+    from magicdrive_v2_tpu_torch import native
+    fill = native.library_path()
     emit("device", nvidia_smi=smi, python=sys.version.split()[0], torch=torch.__version__,
          cuda=torch.version.cuda, build_seconds=_cuda_build.build_seconds,
-         k1_ptxas=k1_bodies, k3_ptxas=k3_bodies, optional_packages=optional_packages())
+         k1_ptxas=k1_bodies, k3_ptxas=k3_bodies, optional_packages=optional_packages(),
+         polygon_fill=dict(kind="native", library=fill,
+                           committed_library=fill == str(native.COMMITTED)))
 
     pipe, cond, per_forward, encode_launches, l_cond, seen = build_slice(
         torch, args.steps, args.seed)
@@ -1355,12 +1661,22 @@ def main():
     torch.cuda.empty_cache()
     run_slice_vs_plain(torch, args.seed)
     seen_train = run_grads(torch, args.seed)
-    train_launches, backward_rows = run_train(torch, args.seed, seen_train, encode_launches,
-                                              with_profile=args.profile)
+    train_launches, backward_rows, synthetic_s_step = run_train(
+        torch, args.seed, seen_train, encode_launches, with_profile=args.profile)
     run_train_app(torch)
     run_decode_vs_cpu(torch, args.seed)
     torch.cuda.empty_cache()
     run_app(torch, per_forward, encode_launches)
+    data_root = tempfile.mkdtemp(prefix="chip_smoke_nuscenes_")
+    try:
+        ann = run_dataset(torch, data_root)
+        torch.cuda.empty_cache()
+        test_app_launches = run_test_app(torch, per_forward, encode_launches, ann, data_root)
+        torch.cuda.empty_cache()
+        train_data_launches = run_train_data(torch, encode_launches, ann, data_root,
+                                             synthetic_s_step)
+    finally:
+        shutil.rmtree(data_root, ignore_errors=True)
 
     # where the Pallas kernels sit in the JAX package (a path only: nothing of that
     # package is imported)
@@ -1389,11 +1705,13 @@ def main():
                 "flash_attention": backward_rows["K3"]}
     kernels = [dict(name=name, route="cuda", launches=launches[name],
                     launches_by_path={"sample": launches[name],
-                                      "train_step": train_launches[name]},
+                                      "train_step": train_launches[name],
+                                      "test_app": test_app_launches[name],
+                                      "train_step_on_data": train_data_launches[name]},
                     **meta[name], **kernel_numbers[name], backward=backward[name])
                for name in meta]
     for k in kernels:
-        require(k["launches"] > 0 and k["launches_by_path"]["train_step"] > 0, k)
+        require(all(n > 0 for n in k["launches_by_path"].values()), k)
     emit("done", seconds=time.time() - t_start)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

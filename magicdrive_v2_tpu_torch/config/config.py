@@ -1,7 +1,7 @@
 """Config system of the port (its own copy of the JAX package's config/config.py):
 python experiment files whose module-level names become config keys, with
-``_base_`` inheritance, and ``--cfg-options a.b.c=value`` overrides. The dataset
-YAML composition waits for the dataset slice.
+``_base_`` inheritance, ``--cfg-options a.b.c=value`` overrides, and the dataset
+YAMLs with their ``defaults:`` and ``${...key}`` interpolation (``yaml_compose.py``).
 
 The experiment files under ``configs/`` import their presets from the JAX
 package. ``Config.fromfile`` points those imports at this package's
@@ -79,13 +79,15 @@ class Config(dict):
 
     @classmethod
     def fromfile(cls, path: str) -> "Config":
-        """Load a python config. ``_base_`` file(s) load first and the child's
-        values deep-merge over them (nested dicts merge key-wise; everything else
-        replaces)."""
+        """Load a python or yaml config. A python file's ``_base_`` file(s) load
+        first and the child's values deep-merge over them (nested dicts merge
+        key-wise; everything else replaces)."""
         path = os.path.abspath(path)
+        if path.endswith((".yaml", ".yml")):
+            from .yaml_compose import load_yaml_config
+            return cls(load_yaml_config(path))
         if not path.endswith(".py"):
-            raise ValueError(f"{path!r}: only python experiment configs load here "
-                             "(dataset YAML composition is not ported yet)")
+            raise ValueError(f"{path!r}: a config is a .py or .yaml file")
         with open(path) as f:
             src = _JAX_IMPORT.sub(_PORT_PKG, f.read())
         ns: Dict[str, Any] = {"__file__": path, "__name__": "<config>"}
@@ -144,4 +146,32 @@ def parse_configs(argv: Optional[List[str]] = None) -> Config:
     if args.debug:
         cfg["debug"] = True
     merge_dot_options(cfg, args.cfg_options)
+    return cfg
+
+
+def merge_dataset_cfg(cfg: Config, data_cfg_name: str, overrides: Sequence = (),
+                      num_frames=None, img_size=None, search_dirs: Sequence[str] = ()):
+    """Compose a dataset yaml into cfg.dataset with ``(key, value)`` override tuples
+    (a leading ``+`` on a key is dropped). The yaml is ``data_cfg_name`` itself, or
+    ``NAME.yaml`` under ``search_dirs``, ``configs/dataset`` or the repository's
+    ``configs/dataset``."""
+    from .yaml_compose import load_yaml_config
+
+    candidates = [data_cfg_name]
+    repo_dataset = os.path.join(os.path.dirname(__file__), "../../configs/dataset")
+    for d in list(search_dirs) + ["configs/dataset", repo_dataset]:
+        candidates.append(os.path.join(d, data_cfg_name + ".yaml"))
+        candidates.append(os.path.join(d, data_cfg_name))
+    path = next((c for c in candidates if os.path.isfile(c)), None)
+    if path is None:
+        raise FileNotFoundError(f"dataset config {data_cfg_name!r} not found in {search_dirs}")
+
+    root = Config({"dataset": Config(load_yaml_config(path))})
+    for key, value in overrides or ():
+        root.set_path(key.lstrip("+"), value)
+    if num_frames is not None:
+        root.set_path("dataset.num_frames", num_frames)
+    if img_size is not None:
+        root.set_path("dataset.image_size", list(img_size))
+    cfg["dataset"] = root["dataset"]
     return cfg

@@ -72,44 +72,17 @@ class MagicDrivePipeline:
         seed = int(cfg.get("seed", 42))
         if int(cfg.get("sp_size", 1) or 1) > 1:
             raise NotImplementedError(
-                "sp_size > 1: sequence-parallel sampling is not ported yet; set sp_size=1")
+                "sp_size > 1: sequence-parallel sampling is not ported yet (ROADMAP.md "
+                "queue A item 5); set sp_size=1")
         if "BrushNet" in str(cfg.get("model", {}).get("type", "")):
-            raise NotImplementedError("BrushNet models are not ported yet")
+            raise NotImplementedError("BrushNet models are not ported yet (ROADMAP.md queue "
+                                      "A item 4)")
 
-        vae_kw = dict(cfg.get("vae", {}))
-        vae_cls = MODELS.get(vae_kw.pop("type", "VideoAutoencoderKLCogVideoX"))
-        tiling_px = cfg.get("vae_tiling")  # N: tiled decode with N-pixel tiles
-        if tiling_px and "tiling" not in vae_kw:
-            vae_kw["tiling"] = dict(tile_sample_min_height=int(tiling_px),
-                                    tile_sample_min_width=int(tiling_px))
-        vae = vae_cls(CogVAEConfig(dtype=dtype), device=device, **vae_kw)
-        loaded = False
-        if vae.from_pretrained:
-            try:
-                vae.load_pretrained()
-                loaded = True
-                logger.info("VAE: loaded pretrained weights from %s", vae.from_pretrained)
-            except FileNotFoundError as e:  # absent; a malformed snapshot raises
-                logger.warning(
-                    "VAE pretrained weights unavailable (%s) - USING RANDOM INIT; "
-                    "decoded videos will be noise. Point vae.from_pretrained at a local "
-                    "CogVideoX VAE snapshot.", e)
-        if not loaded:
-            init_weights(vae.module, seed=seed + 1)
-
+        vae = build_vae(cfg, dtype, device, seed + 1)
         model_cfg = build_model_config(
             cfg.model, vae_out_channels=cfg.get("vae_out_channels", 16),
             mv_order_map=cfg.get("mv_order_map"), dtype=dtype)
-        te_cfg = dict(cfg.get("text_encoder", {"type": "t5-dummy"}))
-        te_kind = te_cfg.pop("type", "t5-dummy")
-        try:
-            text_encoder = MODELS.get(te_kind)(**te_cfg, device=device)
-        except (OSError, ImportError, ValueError) as e:
-            # only a missing snapshot or package falls back; a wrong type or
-            # argument (KeyError, TypeError) fails
-            logger.warning("text encoder %r unavailable (%s); using t5-dummy", te_kind, e)
-            text_encoder = MODELS.get("t5-dummy")(
-                model_max_length=te_cfg.get("model_max_length", 300), device=device)
+        text_encoder = build_text_encoder(cfg, device)
         pipe = cls(model_cfg, build_scheduler(cfg.scheduler), text_encoder, device=device,
                    vae=vae)
         init_weights(pipe.model, seed=seed)
@@ -269,6 +242,50 @@ class MagicDrivePipeline:
         lat = latents.reshape(b, C, nc, t, h, w).transpose(1, 2).reshape(b * nc, C, t, h, w)
         vids = self.vae.decode(lat.to(self.vae.dtype))
         return vids.float().reshape(b, nc, *vids.shape[1:])
+
+
+def build_vae(cfg, dtype, device, seed: int) -> VideoAutoencoderKLCogVideoX:
+    """The config's VAE (``vae.type`` from the registry, default the CogVideoX VAE):
+    a configured snapshot's weights, else (the snapshot absent) random weights
+    seeded with ``seed`` and a warning; a snapshot that is present but unreadable
+    raises."""
+    vae_kw = dict(cfg.get("vae", {}))
+    vae_cls = MODELS.get(vae_kw.pop("type", "VideoAutoencoderKLCogVideoX"))
+    tiling_px = cfg.get("vae_tiling")  # N: tiled decode with N-pixel tiles
+    if tiling_px and "tiling" not in vae_kw:
+        vae_kw["tiling"] = dict(tile_sample_min_height=int(tiling_px),
+                                tile_sample_min_width=int(tiling_px))
+    vae = vae_cls(CogVAEConfig(dtype=dtype), device=device, **vae_kw)
+    loaded = False
+    if vae.from_pretrained:
+        try:
+            vae.load_pretrained()
+            loaded = True
+            logger.info("VAE: loaded pretrained weights from %s", vae.from_pretrained)
+        except FileNotFoundError as e:  # absent; a malformed snapshot raises
+            logger.warning(
+                "VAE pretrained weights unavailable (%s) - USING RANDOM INIT; "
+                "decoded videos will be noise. Point vae.from_pretrained at a local "
+                "CogVideoX VAE snapshot.", e)
+    if not loaded:
+        init_weights(vae.module, seed=seed)
+    return vae
+
+
+def build_text_encoder(cfg, device):
+    """The config's text encoder; a missing snapshot or package falls back to
+    ``t5-dummy`` (a warning says so), a wrong type or argument raises."""
+    te_cfg = dict(cfg.get("text_encoder", {"type": "t5-dummy"}))
+    te_kind = te_cfg.pop("type", "t5-dummy")
+    try:
+        text_encoder = MODELS.get(te_kind)(**te_cfg, device=device)
+    except (OSError, ImportError, ValueError) as e:
+        # only a missing snapshot or package falls back; a wrong type or
+        # argument (KeyError, TypeError) fails
+        logger.warning("text encoder %r unavailable (%s); using t5-dummy", te_kind, e)
+        text_encoder = MODELS.get("t5-dummy")(
+            model_max_length=te_cfg.get("model_max_length", 300), device=device)
+    return text_encoder
 
 
 def synthetic_batch(model_cfg, num_frames: int, height: int, width: int,

@@ -28,6 +28,7 @@ import os
 import random as pyrandom
 import re
 import struct
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -227,14 +228,17 @@ def init_weights(model: torch.nn.Module, seed: int = 0, std: float = 0.02,
                  chunk: int = 1 << 24) -> torch.nn.Module:
     """Fill every parameter and buffer with small normal values from
     ``np.random.default_rng``: one stream per tensor, keyed by (seed, position in
-    the state dict). The projections the reference zero-initialises are filled
-    too, so every branch of the network contributes to the output. RMSNorm and
-    GroupNorm weights centre on 1."""
+    the state dict), the tensors filled on 8 threads (numpy draws without the
+    GIL). The projections the reference zero-initialises are filled too, so every
+    branch of the network contributes to the output. RMSNorm and GroupNorm weights
+    centre on 1."""
     centred = {f"{n}.weight" for n, m in model.named_modules()
                if isinstance(m, torch.nn.GroupNorm)}
-    for i, (name, t) in enumerate(model.state_dict().items()):
+
+    def fill(item):
+        i, (name, t) = item
         if not t.is_floating_point():
-            continue
+            return
         rng = np.random.default_rng([seed, i])
         flat = t.view(-1)
         for s in range(0, flat.numel(), chunk):
@@ -243,6 +247,13 @@ def init_weights(model: torch.nn.Module, seed: int = 0, std: float = 0.02,
             flat[s:s + n] = (vals * std).to(device=t.device, dtype=t.dtype)
         if name.endswith("_norm.weight") or name in centred:
             t.add_(1.0)
+
+    items = list(enumerate(model.state_dict().items()))
+    # a tensor under two names is filled once, as its last name (what a fill in
+    # order leaves)
+    last = {t.data_ptr(): i for i, (_, t) in items if t.numel()}
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(fill, [it for it in items if last.get(it[1][1].data_ptr()) == it[0]]))
     return model
 
 

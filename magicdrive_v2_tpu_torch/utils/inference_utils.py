@@ -1,12 +1,14 @@
 """Inference helpers: null conditions for classifier-free guidance, prompt
-editing, the clip length of a config, the 2x3 six-view grid and saving frames
-as PNG files (written with ``zlib`` and ``struct`` alone)."""
+editing, the clip length of a config, conditioning from a config's validation
+split, the 2x3 six-view grid and saving frames as PNG files (written with ``zlib``
+and ``struct`` alone)."""
 from __future__ import annotations
 
 import os
 import struct
 import zlib
-from typing import Dict, Sequence
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -67,6 +69,33 @@ def resolve_num_frames(cfg, cli_num_frames=None, app_name: str = "app") -> int:
                 f"full_bucket_t={cfg.get('full_bucket_t')!r}")
         return t
     return int(nf)
+
+
+def build_val_dataset(cfg, video_length):
+    """The config's ``dataset.data.val`` split, its clip length ``video_length``
+    unless the split sets one ("full": whole scenes)."""
+    from ..registry import DATASETS, build_module
+    ds_cfg = dict(cfg.dataset.data.val)
+    ds_cfg.setdefault("video_length", video_length)
+    return build_module(ds_cfg, DATASETS)
+
+
+def full_bucket_length(cfg, dataset) -> int:
+    """The bucket every whole scene pads to: the config's ``full_bucket_t``, else the
+    dataset's longest full clip snapped to 8n+1."""
+    from ..datasets import max_full_clip_len
+    t = int(cfg.get("full_bucket_t", 0) or 0) or max_full_clip_len(dataset)
+    if t % 8 != 1:
+        raise ValueError(f"full bucket length must be 8n+1, got {t}")
+    return t
+
+
+def dataset_model_batch(dataset, index, full_t: Optional[int] = None) -> Dict:
+    """The model batch (numpy, captions as strings) of clip ``index``; with
+    ``full_t`` padded to that many frames (``frame_valid`` marks the scene's own)."""
+    from ..datasets import clip_to_model_batch, collate_clips, pad_model_batch_to_t
+    batch = clip_to_model_batch(collate_clips([dataset[index]]))
+    return pad_model_batch_to_t(batch, full_t) if full_t else batch
 
 
 def _null_cams_like(cams: torch.Tensor, uncond: torch.Tensor) -> torch.Tensor:
@@ -183,15 +212,18 @@ def read_png(path: str) -> np.ndarray:
     return rows[:, 1:].reshape(h, w, 3)
 
 
-def save_sample(x, save_path: str) -> str:
-    """Save (C, T, H, W) in [-1, 1]: one frame as ``save_path.png``, more as
-    ``save_path/NNNN.png``. Returns the path written."""
+def save_sample(x, save_path: str, force_image: bool = False) -> str:
+    """Save (C, T, H, W) in [-1, 1]: one frame as ``save_path.png``, more (or any
+    number with ``force_image``) as ``save_path/NNNN.png``. Returns the path
+    written."""
     os.makedirs(os.path.dirname(save_path) or ".", exist_ok=True)
     vid = to_uint8_video(x)
-    if vid.shape[0] == 1:
+    if vid.shape[0] == 1 and not force_image:
         write_png(save_path + ".png", vid[0])
         return save_path + ".png"
     os.makedirs(save_path, exist_ok=True)
-    for i, frame in enumerate(vid):
-        write_png(os.path.join(save_path, f"{i:04d}.png"), frame)
+    # frames in parallel: zlib releases the GIL while it compresses
+    with ThreadPoolExecutor(min(8, len(vid))) as pool:
+        list(pool.map(lambda i: write_png(os.path.join(save_path, f"{i:04d}.png"), vid[i]),
+                      range(len(vid))))
     return save_path

@@ -60,3 +60,24 @@ def to_device(v, device):
     if isinstance(v, torch.Tensor):
         return v.to(device)
     return v
+
+
+def collate_bboxes_to_maxlen(bbox_list, max_len: Optional[int] = None) -> Dict[str, np.ndarray]:
+    """Pad per-sample bbox dicts (bboxes (T, L, 8, 3), classes (T, L), masks (T, L),
+    optional box_latent (T, L, D)) to a common box count and stack them. Masks
+    keep the 3-state convention 0 = null/padding, 1 = keep, -1 = visible-masked."""
+    if max_len is None:
+        max_len = max(int(b["bboxes"].shape[1]) for b in bbox_list)
+    out = {"bboxes": [], "classes": [], "masks": []}
+    for b in bbox_list:
+        pad = max_len - b["bboxes"].shape[1]
+        out["bboxes"].append(np.pad(b["bboxes"], ((0, 0), (0, pad), (0, 0), (0, 0))))
+        out["classes"].append(np.pad(b["classes"], ((0, 0), (0, pad)), constant_values=0))
+        out["masks"].append(np.pad(b["masks"], ((0, 0), (0, pad)), constant_values=0))
+        if b.get("box_latent") is not None:
+            out.setdefault("box_latent", []).append(
+                np.pad(b["box_latent"], ((0, 0), (0, pad), (0, 0))))
+    if "box_latent" in out and len(out["box_latent"]) != len(bbox_list):
+        raise ValueError(f"box_latent present on {len(out['box_latent'])} of "
+                         f"{len(bbox_list)} items: all or none must carry it")
+    return {k: np.stack(v) for k, v in out.items()}

@@ -193,7 +193,8 @@ def test_inference_app_writes_the_six_view_grid(tmp_path):
     the tiny VAE from a diffusers snapshot the test writes. 9 frames -> 9 PNGs of
     the 2x3 grid (128x240) equal to the arrays the app returns; 1 frame -> one
     PNG. A missing T5 snapshot falls back to "t5-dummy"; a config with a dataset
-    needs --synthetic; sp_size > 1 and a missing --ckpt-path are refused."""
+    conditions on it (tests/test_torch_wcoda_app.py), so a val split without an
+    ann_file is refused; sp_size > 1 and a missing --ckpt-path are refused."""
     from magicdrive_v2_tpu_torch.scripts.inference_magicdrive import main
     from magicdrive_v2_tpu_torch.utils.inference_utils import read_png
     _, tvae = _tiny_vaes()
@@ -217,7 +218,7 @@ def test_inference_app_writes_the_six_view_grid(tmp_path):
     [(path1, frames1)] = main(argv[:1] + ["--synthetic", "--num-frames", "1"] + argv[1:])
     assert path1.endswith("sample_0_0.png") and frames1.shape == (1, 128, 240, 3)
     np.testing.assert_array_equal(read_png(path1), frames1[0])
-    with pytest.raises(NotImplementedError, match="--synthetic"):
+    with pytest.raises(TypeError, match="ann_file"):
         main(argv + ["dataset.data.val.type=NuScenesTDataset"])
     with pytest.raises(NotImplementedError, match="sp_size"):
         main(argv[:1] + ["--synthetic"] + argv[1:] + ["sp_size=2"])
@@ -309,6 +310,22 @@ with tempfile.TemporaryDirectory() as d:
                                    "--device", "cpu", "--max-steps", "1",
                                    "--cfg-options", f"outputs={d}"])
 assert [x["step"] for x in lines] == [1], lines
+# the data path: a nuScenes-format set through a dataset yaml and the loader, the
+# native host kernels, the W-CODA app's module
+sys.path.insert(0, "tests")
+from helpers_mini_nuscenes import generate
+from magicdrive_v2_tpu_torch import native
+from magicdrive_v2_tpu_torch.config.config import Config, merge_dataset_cfg
+from magicdrive_v2_tpu_torch.datasets import prepare_dataloader
+from magicdrive_v2_tpu_torch.registry import DATASETS, build_module
+import magicdrive_v2_tpu_torch.scripts.test_magicdrive
+with tempfile.TemporaryDirectory() as d:
+    ann = generate(d, (6, 6))
+    ds = merge_dataset_cfg(Config(), "Nuscenes", [("dataset.data.val.ann_file", ann)]).dataset
+    dataset = build_module(dict(ds.data.val, video_length=3), DATASETS)
+    data = next(iter(prepare_dataloader(dataset, batch_size=2)[0]))
+assert data["pixel_values"].shape[:3] == (2, 3, 6), data["pixel_values"].shape
+assert native.library_path().endswith(".so")
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
                                     "magicdrive_v2_tpu"))

@@ -471,7 +471,7 @@ def test_app_resume_equals_an_uninterrupted_run(tmp_path, caplog):
 def test_app_refuses_what_is_not_ported(tmp_path):
     out = f"outputs={tmp_path}"
     from magicdrive_v2_tpu_torch.scripts import train_magicdrive
-    with pytest.raises(NotImplementedError, match="--synthetic"):
+    with pytest.raises(KeyError, match="data.train"):
         train_magicdrive.main([SMOKE, "--device", "cpu", "--cfg-options", out,
                                "dataset={'type': 'x'}"])
     with pytest.raises(NotImplementedError, match="sp_size"):
