@@ -66,7 +66,24 @@ card. It imports only ``magicdrive_v2_tpu_torch`` and
                 with a dataset on that set: XL/2 at full width and depth, b=4,
                 remat, the bf16 CogVideoX-2b VAE encode in front of every step, 3
                 steps (the first untimed): s/step, VAE-encode s/step, loader wait,
-                peak memory, launch counters.
+                peak memory, launch counters;
+13. ``brushnet_vs_plain``  XL/2-SDEBrushNet at full width, depth 2 / control
+                depth 1, one forward with a frame mask at 6x424x800x17f: kernels
+                against plain versions in fp32 and bf16; another mask or inpaint
+                timestep moves the output;
+14. ``brushnet`` full XL/2-SDEBrushNet (28 + 28 BrushNet blocks) from the 424x800
+                BrushNet config, bf16, 6x424x800x17f, batched CFG, t_inpaint 200:
+                launches of a forward, one request of 4 steps with the VAE decode
+                (s/step, s/sample, peak memory), the ShallowEncoder, the mask resize
+                and the structured noise timed apart; then ``brushnet_plain``: one
+                request of the plain BrushNet type, 2 steps;
+15. ``repaint``  base XL/2 from the 424x800 repaint config (two-pass CFG), 3 steps,
+                the reference VAE-encoded on the card: the kept region of the final
+                latents equals the reference exactly;
+16. ``brushnet_apps`` the BrushNet app (``--sde``) and the repaint app on their
+                configs, 17 frames, 2 steps, frames read back; and (after phase 11)
+                ``brushnet_test_app``: the W-CODA app with ``--sde`` on the
+                generated set.
 
 Every phase prints one JSON line. Any failure raises: the exit code is then not
 0 and no result line is printed. Without a card the script exits with code 1.
@@ -471,15 +488,25 @@ def decode_flops(torch, vae, latent_shape):
 
 def expected_launches(cfg, x_mask=False):
     """Kernel launches of one denoiser forward with a condition cache; with a frame
-    mask every adaLN runs twice (the t and t0 modulations)."""
+    mask every adaLN runs twice (the t and t0 modulations). A BrushNet model adds
+    its branch: a spatial block a depth (no cross-view attention when the control
+    blocks skip it), a temporal block a depth, neither with condition
+    cross-attention."""
     n_ctrl_t = 0 if cfg.control_skip_temporal else cfg.control_depth
     n_base_t = cfg.depth if cfg.with_temp_block else 0
     spatial = cfg.depth + cfg.control_depth
     cross_view = cfg.depth + (0 if cfg.control_skip_cross_view else cfg.control_depth)
     blocks = spatial + n_base_t + n_ctrl_t
+    cross_attn = blocks
+    if hasattr(cfg, "sde_inpaint"):  # BrushNetConfig
+        brush_s, brush_t = cfg.depth, cfg.depth if cfg.with_temp_block else cfg.control_depth
+        spatial += brush_s
+        cross_view += 0 if cfg.control_skip_cross_view else brush_s
+        blocks += brush_s + brush_t
+        cross_attn += 0 if cfg.brushnet_skip_cross_attn else brush_s + brush_t
     return {"fused_qkv_attention": spatial + cross_view,
             "adaln_modulate": (2 * blocks + cross_view) * (2 if x_mask else 1),
-            "flash_attention": blocks}
+            "flash_attention": cross_attn}
 
 
 def counters():
@@ -717,7 +744,7 @@ def run_slice(torch, pipe, cond, per_forward, encode_launches, l_cond, steps, re
                           torch_seed=1024)
     require(torch.equal(latents[-1], latents[0]), "two runs of one seed differ (latents)")
     require(torch.equal(v_again, videos[0]), "two runs of one seed differ (video)")
-    pipe.decode = pipeline_decode
+    del pipe.decode  # the class's method again (a bound one kept here is a cycle)
     flops = decode_flops(torch, pipe.vae, (6, 16) + latent_shape[2:])
     sampling = [s - d for s, d in zip(seconds, decode_seconds)]
     emit("slice", model="MagicDriveSTDiT3-XL/2", dtype="bfloat16", params=n_params,
@@ -1495,18 +1522,19 @@ def write_config(path, lines):
         f.write("\n".join(f"{k} = {v!r}" for k, v in lines.items()) + "\n")
 
 
-def run_test_app(torch, per_forward, encode_launches, ann, root):
-    """The W-CODA test app on the 424x800 config with a dataset on the generated
-    set; its frames are written under outputs/ in the checkout, read back and
-    removed."""
+def run_test_app(torch, per_forward, encode_launches, ann, root, base_config=APP_CONFIG,
+                 extra_argv=(), phase="test_app"):
+    """The W-CODA test app on the 424x800 config ``base_config`` with a dataset on
+    the generated set, ``extra_argv`` added to its command line; its frames are
+    written under outputs/ in the checkout, read back and removed."""
     from magicdrive_v2_tpu_torch.config.presets import img_collate_param
     from magicdrive_v2_tpu_torch.scripts import test_magicdrive
     from magicdrive_v2_tpu_torch.utils.inference_utils import read_png
-    out_dir = os.path.join("outputs", "chip_smoke_test_app")
+    out_dir = os.path.join("outputs", f"chip_smoke_{phase}")
     shutil.rmtree(out_dir, ignore_errors=True)
-    config = os.path.join(root, "test_app_config.py")
+    config = os.path.join(root, f"{phase}_config.py")
     write_config(config, {
-        "_base_": os.path.abspath(APP_CONFIG), "num_frames": NUM_FRAMES,
+        "_base_": os.path.abspath(base_config), "num_frames": NUM_FRAMES,
         "validation_index": [0], "outputs": out_dir, "save_mode": "all-in-one",
         "post": WCODA_POST, "scheduler": {"num_sampling_steps": 2},
         "dataset": dict(dataset_config(DATA_YAML_424, ann, "val",
@@ -1520,7 +1548,7 @@ def run_test_app(torch, per_forward, encode_launches, ann, root):
     t0 = time.time()
     reset_counters()
     try:
-        saved = test_magicdrive.main([config, "--num-samples", "1"])
+        saved = test_magicdrive.main([config, "--num-samples", "1", *extra_argv])
     finally:
         log.removeHandler(handler)
     seconds = time.time() - t0
@@ -1544,7 +1572,8 @@ def run_test_app(torch, per_forward, encode_launches, ann, root):
     require(bool((frames[:, :WCODA_POST["padding"][1]] == 128).all()), "top padding")
     shutil.rmtree(out_dir, ignore_errors=True)
     timings = json.loads(next(m for m in messages if m.startswith("timings "))[8:])
-    emit("test_app", config=f"_base_ {APP_CONFIG}, dataset {DATA_YAML_424} val",
+    emit(phase, config=f"_base_ {base_config}, dataset {DATA_YAML_424} val",
+         argv=list(extra_argv),
          frames=len(names), frame_shape=list(frames.shape[1:]), seconds=seconds,
          host_seconds={k: timings[k] for k in ("setup_s", "load_s", "text_s",
                                                 "back_transform_s", "write_s")},
@@ -1608,6 +1637,376 @@ def run_train_data(torch, encode_launches, ann, root, synthetic_s_step, steps=3)
     return {k: v // steps for k, v in got.items()}
 
 
+# ---------------------------------------------------------------------------
+# phases 13-16: BrushNet / SDE-BrushNet inpainting and RePaint editing
+# ---------------------------------------------------------------------------
+
+BRUSHNET_CONFIG = ("configs/magicdrive/inference/"
+                   "fullx424x800_stdit3_CogVAE_boxTDS_wCT_xCE_wSST_brushnet.py")
+REPAINT_CONFIG = ("configs/magicdrive/inference/"
+                  "fullx424x800_stdit3_CogVAE_boxTDS_wCT_xCE_wSST_repaint.py")
+SDE_BRUSHNET = "MagicDriveSTDiT3-XL/2-SDEBrushNet"
+PLAIN_BRUSHNET = "MagicDriveSTDiT3-XL/2-BrushNet"
+INPAINT_NOISE_SCALE = 0.2
+BRUSHNET_STEPS = 4
+REPAINT_STEPS = 3
+# bf16 forward, kernels against plain versions (the rule of phase grads):
+# rms(out_kernels - out_plain) <= 2**-6 * rms(out_plain) + rms(out_plain - out_fp32)
+FORWARD_BF16_RMS_LIMIT = 2.0 ** -6
+
+
+def brushnet_config(torch, dtype, sde=True, **overrides):
+    from magicdrive_v2_tpu_torch.models.magicdrive.brushnet import BrushNetConfig
+    return BrushNetConfig.from_base(xl2_config(torch, dtype, **overrides), sde_inpaint=sde)
+
+
+def inpaint_batch(cfg):
+    """synthetic_batch at 6x424x800x17f plus the inpaint inputs of the apps
+    (numpy-seeded pixels and 0/1 masks) and the SDE model's t_inpaint."""
+    import numpy as np
+    from magicdrive_v2_tpu_torch.pipelines.magicdrive import synthetic_batch
+    from magicdrive_v2_tpu_torch.scripts.inference_magicdrive_brushnet import (
+        synthetic_inpaint_inputs)
+    batch = synthetic_batch(cfg, NUM_FRAMES, HEIGHT, WIDTH, l_box=L_BOX)
+    batch["x_inpaint"], batch["mask_inpaint"] = synthetic_inpaint_inputs(
+        0, cfg.nc, NUM_FRAMES, HEIGHT, WIDTH)
+    batch["t_inpaint"] = np.full((1,), INPAINT_NOISE_SCALE * 1000, np.float32)
+    return batch
+
+
+def run_brushnet_vs_plain(torch, seed):
+    """XL/2-SDEBrushNet at full width, depth 2 / control depth 1, one forward with
+    a frame mask at 6x424x800x17f (b=1): kernels against plain versions in fp32
+    (TF32 off) and in bf16 (the fp32 weights cast), and the inpaint branch live."""
+    from magicdrive_v2_tpu_torch.models.magicdrive.brushnet import MagicDriveSTDiT3BrushNet
+    from magicdrive_v2_tpu_torch.models.magicdrive.stdit3 import cast_model
+    from magicdrive_v2_tpu_torch.utils.ckpt import init_weights
+    cfg = brushnet_config(torch, torch.float32, depth=2, control_depth=1)
+    with torch.device("cuda"):
+        model = MagicDriveSTDiT3BrushNet(cfg).eval()
+    init_weights(model, seed=seed)
+    batch = inpaint_batch(cfg)
+    dev = to_card(torch, batch)
+    gen = torch.Generator().manual_seed(seed)
+    noise_shape = (cfg.nc * cfg.in_channels * 5, HEIGHT // 8, WIDTH // 8)
+    dev["inpaint_input_noise"] = torch.randn(noise_shape, generator=gen).cuda()
+    dev["x_mask"] = torch.tensor([[True, False, True, True, False]], device="cuda")
+    want = expected_launches(cfg, x_mask=True)
+    rows = {}
+    with torch.no_grad(), no_tf32(torch):
+        outs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            if dtype == torch.bfloat16:
+                cast_model(model, dtype)
+            reset_counters()  # the forward embeds its conditions: count that apart
+            model.encode_conditions(tuple(dev["x"].shape), dev["y"], dev["maps"], dev["bbox"],
+                                    dev["cams"], dev["rel_pos"])
+            encode = read_counters()
+            reset_counters()
+            out = model(**dev)
+            torch.cuda.synchronize()
+            require(read_counters() == {k: want[k] + encode[k] for k in want},
+                    (read_counters(), want, encode))
+            with plain_versions():
+                reset_counters()
+                ref = model(**dev)
+                torch.cuda.synchronize()
+                require(sum(read_counters().values()) == 0, read_counters())
+            outs[dtype] = (out, ref)
+            err, scale = max_err(out, ref)
+            rows[str(dtype)] = dict(max_abs_err=err, ref_max=scale)
+            if dtype == torch.float32:
+                # the inpaint branch is live: another mask or inpaint timestep moves it
+                for key, value in (("mask_inpaint", 1 - dev["mask_inpaint"]),
+                                   ("t_inpaint", torch.full((1,), 800.0, device="cuda"))):
+                    moved = float((model(**{**dev, key: value}) - out).abs().max())
+                    rows[str(dtype)][f"moved_by_{key}"] = moved
+                    require(moved > 1e-3, (key, moved))
+                limit = 1e-3 * max(1.0, scale)
+                rows[str(dtype)]["limit"] = limit
+                require(scale > 1e-3 and err <= limit, rows)
+        out, ref = (x.float() for x in outs[torch.bfloat16])
+        ref32 = outs[torch.float32][1].float()
+        rms = lambda x: float(x.square().mean().sqrt())  # noqa: E731
+        limit = FORWARD_BF16_RMS_LIMIT * rms(ref) + rms(ref - ref32)
+        rows["torch.bfloat16"].update(rms_err=rms(out - ref), rms_limit=limit,
+                                      rms_bf16_vs_fp32=rms(ref - ref32))
+        require(bool(out.isfinite().all()) and rms(out - ref) <= limit, rows)
+    emit("brushnet_vs_plain", model=SDE_BRUSHNET, depth=cfg.depth,
+         control_depth=cfg.control_depth, output_shape=list(out.shape), x_mask=True,
+         launches_per_forward=want, results=rows,
+         bf16_limit="rms(kernels - plain) <= 2**-6 * rms(plain) + rms(plain - plain fp32)")
+    del model, outs, out, ref, ref32, dev
+    torch.cuda.empty_cache()
+
+
+def brushnet_pipeline(torch, model_type, scheduler_type, steps, seed):
+    """MagicDrivePipeline.from_config on the 424x800 BrushNet config with
+    ``model_type`` and ``scheduler_type``, ``steps`` Euler steps."""
+    from magicdrive_v2_tpu_torch.config.config import Config, merge_dot_options
+    from magicdrive_v2_tpu_torch.pipelines.magicdrive import MagicDrivePipeline
+    cfg = Config.fromfile(BRUSHNET_CONFIG)
+    merge_dot_options(cfg, [f"model.type={model_type}", f"scheduler.type={scheduler_type}",
+                            f"scheduler.num_sampling_steps={steps}", f"seed={seed}"])
+    t0 = time.time()
+    pipe = MagicDrivePipeline.from_config(cfg)
+    return pipe, time.time() - t0
+
+
+def timed_sample(torch, pipe, cond, **kw):
+    """One sample with decode: (video, seconds in all, seconds of the decode,
+    latents, launch counts, peak memory)."""
+    timing = {}
+    pipeline_decode = pipe.decode
+
+    def timed_decode(z):
+        timing["latents"] = z
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = pipeline_decode(z)
+        torch.cuda.synchronize()
+        timing["decode"] = time.time() - t0
+        return out
+
+    pipe.decode = timed_decode
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    try:
+        video = pipe.sample(cond, num_frames=NUM_FRAMES, height=HEIGHT, width=WIDTH, **kw)
+        torch.cuda.synchronize()
+    finally:
+        del pipe.decode  # the class's method again (a bound one kept here is a cycle)
+    return (video, time.time() - t0, timing["decode"], timing["latents"], read_counters(),
+            torch.cuda.max_memory_allocated())
+
+
+def run_brushnet(torch, seed, encode_launches):
+    """Full XL/2-SDEBrushNet (28 + 28 BrushNet blocks) from the 424x800 BrushNet
+    config, bf16, 6x424x800x17f, batched CFG, t_inpaint 0.2 x 1000: launches of one
+    forward, a one-step warm-up sample, then one timed request of BRUSHNET_STEPS
+    steps with the VAE decode; the ShallowEncoder, the mask resize and the
+    structured noise timed apart at the request's shapes. Then one request of the
+    plain BrushNet type (2 steps)."""
+    from magicdrive_v2_tpu_torch.ops.resize import resize_linear_antialiased
+    from magicdrive_v2_tpu_torch.ops.structured_noise import generate_structured_noise
+    from magicdrive_v2_tpu_torch.schedulers.rf import build_scheduler
+    pipe, setup_s = brushnet_pipeline(torch, SDE_BRUSHNET, "rflow-sdebrushnet",
+                                      BRUSHNET_STEPS, seed)
+    cfg = pipe.model_cfg
+    require(cfg.sde_inpaint and cfg.depth == 28 and cfg.control_depth == 13
+            and cfg.hidden_size == 1152 and cfg.num_heads == 16, cfg)
+    n_params = sum(p.numel() for p in pipe.model.parameters())
+    n_brush = sum(p.numel() for name, p in pipe.model.named_parameters()
+                  if name.startswith(("brushnet_blocks", "shallow_encoder",
+                                      "x_brushnet_embedder", "t_inpaint_block",
+                                      "t_combine_block")))
+    per_forward = expected_launches(cfg)
+    require(per_forward == {"fused_qkv_attention": 97, "adaln_modulate": 304,
+                            "flash_attention": 82}, per_forward)
+    batch = inpaint_batch(cfg)
+    cond = {k: v for k, v in batch.items() if k not in ("x", "timestep", "height", "width")}
+    model = pipe.model
+    latent_shape = (1, 96, 5, HEIGHT // 8, WIDTH // 8)
+    # one forward at b=1 with a condition cache: the per-forward launches
+    with torch.no_grad():
+        dev = to_card(torch, batch)
+        dev["inpaint_input_noise"] = torch.randn(
+            pipe.inpaint_noise_shape(latent_shape, True), device="cuda")
+        cache = model.encode_conditions(latent_shape, dev["y"], dev["maps"], dev["bbox"],
+                                        dev["cams"], dev["rel_pos"])
+        reset_counters()
+        out = model(**dev, cond_cache=cache)
+        torch.cuda.synchronize()
+        require(read_counters() == per_forward, (read_counters(), per_forward))
+        require(out.shape == latent_shape and bool(out.isfinite().all()), out.shape)
+        del out, cache, dev
+    # warm-up: one step, no decode (cuDNN's first calls at these shapes)
+    scheduler, pipe.scheduler = pipe.scheduler, build_scheduler(
+        dict(type="rflow-sdebrushnet", num_sampling_steps=1, inpaint_noise_scale=0.2))
+    pipe.sample(cond, num_frames=NUM_FRAMES, height=HEIGHT, width=WIDTH, torch_seed=1024,
+                decode=False)
+    pipe.scheduler = scheduler
+    with torch.no_grad():
+        pipe.vae.decode(torch.zeros((1, 16) + latent_shape[2:], device="cuda",
+                                    dtype=pipe.vae.dtype))
+    video, seconds, decode_s, latents, got, peak = timed_sample(torch, pipe, cond,
+                                                                torch_seed=1024)
+    want = {k: per_forward[k] * BRUSHNET_STEPS + encode_launches[k] for k in per_forward}
+    require(got == want, (got, want))
+    require(tuple(latents.shape) == latent_shape and bool(latents.isfinite().all()),
+            latents.shape)
+    require(tuple(video.shape) == (1, 6, 3, NUM_FRAMES, HEIGHT, WIDTH)
+            and bool(video.isfinite().all()), video.shape)
+    sampling = seconds - decode_s
+    # the branch's own stages at the request's shapes (batched CFG: 12 views)
+    dt = cfg.dtype
+    x_px = torch.randn((12, 3, NUM_FRAMES, HEIGHT, WIDTH), device="cuda", dtype=dt)
+    m_px = (torch.rand((12, 1, NUM_FRAMES, HEIGHT, WIDTH), device="cuda") > 0.5).to(dt)
+    with torch.no_grad():
+        shallow_ms = time_ms(torch, lambda: model.shallow_encoder(x_px), 3)
+        resize_ms = time_ms(torch, lambda: resize_linear_antialiased(
+            m_px, (12, 1) + latent_shape[2:]), 3)
+        enc = model.shallow_encoder(x_px).reshape(-1, *latent_shape[3:])
+        noise = torch.randn(enc.shape, device="cuda")
+        noise_ms = time_ms(torch, lambda: generate_structured_noise(enc, input_noise=noise), 5)
+    del x_px, m_px, enc, noise
+    emit("brushnet", model=SDE_BRUSHNET, config=BRUSHNET_CONFIG, dtype="bfloat16",
+         params=n_params, brushnet_params=n_brush, setup_seconds=setup_s, views=6,
+         frames=NUM_FRAMES, height=HEIGHT, width=WIDTH, steps=BRUSHNET_STEPS,
+         t_inpaint=INPAINT_NOISE_SCALE * 1000, cfg="batched",
+         seconds_per_sample=sampling, seconds_per_step=sampling / BRUSHNET_STEPS,
+         decode_seconds=decode_s, seconds_per_sample_with_decode=seconds,
+         peak_memory_bytes=peak, shallow_encoder_ms=shallow_ms, mask_resize_ms=resize_ms,
+         structured_noise_ms=noise_ms, stage_shapes=dict(
+             shallow_encoder=[12, 3, NUM_FRAMES, HEIGHT, WIDTH],
+             mask_resize=[[12, 1, NUM_FRAMES, HEIGHT, WIDTH], [12, 1, *latent_shape[2:]]]),
+         launches_per_forward=per_forward, launches_encode_conditions=encode_launches,
+         launches_per_sample=got, latent_abs_mean=float(latents.abs().mean()),
+         video_abs_mean=float(video.abs().mean()))
+    sde_launches = got
+    del pipe, model, video, latents
+    torch.cuda.empty_cache()
+
+    # one request of the plain BrushNet type
+    steps = 2
+    pipe, setup_s = brushnet_pipeline(torch, PLAIN_BRUSHNET, "rflow-brushnet", steps, seed)
+    require(not pipe.model_cfg.sde_inpaint, pipe.model_cfg)
+    require(expected_launches(pipe.model_cfg) == per_forward, "plain BrushNet launches")
+    cond = {k: v for k, v in cond.items() if k != "t_inpaint"}
+    video, seconds, decode_s, latents, got, peak = timed_sample(torch, pipe, cond,
+                                                                torch_seed=1025)
+    want = {k: per_forward[k] * steps + encode_launches[k] for k in per_forward}
+    require(got == want, (got, want))
+    require(tuple(video.shape) == (1, 6, 3, NUM_FRAMES, HEIGHT, WIDTH)
+            and bool(video.isfinite().all()), video.shape)
+    emit("brushnet_plain", model=PLAIN_BRUSHNET, config=BRUSHNET_CONFIG, steps=steps,
+         setup_seconds=setup_s, seconds_per_sample_with_decode=seconds,
+         decode_seconds=decode_s, seconds_per_step=(seconds - decode_s) / steps,
+         peak_memory_bytes=peak, launches_per_sample=got,
+         video_abs_mean=float(video.abs().mean()))
+    del pipe, video, latents
+    torch.cuda.empty_cache()
+    return sde_launches
+
+
+def repaint_inputs(torch, pipe, seed):
+    """The reference: 0.2 x standard normal pixels of six views, VAE-encoded on the
+    card (C-major latents), and the latent mask keeping the top half of every view."""
+    import numpy as np
+    from magicdrive_v2_tpu_torch.scripts.inference_magicdrive_repaint import (
+        compress_time_for_mask)
+    nc, C = pipe.model_cfg.nc, pipe.model_cfg.in_channels
+    gen = torch.Generator().manual_seed(seed)
+    ref_px = (torch.randn((nc, 3, NUM_FRAMES, HEIGHT, WIDTH), generator=gen) * 0.2).cuda()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ref_lat = pipe.vae.encode(ref_px.to(pipe.vae.dtype),
+                              generator=torch.Generator(device="cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    encode_s = time.time() - t0
+    T, H, W = ref_lat.shape[2:]
+    ref_z = ref_lat.float().reshape(1, nc, C, T, H, W).transpose(1, 2).reshape(1, C * nc, T, H, W)
+    px_mask = np.zeros((1, nc, NUM_FRAMES, HEIGHT, WIDTH), np.float32)
+    px_mask[..., :HEIGHT // 2, :] = 1.0
+    lat_mask = compress_time_for_mask(px_mask)[..., ::8, ::8][..., :H, :W]
+    lat_mask = np.repeat(lat_mask[:, None], C, axis=1).reshape(1, C * nc, T, H, W)
+    return ref_z, torch.from_numpy(lat_mask).cuda(), encode_s
+
+
+def run_repaint(torch, seed, per_forward, encode_launches):
+    """Base XL/2 from the 424x800 repaint config (``rflow-slice-repaint``: two-pass
+    CFG), REPAINT_STEPS steps, the reference encoded on the card: the kept region
+    of the final latents equals the reference exactly."""
+    from magicdrive_v2_tpu_torch.config.config import Config, merge_dot_options
+    from magicdrive_v2_tpu_torch.pipelines.magicdrive import MagicDrivePipeline, synthetic_batch
+    cfg = Config.fromfile(REPAINT_CONFIG)
+    merge_dot_options(cfg, [f"scheduler.num_sampling_steps={REPAINT_STEPS}", f"seed={seed}"])
+    t0 = time.time()
+    pipe = MagicDrivePipeline.from_config(cfg)
+    setup_s = time.time() - t0
+    require(type(pipe.scheduler).__name__ == "RFLOW_SLICE_REPAINT", type(pipe.scheduler))
+    require(expected_launches(pipe.model_cfg) == per_forward, "base launches")
+    batch = synthetic_batch(pipe.model_cfg, NUM_FRAMES, HEIGHT, WIDTH, l_box=L_BOX)
+    cond = {k: v for k, v in batch.items() if k not in ("x", "timestep", "height", "width")}
+    ref_z, lat_mask, encode_s = repaint_inputs(torch, pipe, seed)
+    kw = dict(num_frames=NUM_FRAMES, height=HEIGHT, width=WIDTH)
+    # warm-up at the same shapes, then the timed run
+    pipe.sample_repaint(cond, ref_z, lat_mask, generator=torch.Generator().manual_seed(1),
+                        **kw)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    z = pipe.sample_repaint(cond, ref_z, lat_mask, generator=torch.Generator().manual_seed(0),
+                            **kw)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    got = read_counters()
+    # two-pass CFG: two forwards a step, the conditions encoded for each pass
+    want = {k: 2 * (per_forward[k] * REPAINT_STEPS + encode_launches[k]) for k in per_forward}
+    require(got == want, (got, want))
+    keep = lat_mask == 1
+    require(z.shape == ref_z.shape and bool(z.isfinite().all()), z.shape)
+    require(torch.equal(z[keep], ref_z[keep]), "the kept region is not the reference")
+    moved = float((z[~keep] - ref_z[~keep]).abs().max())
+    require(moved > 1e-2, moved)
+    emit("repaint", model="MagicDriveSTDiT3-XL/2", config=REPAINT_CONFIG, scheduler="rflow-slice-repaint",
+         cfg="two-pass", dtype="bfloat16", steps=REPAINT_STEPS, setup_seconds=setup_s,
+         vae_encode_seconds=encode_s, seconds=seconds, seconds_per_step=seconds / REPAINT_STEPS,
+         peak_memory_bytes=torch.cuda.max_memory_allocated(), kept_fraction=float(keep.float().mean()),
+         kept_region_equals_reference=True, repainted_max_change=moved, launches=got)
+    del pipe, z, ref_z
+    torch.cuda.empty_cache()
+    return got
+
+
+def read_back(saved, n_frames, shape):
+    """The frames an app wrote: names, shape, and each PNG equal to the array the
+    app returned; then the directory is removed. Returns the PNG bytes."""
+    from magicdrive_v2_tpu_torch.utils.inference_utils import read_png
+    require(len(saved) == 1, len(saved))
+    path, frames = saved[0]
+    names = sorted(os.listdir(path))
+    require(names == [f"{i:04d}.png" for i in range(n_frames)], names)
+    require(frames.shape == (n_frames,) + shape, frames.shape)
+    for i, name in enumerate(names):
+        require(bool((read_png(os.path.join(path, name)) == frames[i]).all()), name)
+    require(float(frames.std()) > 1.0, "constant frames")
+    return sum(os.path.getsize(os.path.join(path, n)) for n in names)
+
+
+def run_brushnet_apps(torch, sde_per_forward, base_per_forward, encode_launches):
+    """The BrushNet app (``--synthetic --sde``) and the repaint app (``--synthetic``)
+    on their 424x800 configs, 17 frames, 2 steps; launch counters and the frames
+    read back."""
+    from magicdrive_v2_tpu_torch.scripts import (inference_magicdrive_brushnet,
+                                                 inference_magicdrive_repaint)
+    rows = {}
+    for name, app, config, argv, want in (
+            ("brushnet_app", inference_magicdrive_brushnet, BRUSHNET_CONFIG, ["--sde"],
+             {k: 2 * sde_per_forward[k] + encode_launches[k] for k in sde_per_forward}),
+            ("repaint_app", inference_magicdrive_repaint, REPAINT_CONFIG, [],
+             {k: 2 * (2 * base_per_forward[k] + encode_launches[k]) for k in base_per_forward})):
+        out_dir = os.path.join("outputs", f"chip_smoke_{name}")
+        shutil.rmtree(out_dir, ignore_errors=True)
+        reset_counters()
+        t0 = time.time()
+        saved = app.main([config, "--synthetic", "--num-frames", str(NUM_FRAMES),
+                          "--num-samples", "1", *argv, "--cfg-options",
+                          "scheduler.num_sampling_steps=2", f"outputs={out_dir}"])
+        seconds = time.time() - t0
+        got = read_counters()
+        require(got == want, (name, got, want))
+        nbytes = read_back(saved, NUM_FRAMES, (2 * HEIGHT, 3 * WIDTH, 3))
+        shutil.rmtree(out_dir, ignore_errors=True)
+        rows[name] = dict(config=config, argv=argv, steps=2, seconds=seconds, png_bytes=nbytes,
+                          launches=got)
+        torch.cuda.empty_cache()
+    emit("brushnet_apps", frames=NUM_FRAMES, frame_shape=[2 * HEIGHT, 3 * WIDTH, 3], apps=rows)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=30)
@@ -1667,11 +2066,20 @@ def main():
     run_decode_vs_cpu(torch, args.seed)
     torch.cuda.empty_cache()
     run_app(torch, per_forward, encode_launches)
+    run_brushnet_vs_plain(torch, args.seed)
+    brushnet_launches = run_brushnet(torch, args.seed, encode_launches)
+    repaint_launches = run_repaint(torch, args.seed, per_forward, encode_launches)
+    sde_per_forward = expected_launches(brushnet_config(torch, torch.bfloat16))
+    run_brushnet_apps(torch, sde_per_forward, per_forward, encode_launches)
     data_root = tempfile.mkdtemp(prefix="chip_smoke_nuscenes_")
     try:
         ann = run_dataset(torch, data_root)
         torch.cuda.empty_cache()
         test_app_launches = run_test_app(torch, per_forward, encode_launches, ann, data_root)
+        torch.cuda.empty_cache()
+        brushnet_test_app_launches = run_test_app(
+            torch, sde_per_forward, encode_launches, ann, data_root,
+            base_config=BRUSHNET_CONFIG, extra_argv=("--sde",), phase="brushnet_test_app")
         torch.cuda.empty_cache()
         train_data_launches = run_train_data(torch, encode_launches, ann, data_root,
                                              synthetic_s_step)
@@ -1707,7 +2115,10 @@ def main():
                     launches_by_path={"sample": launches[name],
                                       "train_step": train_launches[name],
                                       "test_app": test_app_launches[name],
-                                      "train_step_on_data": train_data_launches[name]},
+                                      "train_step_on_data": train_data_launches[name],
+                                      "brushnet_sample": brushnet_launches[name],
+                                      "repaint": repaint_launches[name],
+                                      "brushnet_test_app": brushnet_test_app_launches[name]},
                     **meta[name], **kernel_numbers[name], backward=backward[name])
                for name in meta]
     for k in kernels:

@@ -1,7 +1,7 @@
 """End-to-end generation pipeline of the port (counterpart of the JAX package's
 pipelines/magicdrive.py): conditions -> CFG Euler sampling of the latents ->
 CogVideoX VAE decode of each view. ``from_config`` builds it from an experiment
-config.
+config, the base model or a BrushNet / SDE-BrushNet inpainting model.
 
 Classifier-free guidance:
 - "rflow": batched — cond and null conditions concatenated on the batch axis,
@@ -9,7 +9,8 @@ Classifier-free guidance:
 - "rflow-slice": two sequential model calls per step.
 
 The step-independent conditioning is embedded once per sample
-(``encode_conditions``) and reused by every Euler step.
+(``encode_conditions``) and reused by every Euler step. ``sample_repaint`` edits
+reference latents (RePaint): the known region is re-injected after each step.
 """
 from __future__ import annotations
 
@@ -20,20 +21,26 @@ import numpy as np
 import torch
 
 from ..config.presets import NUSCENES_CLASSES
+from ..models.magicdrive.brushnet import (BrushNetConfig, MagicDriveSTDiT3BrushNet,
+                                          MagicDriveSTDiT3SDEBrushNet)
 from ..models.magicdrive.stdit3 import (MagicDriveSTDiT3, MagicDriveSTDiT3Config,
                                         build_model_config, cast_model)
 from ..models.text_encoder.t5 import DummyTextEncoder
 from ..models.vae.cogvideox import (CogVAEConfig, VideoAutoencoderKLCogVideoX,
                                     get_latent_size)
 from ..registry import MODELS
-from ..schedulers.rf import RFLOW, build_scheduler
+from ..schedulers.rf import RFLOW, RFLOW_SLICE_REPAINT, build_scheduler
 from ..utils.ckpt import init_weights
 from ..utils.inference_utils import add_null_condition, replace_with_null_condition
-from ..utils.misc import resolve_device, to_device, torch_randn
+from ..utils.misc import resolve_device, to_device
 
 logger = logging.getLogger(__name__)
 
 _MODEL_KEYS = ("y", "maps", "bbox", "cams", "rel_pos", "fps", "frame_valid")
+# the inpainting models' inputs: pixels, mask, the SDE inpaint timestep and the
+# normal draw its structured noise is made from
+_INPAINT_KEYS = ("x_inpaint", "mask_inpaint", "t_inpaint", "num_timesteps",
+                 "inpaint_input_noise")
 
 
 class MagicDrivePipeline:
@@ -51,8 +58,10 @@ class MagicDrivePipeline:
         self.vae = vae
         self.model_cfg = model_cfg
         if model is None:
+            model_cls = (MagicDriveSTDiT3BrushNet if isinstance(model_cfg, BrushNetConfig)
+                         else MagicDriveSTDiT3)
             with torch.device(self.device):  # parameters are created on the device
-                model = MagicDriveSTDiT3(model_cfg)
+                model = model_cls(model_cfg)
         self.model = cast_model(model, model_cfg.dtype).to(self.device).eval()
         self.scheduler = scheduler
         if text_encoder is None:
@@ -74,14 +83,14 @@ class MagicDrivePipeline:
             raise NotImplementedError(
                 "sp_size > 1: sequence-parallel sampling is not ported yet (ROADMAP.md "
                 "queue A item 5); set sp_size=1")
-        if "BrushNet" in str(cfg.get("model", {}).get("type", "")):
-            raise NotImplementedError("BrushNet models are not ported yet (ROADMAP.md queue "
-                                      "A item 4)")
-
         vae = build_vae(cfg, dtype, device, seed + 1)
+        model_type = str(cfg.get("model", {}).get("type", ""))
         model_cfg = build_model_config(
             cfg.model, vae_out_channels=cfg.get("vae_out_channels", 16),
             mv_order_map=cfg.get("mv_order_map"), dtype=dtype)
+        if "BrushNet" in model_type:  # the registered inpainting types
+            model_cfg = BrushNetConfig.from_base(
+                model_cfg, sde_inpaint=MODELS.get(model_type) is MagicDriveSTDiT3SDEBrushNet)
         text_encoder = build_text_encoder(cfg, device)
         pipe = cls(model_cfg, build_scheduler(cfg.scheduler), text_encoder, device=device,
                    vae=vae)
@@ -187,6 +196,12 @@ class MagicDrivePipeline:
         the CPU generator seeded with ``torch_seed``, else from ``generator``.
         Returns the decoded views (b, NC, 3, T, H, W), fp32; with
         ``decode=False`` the denoised latents (b, C*NC, T', H', W'), fp32.
+
+        Inpainting models also take x_inpaint, mask_inpaint and (SDE) t_inpaint
+        from the batch; the SDE model's ``inpaint_input_noise`` (of
+        ``inpaint_noise_shape``: one draw for every Euler step, as the JAX model
+        draws from one key) comes from the batch, else from the stream z came
+        from, after z.
         """
         if decode and self.vae is None:
             raise ValueError("sample(decode=True) needs a VAE: build the pipeline with "
@@ -199,18 +214,25 @@ class MagicDrivePipeline:
 
         cfg = self.model_cfg
         nc = cfg.nc
-        model_args = {k: to_device(batch[k], self.device) for k in _MODEL_KEYS
+        model_args = {k: to_device(batch[k], self.device) for k in _MODEL_KEYS + _INPAINT_KEYS
                       if k in batch}
         b = model_args["y"].shape[0]
         lat_t, lat_h, lat_w = (self.vae.get_latent_size if self.vae is not None
                                else get_latent_size)([num_frames, height, width])
+        # one stream per sample: z first, then the SDE model's noise
+        stream = generator
+        if torch_seed is not None or generator is None:
+            stream = torch.Generator()
+            if torch_seed is not None:
+                stream.manual_seed(int(torch_seed))
         if z is None:
             z_shape = (b, cfg.in_channels * nc, lat_t, lat_h, lat_w)
-            if torch_seed is not None or generator is None:
-                z = torch_randn(z_shape, seed=torch_seed)
-            else:
-                z = torch.randn(z_shape, generator=generator, device=generator.device)
+            z = torch.randn(z_shape, generator=stream, device=stream.device)
         z = torch.as_tensor(z, dtype=torch.float32).to(self.device)
+        if getattr(cfg, "sde_inpaint", False) and "inpaint_input_noise" not in model_args:
+            shape = self.inpaint_noise_shape(tuple(z.shape), sched.slice_cfg)
+            model_args["inpaint_input_noise"] = torch.randn(
+                shape, generator=stream, device=stream.device).to(self.device)
 
         if neg_prompts is not None:
             ny = self.text_encoder.encode(list(neg_prompts))["y"].to(self.device)
@@ -232,6 +254,47 @@ class MagicDrivePipeline:
         latents = sched.sample(predict, z, mask=mask, noise_fn=noise_fn,
                                generator=generator, **hw)
         return self.decode(latents) if decode else latents
+
+    def inpaint_noise_shape(self, latent_shape, slice_cfg: bool) -> tuple:
+        """Shape (B*C*T', H', W') of the normal draw the SDE model makes its
+        structured noise from, for latents of ``latent_shape`` (b, C*NC, T', H',
+        W'): B is the batch the model sees, b*NC, twice that under batched CFG
+        (the JAX package draws it inside the model for the doubled batch)."""
+        b, _, t, h, w = latent_shape
+        B = b * self.model_cfg.nc * (1 if slice_cfg else 2)
+        return (B * self.model_cfg.in_channels * t, h, w)
+
+    @torch.no_grad()
+    def sample_repaint(self, batch: Dict, ref_z, lat_mask, *, num_frames: int, height: int,
+                       width: int, guidance_scale: Optional[float] = None, scheduler=None,
+                       use_map0: bool = False, z0=None, noise_fn: Optional[Callable] = None,
+                       generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """RePaint latent inpainting with two-pass CFG. ref_z: (b, C*NC, T', H',
+        W') reference latents; lat_mask of its shape, 1 = region kept from the
+        (noised) reference. The scheduler is ``scheduler``, else the pipeline's,
+        an ``RFLOW_SLICE_REPAINT``; ``z0`` / ``noise_fn`` / ``generator`` as its
+        ``sample_repaint`` takes them. Returns the latents, fp32."""
+        sched = scheduler if scheduler is not None else self.scheduler
+        if not isinstance(sched, RFLOW_SLICE_REPAINT):
+            raise TypeError(f"sample_repaint needs an RFLOW_SLICE_REPAINT scheduler, got "
+                            f"{type(sched).__name__}")
+        if guidance_scale is None:
+            guidance_scale = sched.cfg_scale
+        model_args = {k: to_device(batch[k], self.device) for k in _MODEL_KEYS if k in batch}
+        ref_z = torch.as_tensor(ref_z, dtype=torch.float32).to(self.device)
+        lat_mask = torch.as_tensor(lat_mask, dtype=torch.float32).to(self.device)
+        b = ref_z.shape[0]
+        predict = self._build_predict_fn(
+            {**model_args, "height": float(height), "width": float(width)},
+            float(guidance_scale), True, z_shape=tuple(ref_z.shape),
+            null_y=self.null_y(model_args["y"].shape[0]), use_map0=use_map0)
+        nf_valid = batch.get("num_frames_valid")
+        hw = dict(height=torch.full((b,), float(height)),
+                  width=torch.full((b,), float(width)),
+                  num_frames=torch.full((b,), float(num_frames)) if nf_valid is None
+                  else torch.as_tensor(nf_valid, dtype=torch.float32))
+        return sched.sample_repaint(predict, ref_z, lat_mask, z0=z0, noise_fn=noise_fn,
+                                    generator=generator, **hw)
 
     @torch.no_grad()
     def decode(self, latents: torch.Tensor) -> torch.Tensor:

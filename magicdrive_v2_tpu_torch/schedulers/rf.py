@@ -1,5 +1,5 @@
 """Rectified-flow sampling and training loss (counterpart of the JAX package's
-schedulers/rf.py; the BrushNet / repaint variants are not ported yet).
+schedulers/rf.py), with the BrushNet, SDE-BrushNet and RePaint variants.
 
 The scheduler is purely numerical: sampling receives a ``predict_fn(z, t, x_mask)
 -> v`` that already folds in conditioning and classifier-free guidance, the loss a
@@ -203,7 +203,113 @@ class RFLOW_SLICE(RFLOW):
     slice_cfg: bool = True
 
 
-SCHEDULERS = {"rflow": RFLOW, "rflow-slice": RFLOW_SLICE}
+@dataclasses.dataclass
+class RFLOW_BRUSHNET(RFLOW):
+    """BrushNet sampling and training: the inpaint inputs ride in the model's
+    arguments; ``inpaint_noise_scale`` is the fixed inpaint timestep (over
+    ``num_timesteps``) the apps give the SDE model at inference."""
+    inpaint_noise_scale: float = 0.0
+
+
+@dataclasses.dataclass
+class RFLOW_SDEBRUSHNET(RFLOW_BRUSHNET):
+    """SDE-BrushNet: the loss draws an inpaint timestep independent of t."""
+
+    def training_losses(self, model_fn: Callable, x_start: torch.Tensor, *, height,
+                        width, num_frames, mask: Optional[torch.Tensor] = None,
+                        noise: Optional[torch.Tensor] = None,
+                        t: Optional[torch.Tensor] = None,
+                        t_inpaint: Optional[torch.Tensor] = None,
+                        generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """As ``RFLOW.training_losses`` with ``model_fn(x_t, t, x_mask, t_inpaint)``;
+        what is not given is drawn from ``generator`` in the order t, t_inpaint,
+        noise (the order of the JAX package's key split)."""
+        b = x_start.shape[0]
+        hw = dict(height=height, width=width, num_frames=num_frames, device=x_start.device)
+        if t is None:
+            t = self.sample_t(generator, b, **hw)
+        if t_inpaint is None:
+            t_inpaint = self.sample_t(generator, b, **hw)
+        t, t_inpaint = t.to(x_start.device), t_inpaint.to(x_start.device)
+        if noise is None:
+            noise = torch.randn(x_start.shape, generator=generator, dtype=x_start.dtype,
+                                device=generator.device if generator is not None
+                                else x_start.device)
+        noise = noise.to(x_start.device, x_start.dtype)
+        x_t = add_noise(x_start, noise, t, self.num_timesteps)
+        if mask is not None:
+            mask = mask.to(x_start.device)
+            x_t0 = add_noise(x_start, noise, torch.zeros_like(t), self.num_timesteps)
+            x_t = torch.where(mask.bool()[:, None, :, None, None], x_t, x_t0)
+        velocity_pred = model_fn(x_t, t, mask, t_inpaint)
+        target = x_start - noise
+        loss = mean_flat((velocity_pred.float() - target.float()) ** 2, mask=mask)
+        return {"loss": loss, "t": t, "t_inpaint": t_inpaint}
+
+
+@dataclasses.dataclass
+class RFLOW_BRUSHNET_SLICE(RFLOW_BRUSHNET):
+    """Two-pass-CFG BrushNet."""
+    slice_cfg: bool = True
+
+
+@dataclasses.dataclass
+class RFLOW_SDEBRUSHNET_SLICE(RFLOW_SDEBRUSHNET):
+    """Two-pass-CFG SDE-BrushNet."""
+    slice_cfg: bool = True
+
+
+@dataclasses.dataclass
+class RFLOW_SLICE_REPAINT(RFLOW):
+    """RePaint latent inpainting: after each Euler step, while t >=
+    ``ignore_mask_timestep`` * T, the known region is replaced by the reference
+    latents noised to the NEXT timestep (0 after the last step, so the known
+    region ends as the reference exactly)."""
+    slice_cfg: bool = True
+    ignore_mask_timestep: float = 0.0
+
+    @torch.no_grad()
+    def sample_repaint(self, predict_fn: Callable, ref_z: torch.Tensor, mask: torch.Tensor,
+                       *, height, width, num_frames, z0: Optional[torch.Tensor] = None,
+                       noise_fn: Optional[Callable] = None,
+                       generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """ref_z: reference latents; mask: ref_z's shape, 1 = known region. The
+        starting latent is ``z0``, else ``noise_fn(-1, shape)``; step i's
+        re-injection noise is ``noise_fn(i, shape)``. Without ``noise_fn`` both
+        are drawn from ``generator``, in that order. Every step draws, re-injecting
+        or not.
+
+        The JAX package hands the model an all-true frame mask, which selects
+        the t modulations everywhere; the port passes none, which computes the
+        same without the t0 half."""
+        B = ref_z.shape[0]
+        ts, dts = self.prepare_timesteps(B, height=height, width=width,
+                                         num_frames=num_frames, device=ref_z.device)
+        next_ts = torch.cat([ts[1:], torch.zeros_like(ts[-1:])], dim=0)
+        if noise_fn is None:
+            def noise_fn(step, shape):
+                return torch.randn(shape, generator=generator,
+                                   device=generator.device if generator is not None
+                                   else ref_z.device)
+        z = z0 if z0 is not None else noise_fn(-1, tuple(ref_z.shape))
+        z = torch.as_tensor(z).to(ref_z)
+        mask = mask.to(ref_z)
+        bshape = (-1,) + (1,) * (z.ndim - 1)
+        for i in range(self.num_sampling_steps):
+            t, dt, next_t = ts[i], dts[i], next_ts[i]
+            z = z + predict_fn(z, t, None) * dt.reshape(bshape)
+            noise = torch.as_tensor(noise_fn(i, tuple(ref_z.shape))).to(ref_z)
+            x_noise = add_noise(ref_z, noise, next_t, self.num_timesteps)
+            reinject = t[0] >= self.ignore_mask_timestep * self.num_timesteps
+            z = torch.where(reinject, x_noise * mask + z * (1 - mask), z)
+        return z
+
+
+SCHEDULERS = {"rflow": RFLOW, "rflow-slice": RFLOW_SLICE,
+              "rflow-brushnet": RFLOW_BRUSHNET, "rflow-sdebrushnet": RFLOW_SDEBRUSHNET,
+              "rflow-brushnet-slice": RFLOW_BRUSHNET_SLICE,
+              "rflow-sdebrushnet-slice": RFLOW_SDEBRUSHNET_SLICE,
+              "rflow-slice-repaint": RFLOW_SLICE_REPAINT}
 
 
 def build_scheduler(cfg: dict):

@@ -51,7 +51,7 @@ def main(argv: Optional[List[str]] = None) -> List[Tuple[str, np.ndarray]]:
 
     from ..config.config import Config, merge_dot_options
     from ..pipelines.magicdrive import MagicDrivePipeline, synthetic_batch
-    from ..utils.ckpt import load_state_dict_cast, load_torch_file
+    from ..utils.ckpt import load_reference_weights
     from ..utils.inference_utils import (build_val_dataset, concat_6_views,
                                          dataset_model_batch, edit_prompt,
                                          full_bucket_length, resolve_num_frames, save_sample,
@@ -76,13 +76,10 @@ def main(argv: Optional[List[str]] = None) -> List[Tuple[str, np.ndarray]]:
     os.makedirs(out_dir, exist_ok=True)
 
     pipe = MagicDrivePipeline.from_config(cfg, device=args.device)
-    ckpt = args.ckpt_path or cfg.get("ckpt_path")
-    if ckpt and ckpt != "???":
-        if not os.path.exists(ckpt):
-            raise FileNotFoundError(f"ckpt_path {ckpt!r} does not exist")
-        res = load_state_dict_cast(pipe.model, load_torch_file(ckpt), strict=False)
-        logger.info("loaded %s: %d missing, %d unused keys", ckpt, len(res.missing_keys),
-                    len(res.unexpected_keys))
+    loaded = load_reference_weights(pipe.model, cfg, args.ckpt_path)
+    if loaded:
+        logger.info("loaded %s: %d missing, %d unused keys", loaded[0],
+                    len(loaded[1].missing_keys), len(loaded[1].unexpected_keys))
     pipe.prepare_text_embedding()
 
     mc = pipe.model_cfg

@@ -12,11 +12,15 @@ Like ``inference_magicdrive``, plus the benchmark's submission plumbing:
   learned null map;
 - seeds: two CPU generators seeded with the config's ``seed``, one streaming the
   starting latents across samples, the other the box latents;
-- ``num_frames = "full"``: every scene pads to one bucket and is trimmed back.
+- ``num_frames = "full"``: every scene pads to one bucket and is trimmed back;
+- ``--brushnet`` / ``--sde`` (or a ``*-BrushNet`` model type): the inpainting
+  models, with synthetic pedestrian frames and masks (numpy ``default_rng(sample
+  index)``) and, for the SDE model, the inpaint timestep ``inpaint_noise_scale *
+  num_timesteps`` and its noise's normal draw from a CPU generator seeded 1024 +
+  sample index.
 
-Not ported yet (each raises ``NotImplementedError``; ROADMAP.md queue A item 4):
-``--brushnet``, ``--sde``, a ``*-BrushNet`` model type, ``--ped-video-dir`` and
-``--inpaint-noise-scale``.
+Not ported: ``--ped-video-dir`` (pedestrian grid videos are .mp4 files, and the
+port has no video reader; it raises ``NotImplementedError``).
 
 Usage (from the repository root):
   python3 -m magicdrive_v2_tpu_torch.scripts.test_magicdrive \\
@@ -36,11 +40,13 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from .inference_magicdrive_brushnet import (PED_VIDEO_MISSING, set_model_type,
+                                            synthetic_inpaint_inputs)
+
 logger = logging.getLogger("test")
 
 VIEW_NAMES = ("CAM_FRONT_LEFT", "CAM_FRONT", "CAM_FRONT_RIGHT", "CAM_BACK_RIGHT",
               "CAM_BACK", "CAM_BACK_LEFT")
-_ITEM4 = ("is not ported yet (ROADMAP.md queue A item 4: BrushNet, SDE and repaint)")
 
 
 def back_transform(vid: np.ndarray, resize_hw, padding) -> np.ndarray:
@@ -72,11 +78,12 @@ def parse_args(argv=None):
                    choices=["single-view", "all-in-one", "image_filename"])
     p.add_argument("--ckpt-path", default=None)
     p.add_argument("--device", default="cuda")
-    p.add_argument("--brushnet", action="store_true", help="BrushNet variant " + _ITEM4)
-    p.add_argument("--sde", action="store_true", help="SDE-BrushNet variant " + _ITEM4)
-    p.add_argument("--ped-video-dir", default=None, help="pedestrian grid videos " + _ITEM4)
+    p.add_argument("--brushnet", action="store_true", help="the BrushNet model")
+    p.add_argument("--sde", action="store_true", help="the SDE-BrushNet model")
+    p.add_argument("--ped-video-dir", default=None,
+                   help="pedestrian grid videos: " + PED_VIDEO_MISSING)
     p.add_argument("--inpaint-noise-scale", type=float, default=None,
-                   help="SDE inpainting noise " + _ITEM4)
+                   help="the SDE model's inpaint timestep over num_timesteps")
     return p.parse_args(argv)
 
 
@@ -87,16 +94,13 @@ def main(argv: Optional[List[str]] = None) -> List[Tuple[str, np.ndarray]]:
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s %(message)s")
-    for flag, value in (("--brushnet", args.brushnet), ("--sde", args.sde),
-                        ("--ped-video-dir", args.ped_video_dir),
-                        ("--inpaint-noise-scale", args.inpaint_noise_scale)):
-        if value:
-            raise NotImplementedError(f"{flag}: the inpainting app {_ITEM4}")
+    if args.ped_video_dir:
+        raise NotImplementedError(f"--ped-video-dir {PED_VIDEO_MISSING}")
     import torch
 
     from ..config.config import Config, merge_dot_options
     from ..pipelines.magicdrive import MagicDrivePipeline, synthetic_batch
-    from ..utils.ckpt import load_state_dict_cast, load_torch_file
+    from ..utils.ckpt import load_reference_weights
     from ..utils.inference_utils import (build_val_dataset, concat_6_views,
                                          dataset_model_batch, full_bucket_length,
                                          resolve_num_frames, save_sample, to_uint8_video)
@@ -105,8 +109,7 @@ def main(argv: Optional[List[str]] = None) -> List[Tuple[str, np.ndarray]]:
     t_start = time.time()
     cfg = Config.fromfile(args.config)
     merge_dot_options(cfg, args.cfg_options)
-    if "BrushNet" in str(cfg.model.get("type", "")):
-        raise NotImplementedError(f"model type {cfg.model.type!r} {_ITEM4}")
+    inpaint = "BrushNet" in set_model_type(cfg, args.brushnet, args.sde)
     save_mode = args.save_mode or cfg.get("save_mode", "single-view")
     use_back_trans = cfg.get("use_back_trans", True)
     post = cfg.get("post", Config(resize=(448, 800), padding=(0, 2, 0, 0)))
@@ -127,13 +130,10 @@ def main(argv: Optional[List[str]] = None) -> List[Tuple[str, np.ndarray]]:
     os.makedirs(out_dir, exist_ok=True)
 
     pipe = MagicDrivePipeline.from_config(cfg, device=args.device)
-    ckpt = args.ckpt_path or cfg.get("ckpt_path")
-    if ckpt and ckpt != "???":
-        if not os.path.exists(ckpt):
-            raise FileNotFoundError(f"ckpt_path {ckpt!r} does not exist")
-        res = load_state_dict_cast(pipe.model, load_torch_file(ckpt), strict=False)
-        logger.info("loaded %s: %d missing, %d unused keys", ckpt, len(res.missing_keys),
-                    len(res.unexpected_keys))
+    loaded = load_reference_weights(pipe.model, cfg, args.ckpt_path)
+    if loaded:
+        logger.info("loaded %s: %d missing, %d unused keys", loaded[0],
+                    len(loaded[1].missing_keys), len(loaded[1].unexpected_keys))
     pipe.prepare_text_embedding()
     timings = {"setup_s": time.time() - t_start, "load_s": 0.0, "text_s": 0.0,
                "sample_s": 0.0, "back_transform_s": 0.0, "write_s": 0.0}
@@ -150,6 +150,8 @@ def main(argv: Optional[List[str]] = None) -> List[Tuple[str, np.ndarray]]:
     draw_z = torch_randn_stream(int(cfg.get("seed", 42)))
     draw_bl = torch_randn_stream(int(cfg.get("seed", 42)))
     bbox_param = dict(cfg.model.get("bbox_embedder_param", {}))
+    noise_scale = (args.inpaint_noise_scale if args.inpaint_noise_scale is not None
+                   else cfg.scheduler.get("inpaint_noise_scale", 0.2))
     saved = []
     for ns, index in enumerate(indices):
         t0 = time.time()
@@ -170,6 +172,14 @@ def main(argv: Optional[List[str]] = None) -> List[Tuple[str, np.ndarray]]:
                    else num_frames)
         lat_t, lat_h, lat_w = pipe.vae.get_latent_size([num_frames, height, width])
         z = draw_z((1, mc.in_channels * mc.nc, lat_t, lat_h, lat_w))
+        if inpaint:
+            batch["x_inpaint"], batch["mask_inpaint"] = synthetic_inpaint_inputs(
+                ns, mc.nc, num_frames, height, width)
+            if mc.sde_inpaint:
+                batch["t_inpaint"] = np.full(
+                    (1,), noise_scale * pipe.scheduler.num_timesteps, np.float32)
+                batch["inpaint_input_noise"] = torch_randn_stream(1024 + ns)(
+                    pipe.inpaint_noise_shape(tuple(z.shape), pipe.scheduler.slice_cfg))
         if bbox_param.get("sample_id") and "box_latent" not in batch["bbox"]:
             dim = bbox_param.get("class_token_dim", 1152)
             batch["bbox"] = add_box_latent(batch["bbox"], 1, mc.nc, num_frames,

@@ -38,6 +38,8 @@ logger = logging.getLogger(__name__)
 
 _NAME_REWRITES = [
     (re.compile(r"^t_block_1$"), "t_block.1"),
+    (re.compile(r"^t_inpaint_block_1$"), "t_inpaint_block.1"),
+    (re.compile(r"^t_combine_block_1$"), "t_combine_block.1"),
     (re.compile(r"^mlp_([02])$"), r"mlp.\1"),
     (re.compile(r"^second_linear_([024])$"), r"second_linear.\1"),
     (re.compile(r"^blocks_(\d+)$"), r"blocks.\1"),
@@ -64,6 +66,17 @@ _SCAN_SEGMENTS = {
     ("ctrl_layers", "control_t"): ("control_blocks_t", False),
     ("plain_layers", "base_s"): ("base_blocks_s", True),
     ("plain_layers", "base_t"): ("base_blocks_t", True),
+    # the BrushNet models' groups: base, control and brushnet blocks
+    ("brush_ctrl_layers", "base_s"): ("base_blocks_s", False),
+    ("brush_ctrl_layers", "base_t"): ("base_blocks_t", False),
+    ("brush_ctrl_layers", "control_s"): ("control_blocks_s", False),
+    ("brush_ctrl_layers", "control_t"): ("control_blocks_t", False),
+    ("brush_ctrl_layers", "brushnet_s"): ("brushnet_blocks_s", False),
+    ("brush_ctrl_layers", "brushnet_t"): ("brushnet_blocks_t", False),
+    ("brush_plain_layers", "base_s"): ("base_blocks_s", True),
+    ("brush_plain_layers", "base_t"): ("base_blocks_t", True),
+    ("brush_plain_layers", "brushnet_s"): ("brushnet_blocks_s", True),
+    ("brush_plain_layers", "brushnet_t"): ("brushnet_blocks_t", True),
 }
 
 
@@ -148,6 +161,19 @@ _SAFETENSORS_DTYPES = {
     "BF16": torch.bfloat16, "I64": torch.int64, "I32": torch.int32, "I16": torch.int16,
     "I8": torch.int8, "U8": torch.uint8, "BOOL": torch.bool,
 }
+
+
+def load_reference_weights(model: torch.nn.Module, cfg, ckpt_path: Optional[str] = None):
+    """The apps' ``--ckpt-path`` (else the config's ``ckpt_path``): a reference
+    torch checkpoint loaded into ``model`` (``strict=False``; the result names
+    the missing and unused keys), or None when none is configured ("???" is
+    none). A configured file that is missing raises."""
+    ckpt = ckpt_path or cfg.get("ckpt_path")
+    if not ckpt or ckpt == "???":
+        return None
+    if not os.path.exists(ckpt):
+        raise FileNotFoundError(f"ckpt_path {ckpt!r} does not exist")
+    return ckpt, load_state_dict_cast(model, load_torch_file(ckpt), strict=False)
 
 
 def read_safetensors(path: str) -> Dict[str, torch.Tensor]:

@@ -109,9 +109,11 @@ def add_null_condition(model_args: Dict, uncond_cam, uncond_rel_pos,
                        prepend: bool = False, use_map0: bool = False) -> Dict:
     """Batched-CFG condition doubling: appends (or prepends) the null half —
     zeroed bbox (masks=0 -> null features), uncond cam / rel_pos parameters, and
-    the *same* maps unless use_map0."""
+    the *same* maps unless use_map0. The inpaint inputs are doubled like any
+    tensor, except the SDE noise's normal draw, which is drawn for the doubled
+    batch already."""
     unchanged = {"mv_order_map", "t_order_map", "height", "width", "num_frames", "fps",
-                 "num_timesteps"}
+                 "num_timesteps", "inpaint_input_noise"}
     out = {}
 
     def cat(a, b):
