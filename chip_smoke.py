@@ -83,7 +83,27 @@ card. It imports only ``magicdrive_v2_tpu_torch`` and
 16. ``brushnet_apps`` the BrushNet app (``--sde``) and the repaint app on their
                 configs, 17 frames, 2 steps, frames read back; and (after phase 11)
                 ``brushnet_test_app``: the W-CODA app with ``--sde`` on the
-                generated set.
+                generated set;
+17. ``brushnet_grads``  XL/2-SDEBrushNet at full width, depth 2 / control depth
+                1, the stage-2 bucket, only the BrushNet branch trainable,
+                ``train=True``: one training loss backward through the kernels
+                against one through their plain versions in fp32 and bf16 (the rules
+                of phase 6); every branch tensor has a grad, no frozen one has; the
+                launches and each Function's backwards equal their counts derived
+                from the graph;
+18. ``brushnet_train``  the BrushNet trainer at full width and depth in the
+                stage-2 bucket and settings (b=4, remat, bf16 over fp32 masters,
+                AdamW, EMA 0.99): XL/2-SDEBrushNet, 4 steps (the SDE loss, the cutoff
+                jitter), then ``brushnet_train_plain``: the BrushNet type, 2 steps;
+                the frozen base and its EMA bit-equal after the steps, every branch
+                tensor moved, the EMA identity, launches and backwards as derived;
+                s/step, tokens/s, peak memory;
+19. ``remat``   base XL/2, stage-2 bucket, b=1: forward and backward under each
+                remat policy (``full``, ``dots``, ``offload_carry``) over the same
+                state on the card, one untimed and 3 timed (median, spread); grads
+                against ``full``'s, peak memory, bytes sent to the host;
+20. ``brushnet_train_app``  the BrushNet train app on the tiny config, with and
+                without ``--sde``, 2 steps; its checkpoint read back strictly.
 
 Every phase prints one JSON line. Any failure raises: the exit code is then not
 0 and no result line is printed. Without a card the script exits with code 1.
@@ -99,6 +119,7 @@ under which the rerun of one seed must give the same video bit for bit.
 import argparse
 import contextlib
 import functools
+import gc
 import json
 import logging
 import math
@@ -108,6 +129,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import weakref
 
 # data-sheet peaks of an H100 SXM: dense bf16 tensor-core rate, fp32 CUDA-core
 # rate, device-memory rate. Bounds below are arithmetic on these, not measurements.
@@ -486,27 +508,54 @@ def decode_flops(torch, vae, latent_shape):
     return total[0]
 
 
-def expected_launches(cfg, x_mask=False):
-    """Kernel launches of one denoiser forward with a condition cache; with a frame
-    mask every adaLN runs twice (the t and t0 modulations). A BrushNet model adds
-    its branch: a spatial block a depth (no cross-view attention when the control
-    blocks skip it), a temporal block a depth, neither with condition
-    cross-attention."""
-    n_ctrl_t = 0 if cfg.control_skip_temporal else cfg.control_depth
-    n_base_t = cfg.depth if cfg.with_temp_block else 0
-    spatial = cfg.depth + cfg.control_depth
-    cross_view = cfg.depth + (0 if cfg.control_skip_cross_view else cfg.control_depth)
-    blocks = spatial + n_base_t + n_ctrl_t
-    cross_attn = blocks
-    if hasattr(cfg, "sde_inpaint"):  # BrushNetConfig
-        brush_s, brush_t = cfg.depth, cfg.depth if cfg.with_temp_block else cfg.control_depth
-        spatial += brush_s
-        cross_view += 0 if cfg.control_skip_cross_view else brush_s
-        blocks += brush_s + brush_t
-        cross_attn += 0 if cfg.brushnet_skip_cross_attn else brush_s + brush_t
-    return {"fused_qkv_attention": spatial + cross_view,
-            "adaln_modulate": (2 * blocks + cross_view) * (2 if x_mask else 1),
-            "flash_attention": cross_attn}
+def blocks_of(cfg):
+    """The transformer blocks of one denoiser forward in their order, as (role,
+    depth, spatial, cross_view, cross_attn): a spatial block launches K1 for its
+    self-attention, another K1 for cross-view attention, K3 for condition
+    cross-attention, and K2 for each of its two norms (three with cross-view). A
+    BrushNet model adds its branch: a spatial block a depth (no cross-view attention
+    when the control blocks skip it) and a temporal one, neither with condition
+    cross-attention (``brushnet_skip_cross_attn``)."""
+    brush = hasattr(cfg, "sde_inpaint")  # BrushNetConfig
+    for i in range(cfg.depth):
+        ctrl = i < cfg.control_depth
+        yield "base_s", i, True, True, True
+        if ctrl:
+            yield "control_s", i, True, not cfg.control_skip_cross_view, True
+        if brush:
+            yield ("brushnet_s", i, True, not cfg.control_skip_cross_view,
+                   not cfg.brushnet_skip_cross_attn)
+        if cfg.with_temp_block:
+            yield "base_t", i, False, False, True
+        if ctrl and not cfg.control_skip_temporal:
+            yield "control_t", i, False, False, True
+        if brush and (cfg.with_temp_block or ctrl):
+            yield "brushnet_t", i, False, False, not cfg.brushnet_skip_cross_attn
+
+
+def expected_launches(cfg, x_mask=False, blocks=None):
+    """Kernel launches of one denoiser forward with a condition cache (of the
+    ``blocks`` of ``blocks_of`` given, else all); with a frame mask every adaLN runs
+    twice (the t and t0 modulations)."""
+    n = {"fused_qkv_attention": 0, "adaln_modulate": 0, "flash_attention": 0}
+    for _, _, spatial, cross_view, cross_attn in (blocks_of(cfg) if blocks is None
+                                                  else blocks):
+        n["fused_qkv_attention"] += spatial + cross_view
+        n["adaln_modulate"] += (2 + cross_view) * (2 if x_mask else 1)
+        n["flash_attention"] += cross_attn
+    return n
+
+
+def expected_backward_calls_frozen_base(cfg, x_mask=False):
+    """Backwards of each kernel's Function in one training loss of a BrushNet model
+    with only its branch trainable, derived from the graph: every call whose inputs
+    require grad. The branch's blocks hold trainable weights; the base stream x
+    requires grad from depth 0's BrushNet skip on, so every base block but depth 0's
+    spatial one; the control stream c never does (frozen weights on frozen
+    inputs), nor does ``encode_conditions``."""
+    return expected_launches(cfg, x_mask, [
+        b for b in blocks_of(cfg) if b[0].startswith("brushnet")
+        or (b[0].startswith("base") and (b[1] > 0 or b[0] == "base_t"))])
 
 
 def counters():
@@ -831,6 +880,7 @@ GRAD_FP32_LIMIT = 1e-3       # per tensor: max|g_kernels - g_plain| / max|g_plai
 GRAD_BF16_RMS_LIMIT = 2.0 ** -6
 FN_FP32_LIMIT = 1e-5         # per grad: max|g_function - g_autograd| / max|g_autograd|
 FN_BF16_LIMIT = 2.0 ** -7    # the same in bf16 (one ulp of the largest element)
+REMAT_REPS = 3               # timed forward+backward runs a remat policy
 
 
 def train_config(torch):
@@ -1755,15 +1805,19 @@ def brushnet_pipeline(torch, model_type, scheduler_type, steps, seed):
 
 def timed_sample(torch, pipe, cond, **kw):
     """One sample with decode: (video, seconds in all, seconds of the decode,
-    latents, launch counts, peak memory)."""
+    latents, launch counts, peak memory). The decode is timed inside
+    ``sample(decode=True)`` by a wrapper on the instance that reaches the pipeline
+    through a weak reference only: a bound method kept there would be a reference
+    cycle that keeps the pipeline, and its memory, alive after the caller drops it."""
     timing = {}
-    pipeline_decode = pipe.decode
+    pipeline = weakref.ref(pipe)
+    decode = type(pipe).decode
 
     def timed_decode(z):
         timing["latents"] = z
         torch.cuda.synchronize()
         t0 = time.time()
-        out = pipeline_decode(z)
+        out = decode(pipeline(), z)
         torch.cuda.synchronize()
         timing["decode"] = time.time() - t0
         return out
@@ -1773,11 +1827,8 @@ def timed_sample(torch, pipe, cond, **kw):
     reset_counters()
     torch.cuda.synchronize()
     t0 = time.time()
-    try:
-        video = pipe.sample(cond, num_frames=NUM_FRAMES, height=HEIGHT, width=WIDTH, **kw)
-        torch.cuda.synchronize()
-    finally:
-        del pipe.decode  # the class's method again (a bound one kept here is a cycle)
+    video = pipe.sample(cond, num_frames=NUM_FRAMES, height=HEIGHT, width=WIDTH, **kw)
+    torch.cuda.synchronize()
     return (video, time.time() - t0, timing["decode"], timing["latents"], read_counters(),
             torch.cuda.max_memory_allocated())
 
@@ -1867,7 +1918,12 @@ def run_brushnet(torch, seed, encode_launches):
          video_abs_mean=float(video.abs().mean()))
     sde_launches = got
     del pipe, model, video, latents
+    gc.collect()
     torch.cuda.empty_cache()
+    # what stays on the card of the SDE phase: its pipeline (6 GB of weights) must
+    # be gone, or the plain phase's peak would count it
+    held = torch.cuda.memory_allocated()
+    require(held < 2e9, f"{held} bytes still allocated after the SDE pipeline was dropped")
 
     # one request of the plain BrushNet type
     steps = 2
@@ -1882,7 +1938,8 @@ def run_brushnet(torch, seed, encode_launches):
     require(tuple(video.shape) == (1, 6, 3, NUM_FRAMES, HEIGHT, WIDTH)
             and bool(video.isfinite().all()), video.shape)
     emit("brushnet_plain", model=PLAIN_BRUSHNET, config=BRUSHNET_CONFIG, steps=steps,
-         setup_seconds=setup_s, seconds_per_sample_with_decode=seconds,
+         allocated_before_bytes=held, setup_seconds=setup_s,
+         seconds_per_sample_with_decode=seconds,
          decode_seconds=decode_s, seconds_per_step=(seconds - decode_s) / steps,
          peak_memory_bytes=peak, launches_per_sample=got,
          video_abs_mean=float(video.abs().mean()))
@@ -2007,6 +2064,388 @@ def run_brushnet_apps(torch, sde_per_forward, base_per_forward, encode_launches)
     emit("brushnet_apps", frames=NUM_FRAMES, frame_shape=[2 * HEIGHT, 3 * WIDTH, 3], apps=rows)
 
 
+# ---------------------------------------------------------------------------
+# phases 17-20: BrushNet training and the remat policies
+# ---------------------------------------------------------------------------
+
+BRUSH_TRAIN_APP_CONFIG = "configs/magicdrive/train/brushnet_smoke.py"
+BRUSHNET_STEPS_TRAIN, PLAIN_BRUSHNET_STEPS_TRAIN = 4, 2
+
+
+def brushnet_train_setup(torch, dtype, sde=True, **overrides):
+    """(stage-2 config, its base model config, the BrushNet config over it, the
+    scheduler: ``RFLOW_SDEBRUSHNET`` or ``RFLOW_BRUSHNET`` with the config's
+    arguments), as the BrushNet train app builds them; ``overrides`` on the base."""
+    from magicdrive_v2_tpu_torch.models.magicdrive.brushnet import BrushNetConfig
+    from magicdrive_v2_tpu_torch.scripts.train_brushnet import brushnet_scheduler
+    cfg = train_config(torch)
+    base_cfg = train_model_config(torch, cfg, dtype, **overrides)
+    model_cfg = BrushNetConfig.from_base(base_cfg, sde_inpaint=sde)
+    return cfg, base_cfg, model_cfg, brushnet_scheduler(cfg, sde)
+
+
+def brushnet_train_batches(cfg, base_cfg, seed):
+    """The stage-2 synthetic batches (frame masks, condition dropout) with the
+    inpaint inputs of each step: standard-normal pixels and 0/1 masks."""
+    import numpy as np
+    shape = (TRAIN_FRAMES, TRAIN_HEIGHT, TRAIN_WIDTH)
+    for step, (batch, bucket) in enumerate(train_batches(cfg, base_cfg, seed)):
+        b, nc = batch["x"].shape[0], base_cfg.nc
+        rng = np.random.default_rng((seed, step, 9))
+        batch["x_inpaint"] = rng.standard_normal((b, 3 * nc) + shape, np.float32)
+        batch["mask_inpaint"] = rng.integers(0, 2, (b, nc) + shape).astype(np.float32)
+        yield batch, bucket
+
+
+def freeze_base(model):
+    """Only the BrushNet branch requires grad (the train app's mask); returns it."""
+    from magicdrive_v2_tpu_torch.training.lora import (BRUSHNET_EXTRA_TRAINABLE,
+                                                       lora_trainable_mask)
+    mask = lora_trainable_mask(model.named_parameters(), BRUSHNET_EXTRA_TRAINABLE)
+    for name, p in model.named_parameters():
+        p.requires_grad_(mask[name])
+    return mask
+
+
+def run_brushnet_grads(torch, seed, encode_launches):
+    """Grads of one SDE-BrushNet training loss (``train=True``, only the branch
+    trainable) through the kernels against those through their plain versions:
+    XL/2 at full width, depth 2 / control depth 1, the stage-2 bucket, fp32 (TF32
+    off) and bf16; launches and each Function's backwards against their counts
+    derived from the graph."""
+    from magicdrive_v2_tpu_torch.models.magicdrive.brushnet import MagicDriveSTDiT3BrushNet
+    from magicdrive_v2_tpu_torch.ops.structured_noise import sample_cutoff_radius
+    from magicdrive_v2_tpu_torch.training.trainer import step_generator, training_loss
+    from magicdrive_v2_tpu_torch.utils.ckpt import init_weights
+    from magicdrive_v2_tpu_torch.utils.misc import to_device
+
+    cfg, base_cfg, model_cfg, sched = brushnet_train_setup(torch, torch.float32, depth=2,
+                                                           control_depth=1)
+    with torch.device("cuda"):
+        model = MagicDriveSTDiT3BrushNet(model_cfg)
+    init_weights(model, seed=seed)
+    mask = freeze_base(model)
+    batch, (nf, h, w) = next(brushnet_train_batches(cfg, base_cfg, seed))
+    batch["mask"][:, 0] = 0.0  # one condition frame in every sample: the t0 path runs
+    dev = to_device(batch, "cuda")
+    b = cfg.batch_size
+    gen = step_generator(seed, 0)
+    hw = dict(height=torch.full((b,), h), width=torch.full((b,), w),
+              num_frames=torch.full((b,), float(nf)))
+    t, t_inpaint = sched.sample_t(gen, b, **hw), sched.sample_t(gen, b, **hw)
+    noise = torch.randn(dev["x"].shape, generator=gen)
+    cutoff = float(sample_cutoff_radius(gen, model_cfg.structured_noise_r0))
+    lat = dev["x"].shape[2:]
+    model_draws = dict(cutoff_radius=cutoff, inpaint_input_noise=torch.randn(
+        (b * model_cfg.nc * model_cfg.in_channels * lat[0],) + tuple(lat[1:]),
+        generator=gen).cuda())
+    per_forward = expected_launches(model_cfg, x_mask=True)
+    want = {k: 2 * per_forward[k] + encode_launches[k] for k in per_forward}
+    want_backward = expected_backward_calls_frozen_base(model_cfg, x_mask=True)
+
+    def grads_of(dtype, plain):
+        model.zero_grad(set_to_none=True)
+        reset_counters()
+        reset_backward_calls()
+        with (plain_versions() if plain else contextlib.nullcontext()):
+            loss, _ = training_loss(model, sched, dev, height=h, width=w, num_frames=nf,
+                                    dtype=dtype, t=t, noise=noise,
+                                    t_inpaint=t_inpaint, model_kwargs=model_draws)
+            loss.backward()
+        torch.cuda.synchronize()
+        grads = {n: None if p.grad is None else p.grad.detach().clone()
+                 for n, p in model.named_parameters()}
+        return float(loss.detach()), grads, read_counters(), read_backward_calls()
+
+    result, fp32_plain = {}, None
+    trainable = [n for n, m in mask.items() if m]
+    for dtype in (torch.float32, torch.bfloat16):
+        with no_tf32(torch):
+            loss_k, gk, launches, backwards = grads_of(dtype, plain=False)
+            loss_p, gp, plain_launches, plain_backwards = grads_of(dtype, plain=True)
+        # remat: the forward and the recompute each launch every group's kernels
+        require(launches == want and backwards == want_backward,
+                (launches, want, backwards, want_backward))
+        require(sum(plain_launches.values()) + sum(plain_backwards.values()) == 0,
+                (plain_launches, plain_backwards))
+        require(all(gp[n] is not None and bool((gp[n] != 0).any()) for n in trainable),
+                "a trainable tensor without a grad")
+        require(all(gk[n] is None and gp[n] is None for n in mask if not mask[n]),
+                "a frozen tensor with a grad")
+        worst, with_grad, roundings = compare_grads(torch, gk, gp, fp32_plain)
+        require(with_grad == len(trainable), (with_grad, len(trainable)))
+        result[str(dtype)] = dict(loss_kernels=loss_k, loss_plain=loss_p, tensors=with_grad,
+                                  worst_err_over_limit=worst[0], worst_tensor=worst[1],
+                                  launches=launches, backward_calls=backwards)
+        if roundings:
+            roundings.sort()
+            result[str(dtype)].update(
+                plain_bf16_vs_fp32_rms_ratio_median=roundings[len(roundings) // 2],
+                plain_bf16_vs_fp32_rms_ratio_max=roundings[-1])
+        require(worst[0] <= 1.0, result[str(dtype)])
+        if dtype == torch.float32:
+            fp32_plain = gp
+        del gk, gp
+    emit("brushnet_grads", model=SDE_BRUSHNET, depth=model_cfg.depth,
+         control_depth=model_cfg.control_depth, batch=b, frames=nf, height=h, width=w,
+         train=True, cutoff_radius=cutoff, trainable_tensors=len(trainable),
+         frozen_tensors=len(mask) - len(trainable), launches_expected=want,
+         backward_calls_expected=want_backward, by_dtype=result,
+         fp32_limit=f"per tensor max|err| <= {GRAD_FP32_LIMIT} * max|g_plain|",
+         bf16_limit=f"per tensor rms(err) <= 2**{math.log2(GRAD_BF16_RMS_LIMIT):g} * "
+         "rms(g_plain) + rms(g_plain - g_plain_fp32)")
+    del model, dev, fp32_plain
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_brushnet_train(torch, seed, encode_launches):
+    """The BrushNet trainer at full width and depth in the stage-2 bucket and
+    settings (b=4, remat, bf16 over fp32 masters, AdamW, EMA 0.99, logit-normal t),
+    only the branch trainable: XL/2-SDEBrushNet (the SDE loss, the cutoff jitter)
+    for BRUSHNET_STEPS_TRAIN steps, then the plain BrushNet type for
+    PLAIN_BRUSHNET_STEPS_TRAIN, the first step of each untimed. The frozen base and
+    its EMA stay bit-equal, every branch tensor moves, the EMA identity holds, the
+    launches and backwards are the remat layout's. Returns the SDE step's launches."""
+    from magicdrive_v2_tpu_torch.models.magicdrive.brushnet import MagicDriveSTDiT3BrushNet
+    from magicdrive_v2_tpu_torch.training.trainer import build_brushnet_training
+    from magicdrive_v2_tpu_torch.utils.ckpt import init_weights
+    from magicdrive_v2_tpu_torch.utils.misc import to_device
+
+    sde_launches = None
+    for sde, steps in ((True, BRUSHNET_STEPS_TRAIN), (False, PLAIN_BRUSHNET_STEPS_TRAIN)):
+        cfg, base_cfg, model_cfg, sched = brushnet_train_setup(torch, torch.bfloat16, sde=sde)
+        require((model_cfg.depth, model_cfg.control_depth, model_cfg.hidden_size,
+                 model_cfg.grad_checkpoint, model_cfg.remat_policy)
+                == (28, 13, 1152, True, "full"), model_cfg)
+        t0 = time.time()
+        with torch.device("cuda"):
+            model = MagicDriveSTDiT3BrushNet(model_cfg)
+        init_weights(model, seed=seed)
+        state, step_fn = build_brushnet_training(
+            model, sched, cfg, height=TRAIN_HEIGHT, width=TRAIN_WIDTH,
+            num_frames=TRAIN_FRAMES, seed=seed + 1)
+        torch.cuda.synchronize()
+        setup_s = time.time() - t0
+        state_bytes = torch.cuda.memory_allocated()
+        n_params = sum(p.numel() for p in model.parameters())
+        trainable = {n for n, p in model.named_parameters() if p.requires_grad}
+        n_trainable = sum(p.numel() for n, p in model.named_parameters() if n in trainable)
+        before = {n: p.detach().to("cpu", copy=True) for n, p in model.named_parameters()}
+        per_forward = expected_launches(model_cfg, x_mask=True)
+        want = {k: 2 * per_forward[k] + encode_launches[k] for k in per_forward}
+        want_backward = expected_backward_calls_frozen_base(model_cfg, x_mask=True)
+        name = f"brushnet_blocks_s.{model_cfg.depth - 1}.attn.qkv.weight"
+        param, ema = dict(model.named_parameters())[name], dict(state.ema.named_parameters())[name]
+        seconds, losses, grad_norms, t_means, launches, tokens = [], [], [], [], None, None
+        batches = brushnet_train_batches(cfg, base_cfg, seed)
+        for i in range(steps):
+            batch, (nf, h, w) = next(batches)
+            require((nf, h, w) == (TRAIN_FRAMES, TRAIN_HEIGHT, TRAIN_WIDTH), (nf, h, w))
+            dev = to_device(batch, "cuda")
+            e_before = ema.detach().clone()
+            if i == 1:
+                torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            reset_counters()
+            reset_backward_calls()
+            t_step = time.time()
+            state, metrics = step_fn(state, dev)
+            torch.cuda.synchronize()
+            seconds.append(time.time() - t_step)
+            got, backwards = read_counters(), read_backward_calls()
+            require(got == want and backwards == want_backward,
+                    (got, want, backwards, want_backward))
+            launches = got
+            loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+            require(math.isfinite(loss) and math.isfinite(gnorm) and gnorm > 0, (loss, gnorm))
+            losses.append(loss)
+            grad_norms.append(gnorm)
+            t_means.append(float(metrics["t_mean"]))
+            expect = e_before * cfg.ema_decay + param.detach() * (1 - cfg.ema_decay)
+            ema_err = float((ema.detach() - expect).abs().max())
+            require(ema_err <= 2.0 ** -21 * float(expect.abs().max()), ("EMA", ema_err))
+            B, _, T, Hl, Wl = dev["x"].shape
+            tokens = B * model_cfg.nc * T * (Hl // 2) * (Wl // 2)
+        peak = torch.cuda.max_memory_allocated()
+        require(state.step == steps, state.step)
+        ema_params = dict(state.ema.named_parameters())
+        moved = 0
+        for n, p in model.named_parameters():
+            if n in trainable:
+                moved += not torch.equal(p.detach().cpu(), before[n])
+            else:
+                require(torch.equal(p.detach().cpu(), before[n])
+                        and torch.equal(ema_params[n].detach().cpu(), before[n]),
+                        f"frozen {n} or its EMA changed")
+        require(moved == len(trainable), (moved, len(trainable)))
+        timed = seconds[1:]
+        s_step = sum(timed) / len(timed)
+        emit("brushnet_train" if sde else "brushnet_train_plain",
+             model=SDE_BRUSHNET if sde else PLAIN_BRUSHNET, config=TRAIN_CONFIG,
+             params=n_params, trainable_params=n_trainable,
+             trainable_tensors=len(trainable), frozen_tensors=len(before) - len(trainable),
+             dtype="bfloat16 compute, float32 masters", batch=cfg.batch_size,
+             frames=TRAIN_FRAMES, height=TRAIN_HEIGHT, width=TRAIN_WIDTH,
+             tokens_per_step=tokens, grad_checkpoint=True, remat_policy="full",
+             setup_seconds=setup_s, state_bytes=state_bytes, seconds_per_step=seconds,
+             seconds_per_step_timed_mean=s_step, samples_per_second=cfg.batch_size / s_step,
+             tokens_per_second=tokens / s_step, peak_memory_bytes=peak, losses=losses,
+             grad_norms=grad_norms, t_means=t_means, launches_per_step=launches,
+             backward_calls_per_step=want_backward, frozen_bit_equal=True,
+             branch_moved=moved, ema_identity=True)
+        if sde:
+            sde_launches = launches
+        del state, model, param, ema, ema_params, dev, before, step_fn
+        gc.collect()
+        torch.cuda.empty_cache()
+    return sde_launches
+
+
+def run_remat(torch, seed, encode_launches):
+    """Base XL/2 at full width and depth in the stage-2 bucket at b=1: a training
+    loss forward and backward under each remat policy, one untimed, then
+    ``REMAT_REPS`` timed (median and spread); loss and grads against "full"'s,
+    seconds, peak memory, and what "offload_carry" sends to the host. Every policy
+    runs over the same state on the card (the weights and the batch): "full"'s
+    grads wait on the host between comparisons."""
+    import dataclasses
+    from magicdrive_v2_tpu_torch.models.magicdrive.stdit3 import REMAT_POLICIES
+    from magicdrive_v2_tpu_torch.models.magicdrive.stdit3 import MagicDriveSTDiT3
+    from magicdrive_v2_tpu_torch.schedulers.rf import build_scheduler
+    from magicdrive_v2_tpu_torch.training.trainer import step_generator, training_loss
+    from magicdrive_v2_tpu_torch.utils.ckpt import init_weights
+    from magicdrive_v2_tpu_torch.utils.misc import to_device
+
+    cfg = train_config(torch)
+    cfg.batch_size = 1
+    model_cfg = train_model_config(torch, cfg, torch.bfloat16)
+    require((model_cfg.depth, model_cfg.grad_checkpoint) == (28, True), model_cfg)
+    with torch.device("cuda"):
+        model = MagicDriveSTDiT3(model_cfg)
+    init_weights(model, seed=seed)
+    sched = build_scheduler(cfg.scheduler)
+    batch, (nf, h, w) = next(train_batches(cfg, model_cfg, seed))
+    dev = to_device(batch, "cuda")
+    gen = step_generator(seed, 0)
+    t = sched.sample_t(gen, 1, height=torch.full((1,), h), width=torch.full((1,), w),
+                       num_frames=torch.full((1,), float(nf)))
+    noise = torch.randn(dev["x"].shape, generator=gen)
+    per_forward = expected_launches(model_cfg, x_mask=True)
+    want = {k: 2 * per_forward[k] + encode_launches[k] for k in per_forward}
+    B, _, T, Hl, Wl = dev["x"].shape
+    carry_numel = B * model_cfg.nc * T * (Hl // 2) * (Wl // 2) * model_cfg.hidden_size
+    offload = model.carry_offload
+
+    def fwd_bwd(policy):
+        model.cfg = dataclasses.replace(model_cfg, remat_policy=policy)
+        model.zero_grad(set_to_none=True)
+        offload.tensors_to_host = offload.bytes_to_host = 0
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        t0 = time.time()
+        loss, _ = training_loss(model, sched, dev, height=h, width=w, num_frames=nf,
+                                dtype=torch.bfloat16, t=t, noise=noise)
+        loss.backward()
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        got = read_counters()
+        require(got == want, (policy, got, want))
+        return dict(seconds=seconds, peak=torch.cuda.max_memory_allocated(),
+                    above=torch.cuda.max_memory_allocated() - held, held=held,
+                    loss=float(loss.detach()), launches=got)
+
+    rows, ref = {}, None
+    for policy in REMAT_POLICIES:
+        fwd_bwd(policy)  # warm-up: first calls at these shapes, pinned host buffers
+        reps = [fwd_bwd(policy) for _ in range(REMAT_REPS)]
+        seconds = sorted(r["seconds"] for r in reps)
+        rows[policy] = dict(seconds_forward_backward_median=seconds[len(seconds) // 2],
+                            seconds_min=seconds[0], seconds_max=seconds[-1],
+                            repetitions=REMAT_REPS,
+                            peak_memory_bytes=max(r["peak"] for r in reps),
+                            peak_above_held_bytes=max(r["above"] for r in reps),
+                            held_bytes=max(r["held"] for r in reps), loss=reps[0]["loss"],
+                            launches=reps[0]["launches"])
+        # the last repetition's grads, on the model
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        if policy == "full":
+            ref = {n: None if g is None else g.cpu() for n, g in grads.items()}
+            del grads
+            model.zero_grad(set_to_none=True)
+            continue
+        ref_dev = {n: None if g is None else g.cuda() for n, g in ref.items()}
+        worst, with_grad, _ = compare_grads(torch, grads, ref_dev, fp32_ref=ref_dev)
+        equal = sum(torch.equal(grads[n], ref_dev[n]) for n in ref if ref[n] is not None)
+        del grads, ref_dev
+        model.zero_grad(set_to_none=True)
+        rows[policy].update(worst_err_over_limit=worst[0], worst_tensor=worst[1],
+                            tensors=with_grad, bit_equal_tensors=equal,
+                            loss_minus_full=rows[policy]["loss"] - rows["full"]["loss"])
+        require(with_grad == sum(g is not None for g in ref.values()) == len(ref)
+                and worst[0] <= 1.0, rows[policy])
+        require(abs(rows[policy]["loss"] - rows["full"]["loss"])
+                <= GRAD_BF16_RMS_LIMIT * abs(rows["full"]["loss"]), rows[policy])
+        if policy == "offload_carry":
+            # one carry a layer group, two (x and c) in the control depths
+            n = model_cfg.depth + model_cfg.control_depth
+            rows[policy].update(tensors_to_host=offload.tensors_to_host,
+                                bytes_to_host=offload.bytes_to_host)
+            require(offload.tensors_to_host == n
+                    and offload.bytes_to_host == n * carry_numel * 2, rows[policy])
+    emit("remat", model="MagicDriveSTDiT3-XL/2", config=TRAIN_CONFIG, batch=1,
+         frames=nf, height=h, width=w, dtype="bfloat16 compute, float32 masters",
+         policies=rows, grads_limit=f"per tensor rms(g - g_full) <= "
+         f"2**{math.log2(GRAD_BF16_RMS_LIMIT):g} * rms(g_full)")
+    del model, dev, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_brushnet_train_app(torch):
+    """The BrushNet train app on the tiny config, with and without ``--sde``, 2 steps
+    each; its checkpoint read back into a model built from the config
+    (``load_state_dict`` strict); the files are removed."""
+    from magicdrive_v2_tpu_torch.config.config import Config
+    from magicdrive_v2_tpu_torch.models.magicdrive.brushnet import (BrushNetConfig,
+                                                                    MagicDriveSTDiT3BrushNet)
+    from magicdrive_v2_tpu_torch.models.magicdrive.stdit3 import build_model_config
+    from magicdrive_v2_tpu_torch.scripts import train_brushnet
+    from magicdrive_v2_tpu_torch.utils.ckpt import load_checkpoint
+    rows = {}
+    cfg = Config.fromfile(BRUSH_TRAIN_APP_CONFIG)
+    for sde in (False, True):
+        out_dir = os.path.join("outputs", "chip_smoke_train_brushnet" + ("_sde" if sde else ""))
+        shutil.rmtree(out_dir, ignore_errors=True)
+        reset_counters()
+        t0 = time.time()
+        lines = train_brushnet.main([BRUSH_TRAIN_APP_CONFIG, "--synthetic", "--max-steps", "2",
+                                     "--cfg-options", f"outputs={out_dir}"]
+                                    + (["--sde"] if sde else []))
+        seconds = time.time() - t0
+        got = read_counters()
+        require(all(v > 0 for v in got.values()), got)
+        require([x["step"] for x in lines] == [1, 2]
+                and all(math.isfinite(x["loss"]) for x in lines), lines)
+        ckpt = os.path.join(out_dir, "global_step2")
+        names = sorted(os.listdir(ckpt))
+        require(names == ["ema.pt", "model.pt", "rng_state.json", "running_states.json"], names)
+        model_cfg = BrushNetConfig.from_base(build_model_config(
+            cfg.model, vae_out_channels=cfg.vae_out_channels, mv_order_map=cfg.mv_order_map,
+            dtype=torch.float32), sde_inpaint=sde)
+        model, ema = MagicDriveSTDiT3BrushNet(model_cfg), MagicDriveSTDiT3BrushNet(model_cfg)
+        running = load_checkpoint(ckpt, model=model, ema=ema)  # strict load_state_dict
+        require(running["step"] == 2, running)
+        shutil.rmtree(out_dir, ignore_errors=True)
+        rows["sde" if sde else "brushnet"] = dict(
+            seconds=seconds, losses=[x["loss"] for x in lines],
+            grad_norms=[x["grad_norm"] for x in lines], launches=got,
+            checkpoint=names, reloaded_strict=True)
+    emit("brushnet_train_app", config=BRUSH_TRAIN_APP_CONFIG, steps=[1, 2], runs=rows)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=30)
@@ -2071,6 +2510,10 @@ def main():
     repaint_launches = run_repaint(torch, args.seed, per_forward, encode_launches)
     sde_per_forward = expected_launches(brushnet_config(torch, torch.bfloat16))
     run_brushnet_apps(torch, sde_per_forward, per_forward, encode_launches)
+    run_brushnet_grads(torch, args.seed, encode_launches)
+    brushnet_train_launches = run_brushnet_train(torch, args.seed, encode_launches)
+    run_remat(torch, args.seed, encode_launches)
+    run_brushnet_train_app(torch)
     data_root = tempfile.mkdtemp(prefix="chip_smoke_nuscenes_")
     try:
         ann = run_dataset(torch, data_root)
@@ -2118,7 +2561,8 @@ def main():
                                       "train_step_on_data": train_data_launches[name],
                                       "brushnet_sample": brushnet_launches[name],
                                       "repaint": repaint_launches[name],
-                                      "brushnet_test_app": brushnet_test_app_launches[name]},
+                                      "brushnet_test_app": brushnet_test_app_launches[name],
+                                      "brushnet_train_step": brushnet_train_launches[name]},
                     **meta[name], **kernel_numbers[name], backward=backward[name])
                for name in meta]
     for k in kernels:

@@ -21,7 +21,9 @@
 
 Randomness: the structured noise starts from a standard normal draw of shape
 (B*C*T', H', W') for the batch the model sees (``inpaint_input_noise``), or from
-an explicit ``generator``; the JAX model draws it from ``rngs_key``.
+an explicit ``generator``; the JAX model draws it from ``rngs_key``. In training
+(``train=True``) its FFT cutoff is jittered, r0 + Exp(rate 0.1): ``cutoff_radius``,
+or drawn from the generator first, before the normal draw.
 """
 from __future__ import annotations
 
@@ -32,11 +34,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.func import functional_call
-from torch.utils.checkpoint import checkpoint
 
 from ...ops.resize import resize_linear_antialiased
-from ...ops.structured_noise import generate_structured_noise
+from ...ops.structured_noise import generate_structured_noise, sample_cutoff_radius
 from ...registry import MODELS
 from ..layers.blocks import PatchEmbed3D, pos_embedding_2d
 from .stdit3 import MagicDriveSTDiT3, MagicDriveSTDiT3Config, MVSTDiTBlock
@@ -94,6 +94,9 @@ class BrushLayerGroup(nn.Module):
         super().__init__()
         self.base_s, self.control_s, self.brushnet_s = base_s, control_s, brushnet_s
         self.base_t, self.control_t, self.brushnet_t = base_t, control_t, brushnet_t
+        # the carry (x, c, xi) entries the group updates (without control blocks c
+        # passes through)
+        self.carry_updated = (True, control_s is not None or control_t is not None, True)
 
     def forward(self, x, c, xi, y, t, t_bn, x_mask, t0, t0_bn, pad_mask):
         x = self.base_s(x, y, t, x_mask, t0)
@@ -159,15 +162,20 @@ class MagicDriveSTDiT3BrushNet(MagicDriveSTDiT3):
     def forward(self, x, timestep, y, maps, bbox, cams, rel_pos, fps,
                 height: float, width: float, x_inpaint=None, mask_inpaint=None,
                 drop_cond_mask=None, drop_frame_mask=None, x_mask=None, t_inpaint=None,
-                num_timesteps: float = 1000.0, inpaint_input_noise=None, generator: Optional[torch.Generator] = None,
-                cond_cache=None, frame_valid=None):
+                num_timesteps: float = 1000.0, inpaint_input_noise=None,
+                generator: Optional[torch.Generator] = None, cond_cache=None,
+                frame_valid=None, train: bool = False, cutoff_radius=None):
         """As ``MagicDriveSTDiT3.forward`` plus the inpaint inputs: x_inpaint
         (b, 3*NC, T_img, H, W) pixels, mask_inpaint (b, NC, T_img, H, W) in
         [0, 1]; with ``frame_valid`` their pad frames must be zero (the temporal
         conv is centred, and zero pads reproduce its own zero padding). SDE:
         t_inpaint (b,), and either the standard normal draw
         ``inpaint_input_noise`` ((B*C*T', H', W') for B = b*NC) the structured
-        noise is made from, or a ``generator`` to draw it."""
+        noise is made from, or a ``generator`` to draw it. The structured noise's
+        FFT cutoff is ``structured_noise_r0``; with ``train`` it is jittered to
+        r0 + Exp(rate 0.1): ``cutoff_radius`` if given, else drawn from
+        ``generator`` before the normal draw (the JAX model splits its key into
+        the cutoff's and the noise's)."""
         cfg = self.cfg
         NC, dt = cfg.nc, self.dtype
         b = x.shape[0]
@@ -184,12 +192,22 @@ class MagicDriveSTDiT3BrushNet(MagicDriveSTDiT3):
         mi = mask_inpaint.reshape(B, 1, *mask_inpaint.shape[2:]).to(dt)
         xi_enc, mi = self.encode_inpaint(xi_px, mi, (Tx, Hx, Wx))
 
+        if cutoff_radius is not None and not (cfg.sde_inpaint and train):
+            raise ValueError("cutoff_radius is the SDE model's training cutoff: pass "
+                             "train=True to an SDE-BrushNet model")
         if cfg.sde_inpaint:
             if t_inpaint is None:
                 raise ValueError("the SDE-BrushNet model needs t_inpaint")
+            cutoff = cfg.structured_noise_r0
+            if train:
+                if cutoff_radius is None and generator is None:
+                    raise ValueError("train=True draws the cutoff: pass a generator or "
+                                     "cutoff_radius")
+                cutoff = float(cutoff_radius if cutoff_radius is not None
+                               else sample_cutoff_radius(generator, cfg.structured_noise_r0))
             flat = xi_enc.reshape(B * xi_enc.shape[1] * Tx, Hx, Wx)
             noise_inpaint = generate_structured_noise(
-                flat, generator, cutoff_radius=cfg.structured_noise_r0,
+                flat, generator, cutoff_radius=cutoff,
                 transition_width=cfg.structured_noise_transition,
                 input_noise=inpaint_input_noise).reshape(xi_enc.shape)
             # the rectified-flow mix at the independent inpaint timestep, in fp32
@@ -251,14 +269,8 @@ class MagicDriveSTDiT3BrushNet(MagicDriveSTDiT3):
             x_mask_rep = x_mask.bool().repeat_interleave(NC, dim=0)
         pad_mask_rep = self._latent_pad_mask(frame_valid, T_img, T, NC)
 
-        args = (y_cond, t_mlp, t_bn, x_mask_rep, t0_mlp, t0_bn, pad_mask_rep)
-        remat = cfg.grad_checkpoint and torch.is_grad_enabled()
-        for group in self._layer_groups:
-            if remat:
-                x, c, xi = checkpoint(functional_call, group, dict(group.named_parameters()),
-                                      (x, c, xi) + args, use_reentrant=False)
-            else:
-                x, c, xi = group(x, c, xi, *args)
+        x, c, xi = self.run_layer_groups(
+            (x, c, xi), (y_cond, t_mlp, t_bn, x_mask_rep, t0_mlp, t0_bn, pad_mask_rep))
 
         x = x.reshape(B, T * S, -1)
         t_fin = t_emb.repeat_interleave(NC, dim=0)

@@ -11,7 +11,9 @@
   cross-attention through ``ops.dot_product_attention``.
 - Training: with ``grad_checkpoint`` each layer group (depth i's base s,
   control s, base t and control t, what the JAX package remats as one scanned
-  step) runs under ``torch.utils.checkpoint`` when autograd records; the compute
+  step) runs under ``torch.utils.checkpoint`` when autograd records, by
+  ``remat_policy``: "full", "dots" (selective: the linear layers' products
+  kept) or "offload_carry" (the carry in pinned host memory); the compute
   dtype comes from ``compute_params``, bf16 casts of fp32 master parameters
   handed to ``torch.func.functional_call`` (flax's ``param_dtype`` fp32 and
   ``dtype`` bf16).
@@ -28,7 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from ...ops.fused_adaln import adaln_modulate
 from ..layers.blocks import (
@@ -103,8 +105,9 @@ class MagicDriveSTDiT3Config:
     control_skip_cross_view: bool = True
     control_skip_temporal: bool = True
     force_pad_h_for_sp_size: Optional[int] = None
-    # training: remat each layer group when autograd records. Only "full" is
-    # ported; "dots" and "offload_carry" raise (ROADMAP queue A item 2)
+    # training: remat each layer group when autograd records; remat_policy "full"
+    # (recompute the group in the backward), "dots" (keep the linear layers'
+    # products) or "offload_carry" (keep the group's carry in host memory)
     grad_checkpoint: bool = True
     remat_policy: str = "full"
     mv_order_map: Tuple[Tuple[int, ...], ...] = tuple(
@@ -255,6 +258,9 @@ class LayerGroup(nn.Module):
         super().__init__()
         self.base_s, self.control_s = base_s, control_s
         self.base_t, self.control_t = base_t, control_t
+        # the carry (x, c) entries the group updates (without control blocks c
+        # passes through)
+        self.carry_updated = (True, control_s is not None or control_t is not None)
 
     def forward(self, x, c, y, t, x_mask, t0, pad_mask):
         x = self.base_s(x, y, t, x_mask, t0)
@@ -270,6 +276,61 @@ class LayerGroup(nn.Module):
 
 
 REMAT_POLICIES = ("full", "dots", "offload_carry")
+
+# remat "dots" (the JAX package's dots_with_no_batch_dims_saveable): the outputs of
+# the linear layers' matrix products are kept from the forward, everything else is
+# recomputed in the backward: the plain attention's batched products (aten bmm) and
+# the kernels too, whose launches are no aten op. F.linear on a contiguous input of
+# any rank is one aten addmm (mm without a bias), on a strided one a copy and mm.
+DOTS_SAVED_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def save_matmuls():
+    """``context_fn`` of ``checkpoint`` for remat "dots"."""
+    return create_selective_checkpoint_contexts(list(DOTS_SAVED_OPS))
+
+
+def _group_step(group, params, args, *carry):
+    return functional_call(group, params, carry + args)
+
+
+class CarryOffload:
+    """Remat "offload_carry": between the forward and the backward, each layer
+    group's carry (the x, c and xi it updates) waits in pinned host memory instead
+    of on the card; everything else is recomputed, as under "full" (the JAX
+    package's save_and_offload_only_these_names on the tagged carry). The
+    non-reentrant checkpoint saves its tensor arguments through the ambient
+    ``saved_tensors_hooks``: ``hooks`` packs those that are the given carry
+    tensors into host copies (``non_blocking``, on the current stream) and leaves
+    the others; the backward copies them back. Counts what went to the host."""
+
+    def __init__(self):
+        self.tensors_to_host = 0
+        self.bytes_to_host = 0
+
+    def hooks(self, carry):
+        moved = {id(t) for t in carry}
+
+        def pack(t):
+            if id(t) not in moved:
+                return t
+            # the carry's own strides: the recompute must see the layout the
+            # forward saw (a permuted carry takes other aten paths than a
+            # contiguous one, and checkpoint checks what they save)
+            host = torch.empty_strided(t.shape, t.stride(), dtype=t.dtype, device="cpu",
+                                       pin_memory=t.is_cuda)
+            host.copy_(t, non_blocking=True)
+            self.tensors_to_host += 1
+            self.bytes_to_host += t.numel() * t.element_size()
+            return t.device, host
+
+        def unpack(packed):
+            if isinstance(packed, torch.Tensor):
+                return packed
+            device, host = packed
+            return host.to(device, non_blocking=True)
+
+        return torch.autograd.graph.saved_tensors_hooks(pack, unpack)
 
 
 class MagicDriveSTDiT3(nn.Module):
@@ -325,10 +386,7 @@ class MagicDriveSTDiT3(nn.Module):
         if cfg.remat_policy not in REMAT_POLICIES:
             raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}: expected one of "
                              f"{REMAT_POLICIES}")
-        if cfg.grad_checkpoint and cfg.remat_policy != "full":
-            raise NotImplementedError(
-                f"remat_policy={cfg.remat_policy!r} is not ported yet (ROADMAP.md queue A "
-                "item 2); use 'full'")
+        self.carry_offload = CarryOffload()
 
         def at(blocks, i):
             return blocks[i] if i < len(blocks) else None
@@ -555,17 +613,8 @@ class MagicDriveSTDiT3(nn.Module):
             x_mask_rep = x_mask.bool().repeat_interleave(NC, dim=0)  # (B, T)
         pad_mask_rep = self._latent_pad_mask(frame_valid, T_img, T, NC)
 
-        args = (y_cond, t_mlp, x_mask_rep, t0_mlp, pad_mask_rep)
-        remat = cfg.grad_checkpoint and torch.is_grad_enabled()
-        for group in self._layer_groups:
-            if remat:
-                # the recompute runs in the backward, after a caller's
-                # functional_call has returned: it gets the group's parameters as
-                # they are now (the caller's casts) handed in again
-                x, c = checkpoint(functional_call, group, dict(group.named_parameters()),
-                                  (x, c) + args, use_reentrant=False)
-            else:
-                x, c = group(x, c, *args)
+        x, c = self.run_layer_groups((x, c),
+                                     (y_cond, t_mlp, x_mask_rep, t0_mlp, pad_mask_rep))
 
         x = x.reshape(B, T * S, -1)
         t_fin = t_emb.repeat_interleave(NC, dim=0)
@@ -576,6 +625,33 @@ class MagicDriveSTDiT3(nn.Module):
         C_out = cfg.out_channels
         x = x.reshape(b, NC, C_out, Tx, Hx, Wx).transpose(1, 2)
         return x.reshape(b, C_out * NC, Tx, Hx, Wx)
+
+    def run_layer_groups(self, carry: Tuple[torch.Tensor, ...], args: Tuple) -> Tuple:
+        """Each layer group in turn on the ``carry`` (x, c[, xi]) with the shared
+        ``args``. When autograd records and ``grad_checkpoint``, each group runs under
+        the non-reentrant ``torch.utils.checkpoint`` by ``remat_policy``."""
+        cfg = self.cfg
+        if not (cfg.grad_checkpoint and torch.is_grad_enabled()):
+            for group in self._layer_groups:
+                carry = group(*carry, *args)
+            return carry
+        kw = dict(use_reentrant=False)
+        if cfg.remat_policy == "dots":
+            kw["context_fn"] = save_matmuls
+        for group in self._layer_groups:
+            # the recompute runs in the backward, after a caller's functional_call has
+            # returned: it gets the group's parameters as they are now (the caller's
+            # casts) handed in again. The carry goes in as tensor arguments of their
+            # own (checkpoint saves those, where the offload hooks see them), the
+            # shared arguments as one tuple (kept as they are)
+            params = dict(group.named_parameters())
+            if cfg.remat_policy == "offload_carry":
+                moved = [t for t, updated in zip(carry, group.carry_updated) if updated]
+                with self.carry_offload.hooks(moved):
+                    carry = checkpoint(_group_step, group, params, args, *carry, **kw)
+            else:
+                carry = checkpoint(_group_step, group, params, args, *carry, **kw)
+        return carry
 
     def unpatchify(self, x, N_t, N_h, N_w, R_t, R_h, R_w):
         pt, ph, pw = self.cfg.patch_size

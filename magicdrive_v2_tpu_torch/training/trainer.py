@@ -7,7 +7,9 @@ forward reads bf16 casts of them (``compute_params``) through
 ``torch.func.functional_call``, so the grads land in fp32 on the masters. The
 step's t and noise come from a CPU ``torch.Generator`` seeded from (seed, step),
 so a resumed run draws what an uninterrupted one would; tests may pass t and
-noise in.
+noise in. The BrushNet models train their branch only, over the frozen base
+(``build_brushnet_training``), with the SDE variant's loss and its model's
+training-time draws from a second generator of (seed, step).
 """
 from __future__ import annotations
 
@@ -20,11 +22,14 @@ import torch
 from torch.func import functional_call
 
 from ..models.magicdrive.stdit3 import MagicDriveSTDiT3, compute_params
-from ..schedulers.rf import RFLOW
+from ..schedulers.rf import RFLOW, RFLOW_SDEBRUSHNET
 from ..utils.train_utils import ClippedAdamW, make_optimizer, trainable_mask, update_ema
+from .lora import BRUSHNET_EXTRA_TRAINABLE, lora_trainable_mask
 
+# the model's conditioning inputs in a batch; the BrushNet models' inpaint inputs
+# ride along where a batch has them
 _COND_KEYS = ("y", "maps", "bbox", "cams", "rel_pos", "fps", "drop_cond_mask",
-              "drop_frame_mask")
+              "drop_frame_mask", "x_inpaint", "mask_inpaint")
 
 
 @dataclasses.dataclass
@@ -49,11 +54,13 @@ def combine_frame_mask(mask, frame_valid):
     return torch.where(has, combined, lat_valid)
 
 
-def step_generator(seed: int, step: int) -> torch.Generator:
+def step_generator(seed: int, step: int, stream: int = 0) -> torch.Generator:
     """The CPU generator of step ``step``: derived from (seed, step), never
-    advanced across steps."""
+    advanced across steps; ``stream`` 1 is a second, independent one (the SDE
+    model's draws)."""
     gen = torch.Generator()
-    gen.manual_seed(int(np.random.default_rng((seed, step)).integers(1 << 62)))
+    key = (seed, step) if stream == 0 else (seed, step, stream)
+    gen.manual_seed(int(np.random.default_rng(key).integers(1 << 62)))
     return gen
 
 
@@ -61,9 +68,20 @@ def training_loss(model: MagicDriveSTDiT3, scheduler: RFLOW, batch: Dict, *,
                   height: float, width: float, num_frames: int, dtype=torch.bfloat16,
                   generator: Optional[torch.Generator] = None,
                   t: Optional[torch.Tensor] = None,
-                  noise: Optional[torch.Tensor] = None):
+                  noise: Optional[torch.Tensor] = None,
+                  t_inpaint: Optional[torch.Tensor] = None,
+                  model_kwargs: Optional[Dict] = None):
     """(mean loss, t) of one batch (already on the model's device) through the
-    model in ``dtype``; autograd records down to the fp32 masters."""
+    model in ``dtype``; autograd records down to the fp32 masters. A BrushNet
+    batch carries ``x_inpaint`` and ``mask_inpaint`` too. For the SDE-BrushNet
+    model (``cfg.sde_inpaint``) the scheduler must be an ``RFLOW_SDEBRUSHNET``:
+    its loss draws an independent ``t_inpaint``, and the model runs with
+    ``train=True`` and ``model_kwargs``, its randomness (a ``generator``, or
+    ``cutoff_radius`` and ``inpaint_input_noise``)."""
+    sde = getattr(model.cfg, "sde_inpaint", False)
+    if sde != isinstance(scheduler, RFLOW_SDEBRUSHNET):
+        raise ValueError(f"{type(scheduler).__name__} does not train a model with "
+                         f"sde_inpaint={sde}")
     cond = {k: batch[k] for k in _COND_KEYS if k in batch}
     x = batch["x"]
     b = x.shape[0]
@@ -75,35 +93,57 @@ def training_loss(model: MagicDriveSTDiT3, scheduler: RFLOW, batch: Dict, *,
               else torch.as_tensor(nf_valid, dtype=torch.float32))
     params = compute_params(model, dtype)
 
-    def model_fn(x_t, tt, x_mask):
-        return functional_call(model, params, (x_t, tt), dict(
-            **cond, height=float(height), width=float(width), x_mask=x_mask,
-            frame_valid=frame_valid))
+    def model_fn(x_t, tt, x_mask, *sde_t_inpaint):
+        kw = dict(**cond, height=float(height), width=float(width), x_mask=x_mask,
+                  frame_valid=frame_valid)
+        if sde:
+            kw.update(t_inpaint=sde_t_inpaint[0], num_timesteps=float(scheduler.num_timesteps),
+                      train=True, **(model_kwargs or {}))
+        return functional_call(model, params, (x_t, tt), kw)
 
+    extra = dict(t_inpaint=t_inpaint) if sde else {}
     out = scheduler.training_losses(model_fn, x, mask=mask, t=t, noise=noise,
-                                    generator=generator, **hw)
+                                    generator=generator, **extra, **hw)
     return out["loss"].mean(), out["t"]
 
 
 def make_train_step(scheduler: RFLOW, *, height: float, width: float, num_frames: int,
                     dtype=torch.bfloat16, ema_decay: float = 0.99,
                     ema_mask: Optional[Dict[str, bool]] = None, seed: int = 0) -> Callable:
-    """The step for one (height, width, num_frames) bucket:
-    ``train_step(state, batch, t=None, noise=None) -> (state, metrics)``, batch on
-    the model's device. Without t and noise both are drawn from
-    ``step_generator(seed, state.step)``. Metrics: ``loss``, ``grad_norm`` (before
-    the clip, trainable parameters only) and ``t_mean``, as 0-dim tensors. The JAX
-    step's ``simulate_sp`` (the training-time H-pad) is not ported (ROADMAP.md
-    queue A item 5)."""
+    """The step for one (height, width, num_frames) bucket, of the base model and
+    of the BrushNet variants (the JAX package's ``make_train_step`` and
+    ``make_brushnet_train_step``): ``train_step(state, batch, **draws) -> (state,
+    metrics)``, batch on the model's device; a BrushNet batch also carries
+    x_inpaint (b, 3*NC, T_img, H, W) and mask_inpaint (b, NC, T_img, H, W).
+    Metrics: ``loss``, ``grad_norm`` (before the clip, trainable parameters only)
+    and ``t_mean``, as 0-dim tensors.
 
-    def train_step(state: TrainState, batch: Dict, t: Optional[torch.Tensor] = None,
-                   noise: Optional[torch.Tensor] = None):
-        gen = None if t is not None and noise is not None \
+    What ``draws`` does not hand in is drawn: ``t`` and ``noise`` (and, for the
+    SDE-BrushNet model, ``t_inpaint``) from ``step_generator(seed, step)`` in the
+    order t, t_inpaint, noise; the SDE model's ``cutoff_radius`` and
+    ``inpaint_input_noise`` from ``step_generator(seed, step, 1)``, cutoff first
+    (the JAX step splits its key into the loss's and the model's). The JAX step's
+    ``simulate_sp`` (the training-time H-pad) is not ported (ROADMAP.md queue A
+    item 5)."""
+
+    def train_step(state: TrainState, batch: Dict, **draws):
+        sde = getattr(state.model.cfg, "sde_inpaint", False)
+        loss_draws = ("t", "noise", "t_inpaint") if sde else ("t", "noise")
+        model_draws = ("cutoff_radius", "inpaint_input_noise") if sde else ()
+        unknown = set(draws) - set(loss_draws + model_draws)
+        if unknown:
+            raise TypeError(f"train_step got draws it does not make: {sorted(unknown)}")
+        gen = None if all(draws.get(k) is not None for k in loss_draws) \
             else step_generator(seed, state.step)
+        model_kwargs = None
+        if sde:
+            model_kwargs = {k: draws.get(k) for k in model_draws}
+            if any(v is None for v in model_kwargs.values()):
+                model_kwargs["generator"] = step_generator(seed, state.step, 1)
         state.optimizer.zero_grad()
-        loss, t_used = training_loss(state.model, scheduler, batch, height=height,
-                                     width=width, num_frames=num_frames, dtype=dtype,
-                                     generator=gen, t=t, noise=noise)
+        loss, t_used = training_loss(
+            state.model, scheduler, batch, height=height, width=width,
+            num_frames=num_frames, dtype=dtype, generator=gen, model_kwargs=model_kwargs, **{k: draws.get(k) for k in loss_draws})
         loss.backward()
         grad_norm = state.optimizer.step()
         if state.ema is not None:
@@ -123,8 +163,7 @@ def build_training_multibucket(model: MagicDriveSTDiT3, scheduler: RFLOW, cfg, *
 
     Returns (state, get_step) with ``get_step(height, width, num_frames)``."""
     dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[cfg.get("dtype", "bf16")]
-    mask = trainable_mask(model.named_parameters(), freeze_patterns,
-                          model.cfg.control_depth)
+    mask = trainable_mask(model.named_parameters(), freeze_patterns)
     opt = make_optimizer(
         model.named_parameters(), lr=cfg.get("lr", 8e-5),
         weight_decay=cfg.get("weight_decay", 1e-2), adam_eps=cfg.get("adam_eps", 1e-15),
@@ -153,3 +192,26 @@ def build_training(model, scheduler, cfg, *, height, width, num_frames,
     state, get_step = build_training_multibucket(model, scheduler, cfg,
                                                  freeze_patterns=freeze_patterns, seed=seed)
     return state, get_step(height, width, num_frames)
+
+
+def build_brushnet_training(model, scheduler: RFLOW, cfg, *, height, width, num_frames,
+                            seed: int = 0):
+    """State and step of the BrushNet apps' training over ``model`` (a
+    ``MagicDriveSTDiT3BrushNet``, fp32 masters on their device): only the branch
+    trains (``lora_trainable_mask`` of ``BRUSHNET_EXTRA_TRAINABLE``; the frozen
+    base stops requiring grad), AdamW (lr 5e-5 by default) with the clip, an EMA
+    of every parameter (the frozen ones stay as they are), the SDE loss when the
+    model is the SDE variant. Returns (state, step)."""
+    dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[cfg.get("dtype", "bf16")]
+    mask = lora_trainable_mask(model.named_parameters(), BRUSHNET_EXTRA_TRAINABLE)
+    opt = make_optimizer(
+        model.named_parameters(), lr=cfg.get("lr", 5e-5),
+        weight_decay=cfg.get("weight_decay", 1e-2), adam_eps=cfg.get("adam_eps", 1e-15),
+        grad_clip=cfg.get("grad_clip", 1.0), warmup_steps=cfg.get("warmup_steps", 0),
+        trainable=mask)
+    state = TrainState(step=0, model=model, optimizer=opt,
+                       ema=copy.deepcopy(model).requires_grad_(False))
+    step = make_train_step(
+        scheduler, height=height, width=width, num_frames=num_frames, dtype=dtype,
+        ema_decay=cfg.get("ema_decay", 0.99), ema_mask=mask, seed=seed)
+    return state, step

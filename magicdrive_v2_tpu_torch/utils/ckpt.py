@@ -80,6 +80,18 @@ _SCAN_SEGMENTS = {
 }
 
 
+def scanned_group(layer_list: str, index: int, control_depth: int,
+                  brushnet: bool) -> Optional[Tuple[str, str]]:
+    """(group, block) of the JAX package's scanned tree that holds block ``index``
+    of the port's ``layer_list`` (``_SCAN_SEGMENTS`` read backwards; the BrushNet
+    models' groups when ``brushnet``), or None for a list that is not scanned."""
+    for (group, block), (name, offset) in _SCAN_SEGMENTS.items():
+        if (name == layer_list and group.startswith("brush_") == brushnet
+                and offset == (index >= control_depth)):
+            return group, block
+    return None
+
+
 def _rewrite_segment(seg: str) -> str:
     for pat, repl in _NAME_REWRITES:
         if pat.match(seg):
@@ -134,6 +146,31 @@ def from_jax_params(tree: Any, control_depth: int = 13) -> Dict[str, np.ndarray]
         else:
             for i in range(arr.shape[0]):
                 out[key.format(i=base + i)] = _to_torch_layout(key, arr[i])
+    return out
+
+
+def lora_from_jax(tree: Any, control_depth: int = 13) -> Dict[str, Dict[str, np.ndarray]]:
+    """The JAX package's LoRA adapter tree (``{..., "kernel": {"a", "b"}}``, a
+    leading layer axis on scanned groups) -> ``{port weight name: {"a": (r, in),
+    "b": (out, r)}}``, one entry per block. Both layouts are torch's, so the
+    arrays carry over as they are."""
+    root = tree.get("params", tree)
+    out: Dict[str, Dict[str, np.ndarray]] = {}
+
+    def walk(node, path):
+        if set(node) == {"a", "b"}:
+            key, base = _torch_key(path, control_depth)
+            a, b = np.array(node["a"]), np.array(node["b"])
+            if base is None:
+                out[key] = {"a": a, "b": b}
+            else:
+                for i in range(a.shape[0]):
+                    out[key.format(i=base + i)] = {"a": a[i], "b": b[i]}
+            return
+        for k, v in node.items():
+            walk(v, path + (k,))
+
+    walk(root, ())
     return out
 
 

@@ -20,6 +20,8 @@ from typing import Dict, Iterable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .ckpt import scanned_group
+
 # ---------------------------------------------------------------------------
 # trainable-parameter mask
 # ---------------------------------------------------------------------------
@@ -29,37 +31,40 @@ import torch
 # did would stay frozen, as in the JAX package.
 BUFFER_PATTERNS = ("base_token", "y_embedding", "class_tokens")
 
-# the port's layer lists -> the scanned groups of the JAX package's tree
-_GROUPS = (("base_blocks_s", "base_s", True), ("base_blocks_t", "base_t", True),
-           ("control_blocks_s", "control_s", False), ("control_blocks_t", "control_t", False))
 
-
-def flax_style_path(name: str, control_depth: int) -> str:
-    """A torch parameter name in the '/'-joined form of the JAX package's
-    parameter paths, which freeze patterns are written against: a block of a
-    layer list becomes its scanned group (``base_blocks_s.3.attn`` ->
-    ``ctrl_layers/base_s/attn`` below ``control_depth``, ``plain_layers/...``
-    from there on), and '.' becomes '/'. Leaf and sub-module names stay the
-    torch ones (``weight``, not ``kernel``)."""
-    parts = name.split(".")
-    for torch_list, group, plain_beyond in _GROUPS:
-        if parts[0] == torch_list and len(parts) > 1 and parts[1].isdigit():
-            scan = "plain_layers" if plain_beyond and int(parts[1]) >= control_depth \
-                else "ctrl_layers"
-            parts = [scan, group] + parts[2:]
-            break
-    return "/".join(parts)
+def flax_style_paths(names: Iterable[str]) -> Dict[str, str]:
+    """{name: path}: every parameter name of one model in the '/'-joined form of
+    the JAX package's parameter paths, which freeze patterns are written against.
+    A block of a layer list becomes its scanned group (``base_blocks_s.3.attn`` ->
+    ``ctrl_layers/base_s/attn`` below the control depth, ``plain_layers/...`` from
+    there on; ``brush_ctrl_layers`` / ``brush_plain_layers`` in a BrushNet model),
+    and '.' becomes '/'. The names tell the layout: the control depth is the
+    length of ``control_blocks_s``, and a model with ``brushnet_blocks_*`` is a
+    BrushNet model. Leaf and sub-module names stay the torch ones (``weight``,
+    not ``kernel``; ``t_inpaint_block/1``, not ``t_inpaint_block_1``)."""
+    names = list(names)
+    control_depth = len({n.split(".")[1] for n in names if n.startswith("control_blocks_s.")})
+    brushnet = any(n.startswith("brushnet_blocks_") for n in names)
+    paths = {}
+    for name in names:
+        parts = name.split(".")
+        if len(parts) > 1 and parts[1].isdigit():
+            group = scanned_group(parts[0], int(parts[1]), control_depth, brushnet)
+            if group is not None:
+                parts = list(group) + parts[2:]
+        paths[name] = "/".join(parts)
+    return paths
 
 
 def trainable_mask(named_params: Iterable[Tuple[str, torch.Tensor]],
-                   freeze_patterns: Sequence[str] = (),
-                   control_depth: int = 13) -> Dict[str, bool]:
-    """{name: trainable}. False for the buffer patterns and for every parameter
-    one of ``freeze_patterns`` is a substring of, matched against
-    ``flax_style_path`` (as the JAX package matches its '/'-joined paths)."""
+                   freeze_patterns: Sequence[str] = ()) -> Dict[str, bool]:
+    """{name: trainable} over every parameter of one model. False for the buffer
+    patterns and for every parameter one of ``freeze_patterns`` is a substring
+    of, matched against ``flax_style_paths`` (as the JAX package matches its
+    '/'-joined paths)."""
     patterns = tuple(freeze_patterns) + BUFFER_PATTERNS
-    return {name: not any(p in flax_style_path(name, control_depth) for p in patterns)
-            for name, _ in named_params}
+    paths = flax_style_paths(name for name, _ in named_params)
+    return {name: not any(p in path for p in patterns) for name, path in paths.items()}
 
 
 # ---------------------------------------------------------------------------

@@ -310,6 +310,13 @@ with tempfile.TemporaryDirectory() as d:
                                    "--device", "cpu", "--max-steps", "1",
                                    "--cfg-options", f"outputs={d}"])
 assert [x["step"] for x in lines] == [1], lines
+# one step of the BrushNet train app, SDE-BrushNet (LoRA mask, train switch)
+from magicdrive_v2_tpu_torch.scripts import train_brushnet
+with tempfile.TemporaryDirectory() as d:
+    lines = train_brushnet.main(["configs/magicdrive/train/brushnet_smoke.py", "--synthetic",
+                                 "--sde", "--device", "cpu", "--max-steps", "1",
+                                 "--cfg-options", f"outputs={d}"])
+assert [x["step"] for x in lines] == [1], lines
 # the data path: a nuScenes-format set through a dataset yaml and the loader, the
 # native host kernels, the W-CODA app's module
 sys.path.insert(0, "tests")

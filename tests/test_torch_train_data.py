@@ -251,7 +251,7 @@ def test_encode_stage_and_two_train_steps_match_jax(assets, tmp_path):
     jstep = jax.jit(JT.make_train_step(jmodel, jsched, tx, height=hh, width=ww,
                                        num_frames=nf, ema_decay=0.99, ema_mask=jmask))
     model = load_into(TModel(mcfg), params, control_depth=mcfg.control_depth).train()
-    tmask = TU.trainable_mask(model.named_parameters(), (), mcfg.control_depth)
+    tmask = TU.trainable_mask(model.named_parameters())
     opt = TU.make_optimizer(model.named_parameters(), trainable=tmask, **hyper)
     state = TT.TrainState(step=0, model=model, optimizer=opt,
                           ema=copy.deepcopy(model).requires_grad_(False))

@@ -161,7 +161,7 @@ def test_two_train_steps_match_jax(setup):
     jb = _jax_batch(batch)
 
     model = _port_model(tcfg, params)
-    tmask = TU.trainable_mask(model.named_parameters(), (), tcfg.control_depth)
+    tmask = TU.trainable_mask(model.named_parameters())
     opt = TU.make_optimizer(model.named_parameters(), trainable=tmask, **hyper)
     state = TT.TrainState(step=0, model=model, optimizer=opt,
                           ema=copy.deepcopy(model).requires_grad_(False))
@@ -216,7 +216,7 @@ def test_trainable_mask_agrees_with_jax(setup, freeze):
     spread = jax.tree_util.tree_map(lambda p, m: np.full(p.shape, m), params, jmask)
     ref = {k: bool(np.all(v)) for k, v in from_jax_params(spread, tcfg.control_depth).items()}
     model = TModel(tcfg)
-    mask = TU.trainable_mask(model.named_parameters(), freeze, tcfg.control_depth)
+    mask = TU.trainable_mask(model.named_parameters(), freeze)
     assert {k: ref[k] for k in mask} == mask
     # JAX's frozen buffers are the port's buffers: never parameters
     assert {k for k, v in ref.items() if k not in mask} == {
@@ -340,13 +340,20 @@ def test_remat_recomputes_each_layer_group_and_changes_no_grad():
 
 
 def test_remat_policies_not_ported_raise():
-    with pytest.raises(NotImplementedError, match="queue A item 2"):
-        _tiny_port(remat_policy="dots")
-    with pytest.raises(NotImplementedError, match="queue A item 2"):
-        _tiny_port(remat_policy="offload_carry")
+    """An unknown remat policy raises; "dots" and "offload_carry" are ported: each
+    builds and runs a backward that reaches every parameter (their grads against
+    "full" are in tests/test_torch_remat.py)."""
     with pytest.raises(ValueError, match="unknown remat_policy"):
         _tiny_port(remat_policy="something")
-    _tiny_port(grad_checkpoint=False, remat_policy="dots")  # no remat: nothing to port
+    for policy in ("dots", "offload_carry"):
+        tcfg, model, batch = _tiny_port(grad_checkpoint=True, remat_policy=policy)
+        loss, _ = TT.training_loss(model, TR.build_scheduler(SCHED), batch, height=HH,
+                                   width=WW, num_frames=NF, dtype=torch.float32,
+                                   t=torch.tensor([400.0]), noise=torch.ones(batch["x"].shape))
+        loss.backward()
+        assert all(p.grad is not None and bool(p.grad.isfinite().all())
+                   for p in model.parameters()), policy
+    _tiny_port(grad_checkpoint=False, remat_policy="dots")  # no remat: plain autograd
 
 
 def test_bf16_compute_params_cast_at_use_with_fp32_grads():
