@@ -13,8 +13,10 @@ card. It imports only ``magicdrive_v2_tpu_torch`` and
                 over a sample of one Euler step, every distinct shape and type
                 the model hands to a kernel's wrapper;
 3. ``kernels``  holds each kernel against its plain PyTorch version on the card
-                (stated limits), in fp32 and bf16, at every shape of phase 2 and
-                at further shapes (the long-sequence regime, ragged tiles), and
+                (stated limits), in fp32 and bf16, at every shape of phase 2, at
+                the shapes of the 848x1600 path (K1 at G=30, N=5600 with 16, 8 and 4
+                heads, K2 (6, 28000, 1152), K3 q (30, 5600, 16, 72)) and at further
+                shapes (the long-sequence regime, ragged tiles), and
                 times kernel, plain version and the nearest PyTorch library
                 call at the main path's shapes (K1 also: its pre-pass alone; K1
                 and K3: the achieved TFLOP/s; K3: its share of the bound and the
@@ -22,13 +24,30 @@ card. It imports only ``magicdrive_v2_tpu_torch`` and
 4. ``slice``    drives the main path: MagicDriveSTDiT3-XL/2 at full width and depth
                 in bf16, six views of 424x800, 17 frames, batched classifier-free
                 guidance, ``MagicDrivePipeline.sample(decode=True)`` for a few
-                requests: 30 Euler steps, then the CogVideoX-2b VAE decode in bf16
+                requests: 10 Euler steps, then the CogVideoX-2b VAE decode in bf16
                 one view at a time, with seeded random weights and the
                 ``t5-dummy`` text encoder; checks shape, finiteness, determinism
-                of the decoded video and that the kernels' launch counters moved
-                by the expected amounts; times sampling and decode apart;
+                of the decoded video, that two seeds give two results (with one
+                request: two one-step samples without the decode) and that the
+                kernels' launch counters moved by the expected amounts; times
+                sampling and decode apart;
 5. ``slice_vs_plain``  one forward of the same model at reduced depth in fp32 with
                 the kernels against one with their plain versions;
+5a. ``sp848``   the fullx848x1600 config (sp_size 8, force_pad_h_for_sp_size 8,
+                rflow-slice, VAE tiling) through ``MagicDrivePipeline.from_config``
+                in one process of an NCCL group of one, so it runs unsharded with
+                the fsp8 pad (S=5600): XL/2 full width and depth, bf16, 6 views, 17
+                frames, 2 steps, ``sample(decode=True)``, a rerun of the seed
+                bit-equal; s/step, decode s, peak memory, launches, the shapes
+                each wrapper was handed;
+5b. ``sp_ranks`` sequence parallelism across processes: 4 ranks (gloo on one
+                card, NCCL where the host has a card a rank) run XL/2 at full width,
+                depth 2 / control 1, 6x848x1600x17f at sp=4 (mesh (1, 4)) and sp=2
+                (mesh (2, 2)) in fp32 and bf16, and 424x800 at sp=4 (the sp pad),
+                each against the unsharded forward; then ``sp_vae`` of 6 views
+                over the 4 ranks against the direct decode; last, every shape the
+                ranks handed a wrapper is held against its plain version as in
+                phase 3;
 6. ``grads``    training's gradients: XL/2 at full width and depth 2/1, stage-2
                 bucket (4 samples, six views of 224x400, 17 frames), one
                 ``training_loss`` backward through the kernels against one through
@@ -38,7 +57,7 @@ card. It imports only ``magicdrive_v2_tpu_torch`` and
                 every shape the step hands it, and each backward's time;
 7. ``train``    the trainer: XL/2 at full width and depth from the stage-2 config
                 (``configs/magicdrive/train/stage2_17x224x400.py``: batch 4, remat,
-                bf16 over fp32 masters, AdamW, EMA 0.99), 4 steps, the first one
+                bf16 over fp32 masters, AdamW, EMA 0.99), 2 steps, the first one
                 untimed; finite loss and grad norm, moved parameters, the EMA
                 identity, launch counters equal to the remat layout's; s/step,
                 samples/s, tokens/s, peak memory; then the train app on the tiny
@@ -55,7 +74,7 @@ card. It imports only ``magicdrive_v2_tpu_torch`` and
                 of 41 frames at 12 Hz, six 1600x900 JPEG views a frame, 3-20 boxes
                 of the ten classes), builds the 224x400 and 424x800 pipelines from
                 the dataset yamls through the port's composition, and times a clip
-                and 3 batches of 4 through the threaded loader; requires the native
+                and 2 batches of 4 through the threaded loader; requires the native
                 polygon fill (timed on the BEV object layers);
 11. ``test_app`` the W-CODA test app (``scripts.test_magicdrive``) on a config
                 whose ``_base_`` is the 424x800 inference config, with a dataset on
@@ -64,7 +83,7 @@ card. It imports only ``magicdrive_v2_tpu_torch`` and
                 launch counters; host and device seconds apart;
 12. ``train_data`` the train app on a config whose ``_base_`` is the stage-2 config,
                 with a dataset on that set: XL/2 at full width and depth, b=4,
-                remat, the bf16 CogVideoX-2b VAE encode in front of every step, 3
+                remat, the bf16 CogVideoX-2b VAE encode in front of every step, 2
                 steps (the first untimed): s/step, VAE-encode s/step, loader wait,
                 peak memory, launch counters;
 13. ``brushnet_vs_plain``  XL/2-SDEBrushNet at full width, depth 2 / control
@@ -93,7 +112,7 @@ card. It imports only ``magicdrive_v2_tpu_torch`` and
                 from the graph;
 18. ``brushnet_train``  the BrushNet trainer at full width and depth in the
                 stage-2 bucket and settings (b=4, remat, bf16 over fp32 masters,
-                AdamW, EMA 0.99): XL/2-SDEBrushNet, 4 steps (the SDE loss, the cutoff
+                AdamW, EMA 0.99): XL/2-SDEBrushNet, 2 steps (the SDE loss, the cutoff
                 jitter), then ``brushnet_train_plain``: the BrushNet type, 2 steps;
                 the frozen base and its EMA bit-equal after the steps, every branch
                 tensor moved, the EMA identity, launches and backwards as derived;
@@ -103,13 +122,20 @@ card. It imports only ``magicdrive_v2_tpu_torch`` and
                 state on the card, one untimed and 3 timed (median, spread); grads
                 against ``full``'s, peak memory, bytes sent to the host;
 20. ``brushnet_train_app``  the BrushNet train app on the tiny config, with and
-                without ``--sde``, 2 steps; its checkpoint read back strictly.
+                without ``--sde``, 2 steps; its checkpoint read back strictly;
+21. ``app848``  (after phase 12) the W-CODA app on the 848x1600 config
+                (``configs/magicdrive/test/17-16x848x1600_map0_fsp4_cfg2.0.py``,
+                rflow-slice) over the generated set through the 848x1600 dataset
+                yaml, 2 steps, ``image_filename`` frames read back; launch counters;
+                every shape it handed a wrapper held against its plain version as
+                in phase 3 (``app848_kernel_cases``).
 
 Every phase prints one JSON line. Any failure raises: the exit code is then not
 0 and no result line is printed. Without a card the script exits with code 1.
 
-Options (none needed): ``--steps N`` sampling steps (default 30), ``--requests N``
-(default 2), ``--seed S`` weights seed, ``--profile`` to add ``profile`` phases
+Options (none needed): ``--steps N`` sampling steps of phase slice (default 10),
+``--requests N``
+(default 1), ``--seed S`` weights seed, ``--profile`` to add ``profile`` phases
 (device time by kernel over one Euler step, over the decode of one view and over
 one train step, from torch.profiler).
 
@@ -130,6 +156,8 @@ import sys
 import tempfile
 import time
 import weakref
+
+STARTED = time.time()
 
 # data-sheet peaks of an H100 SXM: dense bf16 tensor-core rate, fp32 CUDA-core
 # rate, device-memory rate. Bounds below are arithmetic on these, not measurements.
@@ -176,7 +204,9 @@ def require(ok, what):
 
 
 def emit(phase, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase's JSON line; ``wall_s``: seconds since the script started."""
+    print(json.dumps({"phase": phase, **fields, "wall_s": time.time() - STARTED}),
+          flush=True)
 
 
 def time_ms(torch, fn, iters):
@@ -267,8 +297,138 @@ K3_BRANCH_CASES = ((2, 300, 2000, 4, 72), (2, 130, 400, 2, 144), (1, 70, 4000, 2
                    (1, 70, 4000, 2, 16), (2, 850, 150, 4, 72))
 
 
+def sp848_shapes(torch):
+    """The shapes and types phase sp848 hands each wrapper (besides
+    ``encode_conditions``'s, which the 424x800 path's share): one pass of
+    rflow-slice, b=1, 6 views x 5 latent frames, S = 5600 tokens (53 x 100 padded to
+    56 x 100), 16 heads of 72, width 1152; keyed as ``recorded_shapes`` keys them."""
+    k1 = {((30, 5600, 3, 16, 72), torch.bfloat16, True, 1): None,
+          ((30, 5600, 3, 16, 72), torch.bfloat16, True, 2): cross_view_perm(5)}
+    k2 = {((6, 28000, 1152), torch.bfloat16)}
+    return k1, k2
+
+
+def sp848_k3(l_cond):
+    """K3's shapes on that path: the condition cross-attention, and the temporal
+    transformers of ``encode_conditions`` at b=1 (head dim 144 over the 17 frames:
+    b*NC*L_BOX box sequences and b*NC camera-pose sequences)."""
+    import torch
+    return {((30, 5600, 16, 72), l_cond, torch.bfloat16),
+            ((60, 17, 8, 144), 17, torch.bfloat16), ((6, 17, 8, 144), 17, torch.bfloat16)}
+
+
+def perm_sources(kv_perm):
+    """J, the k/v sources a K1 call sums over: 1 without ``kv_perm`` or with a (G,)
+    one, else its first dim."""
+    import numpy as np
+    return 1 if kv_perm is None or np.ndim(kv_perm) == 1 else len(kv_perm)
+
+
+def no_shapes():
+    """An empty record for ``recorded_shapes``."""
+    return {"fused_qkv_attention": {}, "adaln_modulate": set(), "flash_attention": set()}
+
+
+class HeldCases:
+    """Each kernel's wrapper against its plain version on the card, case by case,
+    within the limits of ``compare``; remembers every shape and type it held, keyed
+    as ``recorded_shapes`` keys them, so that a path's shapes can be held after it
+    ran (``hold``)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.gen = torch.Generator(device="cpu").manual_seed(0)
+        self.cases = []
+        self.worst = {"fused_qkv_attention": 0.0, "adaln_modulate": 0.0,
+                      "flash_attention": 0.0}
+        self.held = {name: set() for name in self.worst}
+
+    def randn(self, *shape, dtype):
+        return self.torch.randn(*shape, generator=self.gen).to("cuda", dtype)
+
+    def judge(self, kernel, out, ref, slack, **what):
+        self.torch.cuda.synchronize()
+        err, ratio, rms_ratio, rms = compare(self.torch, out, ref, slack)
+        self.cases.append(dict(kernel=kernel, **what, dtype=str(out.dtype), max_abs_err=err,
+                               ref_rms=rms, err_over_limit=ratio, rms_err_over_limit=rms_ratio))
+        require(ratio <= 1.0 and rms_ratio <= 1.0, self.cases[-1])
+        self.worst[kernel] = max(self.worst[kernel], err)
+
+    def k1(self, G, N, H, D, dtype, norm, perm, path=None):
+        from magicdrive_v2_tpu_torch.ops import fused_qkv_attention, fused_qkv_attention_plain
+        torch = self.torch
+        J = perm_sources(perm)
+        key = ((G, N, 3, H, D), dtype, norm, J)
+        if key in self.held["fused_qkv_attention"]:
+            return
+        self.held["fused_qkv_attention"].add(key)
+        qkv = self.randn(G, N, 3, H, D, dtype=dtype)
+        qw = kw = None
+        if norm:
+            qw = (torch.randn(D, generator=self.gen) * 0.1 + 1).cuda()
+            kw = (torch.randn(D, generator=self.gen) * 0.1 + 1).cuda()
+        # the plain version's fp32 logits at most ~2 GiB a chunk of groups
+        chunk = max(1, min(G, 6, 2 ** 31 // (H * N * N * 4)))
+        out = fused_qkv_attention(qkv, qw, kw, perm)
+        ref = fused_qkv_attention_plain(qkv, qw, kw, perm, group_chunk=chunk)
+        slack = None
+        if dtype == torch.bfloat16:  # sum_m p_m |v_m|, summed over the sources too
+            qkv[:, :, 2].abs_()
+            slack = 2.0 ** -7 * fused_qkv_attention_plain(
+                qkv, qw, kw, perm, group_chunk=chunk).float()
+        self.judge("fused_qkv_attention", out, ref, slack, shape=[G, N, H, D], J=J,
+                   norm=norm, path=path)
+
+    def k2(self, B, n, C, dtype, path=None):
+        from magicdrive_v2_tpu_torch.ops import adaln_modulate, adaln_modulate_plain
+        key = ((B, n, C), dtype)
+        if key in self.held["adaln_modulate"]:
+            return
+        self.held["adaln_modulate"].add(key)
+        x = self.randn(B, n, C, dtype=dtype) * 3 + 0.5
+        sh, sc = self.randn(B, C, dtype=dtype), self.randn(B, C, dtype=dtype)
+        self.judge("adaln_modulate", adaln_modulate(x, sh, sc),
+                   adaln_modulate_plain(x, sh, sc), ADALN_SLACK, shape=[B, n, C], path=path)
+
+    def k3(self, B, n, M, H, D, dtype, path=None):
+        from magicdrive_v2_tpu_torch.ops import flash_attention, flash_attention_plain
+        key = ((B, n, H, D), M, dtype)
+        if key in self.held["flash_attention"]:
+            return
+        self.held["flash_attention"].add(key)
+        q = self.randn(B, n, H, D, dtype=dtype)
+        kv = self.randn(B, M, 2, H, D, dtype=dtype)  # k and v as views of one projection
+        k, v = kv[:, :, 0], kv[:, :, 1]
+        slack = None
+        if dtype == self.torch.bfloat16:
+            slack = 2.0 ** -7 * flash_attention_plain(q, k, v.abs()).float()
+        self.judge("flash_attention", flash_attention(q, k, v), flash_attention_plain(q, k, v),
+                   slack, shape=[B, n, M, H, D], path=path)
+
+    def hold(self, seen, path):
+        """Every shape in ``seen`` (a record of ``recorded_shapes``) in fp32 and in
+        bf16, those not held yet; then every recorded key is a held one. Returns the
+        cases this call added."""
+        torch = self.torch
+        first = len(self.cases)
+        for dtype in (torch.float32, torch.bfloat16):
+            for (shape, _, norm, _), perm in sorted(seen["fused_qkv_attention"].items(),
+                                                    key=str):
+                self.k1(shape[0], shape[1], shape[3], shape[4], dtype, norm, perm, path)
+            for shape, _ in sorted(seen["adaln_modulate"], key=str):
+                self.k2(*shape, dtype, path)
+            for qshape, m, _ in sorted(seen["flash_attention"], key=str):
+                self.k3(qshape[0], qshape[1], m, qshape[2], qshape[3], dtype, path)
+        require(set(seen["fused_qkv_attention"]) <= self.held["fused_qkv_attention"]
+                and seen["adaln_modulate"] <= self.held["adaln_modulate"]
+                and seen["flash_attention"] <= self.held["flash_attention"], (path, seen))
+        return self.cases[first:]
+
+
 def check_kernels(torch, seen, l_cond):
-    """``seen``: what ``recorded_shapes`` noted on the main path."""
+    """``seen``: what ``recorded_shapes`` noted on the main path; the 848x1600
+    path's shapes (``sp848_shapes``) are held too. Returns the timings and the
+    ``HeldCases`` that later phases add their paths' shapes to."""
     import torch.nn.functional as F
     from magicdrive_v2_tpu_torch.ops import (adaln_modulate, adaln_modulate_plain,
                                              flash_attention, flash_attention_plain,
@@ -276,56 +436,35 @@ def check_kernels(torch, seen, l_cond):
                                              fused_qkv_attention_plain)
     from magicdrive_v2_tpu_torch.ops.flash_attention import attend_bf16, plan_bf16
     dev = "cuda"
-    gen = torch.Generator(device="cpu").manual_seed(0)
+    held = HeldCases(torch)
+    gen, randn = held.gen, held.randn
     both = (torch.float32, torch.bfloat16)
-    cases = []
-    worst_err = {"fused_qkv_attention": 0.0, "adaln_modulate": 0.0, "flash_attention": 0.0}
-
-    def randn(*shape, dtype):
-        return torch.randn(*shape, generator=gen).to(dev, dtype)
-
-    def judge(kernel, out, ref, slack, **what):
-        torch.cuda.synchronize()
-        err, ratio, rms_ratio, rms = compare(torch, out, ref, slack)
-        cases.append(dict(kernel=kernel, **what, dtype=str(out.dtype), max_abs_err=err,
-                          ref_rms=rms, err_over_limit=ratio, rms_err_over_limit=rms_ratio))
-        require(ratio <= 1.0 and rms_ratio <= 1.0, cases[-1])
-        worst_err[kernel] = max(worst_err[kernel], err)
 
     # ---- K1 fused qkv attention
-    def run_k1(G, N, H, D, dtype, norm, perm, main_path=False):
-        qkv = randn(G, N, 3, H, D, dtype=dtype)
-        qw = kw = None
-        if norm:
-            qw = (torch.randn(D, generator=gen) * 0.1 + 1).to(dev)
-            kw = (torch.randn(D, generator=gen) * 0.1 + 1).to(dev)
-        J = 1 if perm is None or torch.as_tensor(perm).ndim == 1 else len(perm)
-        out = fused_qkv_attention(qkv, qw, kw, perm)
-        ref = fused_qkv_attention_plain(qkv, qw, kw, perm, group_chunk=min(G, 6))
-        slack = None
-        if dtype == torch.bfloat16:  # sum_m p_m |v_m|, summed over the sources too
-            qkv[:, :, 2].abs_()
-            slack = 2.0 ** -7 * fused_qkv_attention_plain(
-                qkv, qw, kw, perm, group_chunk=min(G, 6)).float()
-        judge("fused_qkv_attention", out, ref, slack, shape=[G, N, H, D],
-              J=J, norm=norm, main_path=main_path)
-
+    SP848_K1, SP848_K2 = sp848_shapes(torch)
     G, N, H, D = 60, 1350, 16, 72
     main_k1 = {((G, N, 3, H, D), torch.bfloat16, True, J) for J in (1, 2)}
     require(main_k1 <= set(seen["fused_qkv_attention"]), sorted(map(str, seen["fused_qkv_attention"])))
     for (shape, _, norm, _), perm in sorted(seen["fused_qkv_attention"].items(), key=str):
         for dtype in both:
-            run_k1(shape[0], shape[1], shape[3], shape[4], dtype, norm, perm, main_path=True)
+            held.k1(shape[0], shape[1], shape[3], shape[4], dtype, norm, perm, path="sample")
     for dtype in both:
         for norm in (True, False):
             # N=1350 (424x800) and N=5300 (848x1600): the regimes of the three TPU bodies
-            run_k1(6, 1350, 16, 72, dtype, norm, None)
-            run_k1(6, 1350, 16, 72, dtype, norm, cross_view_perm(1))
-            run_k1(2, 5300, 16, 72, dtype, norm, None)
-        run_k1(6, 5300, 16, 72, dtype, True, cross_view_perm(1))
+            held.k1(6, 1350, 16, 72, dtype, norm, None)
+            held.k1(6, 1350, 16, 72, dtype, norm, cross_view_perm(1))
+            held.k1(2, 5300, 16, 72, dtype, norm, None)
+        held.k1(6, 5300, 16, 72, dtype, True, cross_view_perm(1))
         # ragged tiny shapes: last q and k tiles partial, head dims below the tile widths
-        run_k1(3, 70, 2, 8, dtype, True, [[1, 2, 0], [2, 0, 1]])
-        run_k1(2, 130, 3, 24, dtype, True, [1, 0])
+        held.k1(3, 70, 2, 8, dtype, True, [[1, 2, 0], [2, 0, 1]])
+        held.k1(2, 130, 3, 24, dtype, True, [1, 0])
+        # the 848x1600 path (phase sp848): G = 30 (6 views x 5 latent frames, one pass
+        # of rflow-slice), N = 5600 (the fsp8 pad), spatial and cross-view; and the
+        # heads a rank of the fsp8 config holds at sp=2 and sp=4: 8 and 4
+        for (shape, _, norm, _), perm in sorted(SP848_K1.items(), key=str):
+            held.k1(shape[0], shape[1], shape[3], shape[4], dtype, norm, perm, path="sp848")
+        for heads in (8, 4):
+            held.k1(30, 5600, heads, 72, dtype, True, None)
 
     # timing at the main path's shapes, bf16: G = 60 groups of N = 1350 tokens
     qkv = randn(G, N, 3, H, D, dtype=torch.bfloat16)
@@ -373,23 +512,45 @@ def check_kernels(torch, seen, l_cond):
     k1["library_ms_n5300_g12"] = time_ms(
         torch, lambda: F.scaled_dot_product_attention(ql, kl, vl), 2)
     del ql, kl, vl, qkv, qkv_l, q_, k_, v_, kv_src
+    # the blocked regime (K1b / K1c) on the 848x1600 path: G = 30, N = 5600, the heads
+    # of one rank at sp = 1, 2, 4; cross-view at 16 heads
+    k1["n5600_g30"] = {}
+    perm30 = torch.from_numpy(cross_view_perm(5)).to(dev)
+    for heads, p30 in ((16, None), (8, None), (4, None), (16, perm30)):
+        qkv_s = randn(30, 5600, 3, heads, D, dtype=torch.bfloat16)
+        J = 1 if p30 is None else 2
+        row = dict(ms=time_ms(torch, lambda: fused_qkv_attention(qkv_s, qw, qw, p30), 2),
+                   plain_ms=time_ms(torch, lambda: fused_qkv_attention_plain(
+                       qkv_s, qw, qw, p30, group_chunk=1), 1))
+        qs, ks, vs = (qkv_s[:, :, i].transpose(1, 2) for i in range(3))
+        if p30 is None:
+            row["library_ms"] = time_ms(
+                torch, lambda: F.scaled_dot_product_attention(qs, ks, vs), 2)
+        else:
+            src = [(ks[p30[j].long()], vs[p30[j].long()]) for j in range(2)]
+            row["library_ms"] = time_ms(
+                torch, lambda: F.scaled_dot_product_attention(qs, *src[0])
+                + F.scaled_dot_product_attention(qs, *src[1]), 2)
+            del src
+        fl = J * 4.0 * 30 * heads * 5600 * 5600 * D
+        row["bound_ms"], row["bound_by"] = bound(
+            fl, 2.0 * (qkv_s.numel() + 30 * 5600 * heads * D), PEAK_BF16)
+        row["tflops"] = fl / (row["ms"] * 1e9)
+        k1["n5600_g30"][f"h{heads}" + ("_cross_view" if J == 2 else "")] = row
+        del qkv_s, qs, ks, vs
 
     # ---- K2 adaLN modulate
-    def run_k2(B, n, C, dtype, main_path=False):
-        x = randn(B, n, C, dtype=dtype) * 3 + 0.5
-        sh, sc = randn(B, C, dtype=dtype), randn(B, C, dtype=dtype)
-        judge("adaln_modulate", adaln_modulate(x, sh, sc), adaln_modulate_plain(x, sh, sc),
-              ADALN_SLACK, shape=[B, n, C], main_path=main_path)
-
     B, n, C = 12, 6750, 1152
     require(((B, n, C), torch.bfloat16) in seen["adaln_modulate"],
             sorted(map(str, seen["adaln_modulate"])))
     for dtype in both:
         for shape, _ in sorted(seen["adaln_modulate"], key=str):
-            run_k2(*shape, dtype, main_path=True)
+            held.k2(*shape, dtype, path="sample")
+        for shape, _ in sorted(SP848_K2, key=str):
+            held.k2(*shape, dtype, path="sp848")
         # the tiny configuration's width, the widest row and the narrowest
         for shape in ((2, 37, 64), (2, 5, 1280), (3, 9, 8)):
-            run_k2(*shape, dtype)
+            held.k2(*shape, dtype)
     x = randn(B, n, C, dtype=torch.bfloat16)
     sh, sc = randn(B, C, dtype=torch.bfloat16), randn(B, C, dtype=torch.bfloat16)
     k2 = dict(
@@ -400,32 +561,34 @@ def check_kernels(torch, seen, l_cond):
                            * (1 + sc[:, None]) + sh[:, None], 5))
     k2["bound_ms"], k2["bound_by"] = bound(8.0 * x.numel(), 2.0 * (2 * x.numel() + 2 * B * C),
                                            PEAK_FP32)
+    # the 848x1600 path's shape (phase sp848)
+    x = randn(6, 28000, C, dtype=torch.bfloat16)
+    sh, sc = randn(6, C, dtype=torch.bfloat16), randn(6, C, dtype=torch.bfloat16)
+    k2["x_6_28000"] = dict(
+        ms=time_ms(torch, lambda: adaln_modulate(x, sh, sc), 20),
+        plain_ms=time_ms(torch, lambda: adaln_modulate_plain(x, sh, sc), 3),
+        library_ms=time_ms(torch, lambda: F.layer_norm(x, (C,), eps=1e-6)
+                           * (1 + sc[:, None]) + sh[:, None], 5))
+    k2["x_6_28000"]["bound_ms"], k2["x_6_28000"]["bound_by"] = bound(
+        8.0 * x.numel(), 2.0 * (2 * x.numel() + 2 * 6 * C), PEAK_FP32)
     del x
 
     # ---- K3 flash attention: the condition cross-attention's shapes
-    def run_k3(B, n, M, H_, D_, dtype, main_path=False):
-        q = randn(B, n, H_, D_, dtype=dtype)
-        kv = randn(B, M, 2, H_, D_, dtype=dtype)  # k and v as views of one projection
-        k, v = kv[:, :, 0], kv[:, :, 1]
-        slack = None
-        if dtype == torch.bfloat16:
-            slack = 2.0 ** -7 * flash_attention_plain(q, k, v.abs()).float()
-        judge("flash_attention", flash_attention(q, k, v), flash_attention_plain(q, k, v),
-              slack, shape=[B, n, M, H_, D_], main_path=main_path)
-
     B, n, M = 60, 1350, l_cond
     require(((B, n, H, D), M, torch.bfloat16) in seen["flash_attention"],
             sorted(map(str, seen["flash_attention"])))
     for dtype in both:
         for (qshape, m, _) in sorted(seen["flash_attention"], key=str):
-            run_k3(qshape[0], qshape[1], m, qshape[2], qshape[3], dtype, main_path=True)
+            held.k3(qshape[0], qshape[1], m, qshape[2], qshape[3], dtype, path="sample")
+        for (qshape, m, _) in sorted(sp848_k3(l_cond), key=str):
+            held.k3(qshape[0], qshape[1], m, qshape[2], qshape[3], dtype, path="sp848")
         # the cross-attention's other layout (one condition sequence for all frames),
         # a ragged key length, tiny heads
         for shape in ((12, 6750, l_cond, 16, 72), (3, 1350, 77, 16, 72),
                       (2, 50, 13, 2, 8), (2, 77, 200, 4, 16)):
-            run_k3(*shape, dtype)
+            held.k3(*shape, dtype)
         for shape in K3_BRANCH_CASES:
-            run_k3(*shape, dtype)
+            held.k3(*shape, dtype)
     q = randn(B, n, H, D, dtype=torch.bfloat16)
     kv = randn(B, M, 2, H, D, dtype=torch.bfloat16)
     kk, vv = kv[:, :, 0], kv[:, :, 1]
@@ -441,6 +604,18 @@ def check_kernels(torch, seen, l_cond):
     k3["bound_ms"], k3["bound_by"] = bound(flops, 2.0 * (2 * q.numel() + kv.numel()), PEAK_BF16)
     k3["tflops"] = flops / (k3["ms"] * 1e9)
     k3["bound_share"] = k3["bound_ms"] / k3["ms"]
+    # the 848x1600 path's shape (phase sp848): q (30, 5600, 16, 72)
+    q8 = randn(30, 5600, H, D, dtype=torch.bfloat16)
+    kv8 = randn(30, M, 2, H, D, dtype=torch.bfloat16)
+    k8, v8 = kv8[:, :, 0], kv8[:, :, 1]
+    row = dict(ms=time_ms(torch, lambda: flash_attention(q8, k8, v8), 10),
+               plain_ms=time_ms(torch, lambda: flash_attention_plain(q8, k8, v8), 2),
+               library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                   q8.transpose(1, 2), k8.transpose(1, 2), v8.transpose(1, 2)), 10))
+    fl = 4.0 * 30 * H * 5600 * M * D
+    row["bound_ms"], row["bound_by"] = bound(fl, 2.0 * (2 * q8.numel() + kv8.numel()), PEAK_BF16)
+    k3["q_30_5600"] = row
+    del q8, kv8, k8, v8
     # every q-tiles-per-block setting of the launch plan, each bit-equal to the
     # wrapper's output (a q row's arithmetic does not depend on the run)
     ref = flash_attention(q, kk, vv)
@@ -452,14 +627,11 @@ def check_kernels(torch, seen, l_cond):
             torch, lambda: attend_bf16(q, kk, vv, D ** -0.5, p_run), 10)
     del q, kv, ref
     torch.cuda.empty_cache()
-    k1["max_abs_err"] = worst_err["fused_qkv_attention"]
-    k2["max_abs_err"] = worst_err["adaln_modulate"]
-    k3["max_abs_err"] = worst_err["flash_attention"]
     emit("kernel_cases", fp32_limit=FP32_LIMIT,
          bf16_limit="every element 2**-7 * |ref| + slack, slack = 2**-7 * sum p|v| "
                     f"(attention) or {ADALN_SLACK} (adaLN); and rms(err) <= 2**-6 * rms(ref)",
-         cases=cases)
-    return {"fused_qkv_attention": k1, "adaln_modulate": k2, "flash_attention": k3}
+         cases=held.cases)
+    return {"fused_qkv_attention": k1, "adaln_modulate": k2, "flash_attention": k3}, held
 
 
 # ---------------------------------------------------------------------------
@@ -651,7 +823,7 @@ def recorded_shapes(seen):
     k1, k2, k3 = (getattr(mod, name) for mod, name in patch_points())
 
     def rec_k1(qkv, qw, kw, kv_perm=None, scale=None):
-        J = 1 if kv_perm is None else len(kv_perm)
+        J = perm_sources(kv_perm)
         seen["fused_qkv_attention"].setdefault(
             (tuple(qkv.shape), qkv.dtype, qw is not None, J), kv_perm)
         return k1(qkv, qw, kw, kv_perm, scale)
@@ -719,7 +891,7 @@ def build_slice(torch, steps, seed):
     # the shapes of the main path: one sample of a single Euler step (batched
     # classifier-free guidance doubles the batch of the forward above)
     cond = {k: batch[k] for k in ("y", "maps", "bbox", "cams", "rel_pos", "fps")}
-    seen = {"fused_qkv_attention": {}, "adaln_modulate": set(), "flash_attention": set()}
+    seen = no_shapes()
     scheduler, pipe.scheduler = pipe.scheduler, build_scheduler(rflow(num_sampling_steps=1))
     reset_counters()
     with recorded_shapes(seen):
@@ -787,6 +959,17 @@ def run_slice(torch, pipe, cond, per_forward, encode_launches, l_cond, steps, re
         videos.append(v)
     if requests > 1:
         require(float((videos[0] - videos[1]).abs().max()) > 1e-3, "seeds gave one result")
+    else:  # two seeds through a one-step sample, without the decode: they differ
+        from magicdrive_v2_tpu_torch.config.presets import rflow
+        from magicdrive_v2_tpu_torch.schedulers.rf import build_scheduler
+        scheduler, pipe.scheduler = pipe.scheduler, build_scheduler(rflow(num_sampling_steps=1))
+        try:
+            one_step = [pipe.sample(cond, num_frames=NUM_FRAMES, height=HEIGHT, width=WIDTH,
+                                    torch_seed=seed, decode=False) for seed in (1024, 1025)]
+        finally:
+            pipe.scheduler = scheduler
+        require(float((one_step[0] - one_step[1]).abs().max()) > 1e-3, "seeds gave one result")
+        del one_step
 
     # determinism: the first request again, bit for bit, decoded video included
     v_again = pipe.sample(cond, num_frames=NUM_FRAMES, height=HEIGHT, width=WIDTH,
@@ -867,6 +1050,269 @@ def run_slice_vs_plain(torch, seed):
          output_shape=list(out.shape), max_abs_err=err, ref_max=scale, limit=limit,
          launches=with_kernels)
     require(scale > 1e-3 and err <= limit, (err, scale, limit))
+
+# ---------------------------------------------------------------------------
+# phases sp848, sp_ranks and app848: sequence-parallel serving at 848x1600
+# ---------------------------------------------------------------------------
+
+SP848_CONFIG = "configs/magicdrive/inference/fullx848x1600_stdit3_CogVAE_boxTDS_wCT_xCE_wSST.py"
+APP848_CONFIG = "configs/magicdrive/test/17-16x848x1600_map0_fsp4_cfg2.0.py"
+DATA_YAML_848 = "Nuscenes_400_map_cache_box_t_with_n2t_12Hz_848x1600"
+H848, W848 = 848, 1600
+SP848_STEPS = 2
+SP_RANKS = 4            # processes of phase sp_ranks (meshes (1, 4) and (2, 2))
+SP_RANKS_DEADLINE_S = 420
+# sp_vae's check: 6 views of the 224x400 bucket (4 ranks decode on one card at once)
+SP_VAE_LATENT = (6, 16, 5, TRAIN_HEIGHT // 8, TRAIN_WIDTH // 8)
+
+
+def run_sp848(torch, seed, per_forward, encode_launches, l_cond):
+    """The fullx848x1600 config (sp_size 8, force_pad_h_for_sp_size 8,
+    rflow-slice, VAE tiling 384) through ``from_config`` in one process of an NCCL
+    group of one: fewer ranks than sp_size, so it runs unsharded with the fsp8 pad
+    (S 5300 -> 5600), as the JAX package does with fewer devices. XL/2 at full
+    width and depth in bf16, 6 views, 17 frames (cut from "full"), SP848_STEPS
+    steps, ``sample(decode=True)``; then the same seed again without the decode:
+    the latents bit-equal, and the shapes each wrapper was handed those phase
+    ``kernels`` held (``sp848_shapes``, ``sp848_k3``)."""
+    import torch.distributed as dist
+    from magicdrive_v2_tpu_torch.config.config import Config, merge_dot_options
+    from magicdrive_v2_tpu_torch.parallel.distributed import free_port
+    from magicdrive_v2_tpu_torch.pipelines.magicdrive import MagicDrivePipeline, synthetic_batch
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0, device_id=torch.device("cuda", 0))
+    try:
+        cfg = Config.fromfile(SP848_CONFIG)
+        merge_dot_options(cfg, [f"scheduler.num_sampling_steps={SP848_STEPS}", f"seed={seed}"])
+        t0 = time.time()
+        pipe = MagicDrivePipeline.from_config(cfg, device="cuda")
+        torch.cuda.synchronize()
+        setup_s = time.time() - t0
+    finally:
+        dist.destroy_process_group()
+    mc = pipe.model_cfg
+    require(pipe.mesh is None and not mc.enable_sequence_parallelism
+            and mc.force_pad_h_for_sp_size == 8 and mc.depth == 28 and mc.hidden_size == 1152
+            and pipe.scheduler.slice_cfg and pipe.vae.tiling, (pipe.mesh, mc))
+    require(expected_launches(mc) == per_forward, (expected_launches(mc), per_forward))
+    batch = synthetic_batch(mc, NUM_FRAMES, H848, W848, l_box=L_BOX,
+                            l_txt=pipe.text_encoder.model_max_length)
+    cond = {k: batch[k] for k in ("y", "maps", "bbox", "cams", "rel_pos", "fps")}
+    H, W = -(-H848 // 16), -(-W848 // 16)  # tokens of the latent grid: 53 x 100
+    pad = mc.force_pad_h_for_sp_size - H % mc.force_pad_h_for_sp_size
+    S = (H + pad) * W
+    require(pipe.model._h_pad_size(H, W) == pad and S == 5600, (pad, S))
+    video, seconds, decode_s, latents, got, peak = timed_sample(
+        torch, pipe, cond, height=H848, width=W848, torch_seed=1024)
+    del pipe.decode
+    # rflow-slice: two forwards a step, a condition cache for each
+    want = {k: per_forward[k] * 2 * SP848_STEPS + 2 * encode_launches[k] for k in per_forward}
+    require(got == want, (got, want))
+    require(tuple(video.shape) == (1, 6, 3, NUM_FRAMES, H848, W848) and video.dtype ==
+            torch.float32 and bool(video.isfinite().all()), (video.shape, video.dtype))
+    seen848 = no_shapes()
+    with recorded_shapes(seen848):
+        again = pipe.sample(cond, num_frames=NUM_FRAMES, height=H848, width=W848,
+                            torch_seed=1024, decode=False)
+    require(torch.equal(again, latents), "two runs of one seed differ (latents)")
+    k1_held, k2_held = sp848_shapes(torch)
+    require(set(seen848["fused_qkv_attention"]) == set(k1_held), seen848)
+    require(seen848["adaln_modulate"] == k2_held, seen848)
+    require(seen848["flash_attention"] == sp848_k3(l_cond), seen848)
+    emit("sp848", config=SP848_CONFIG, model="MagicDriveSTDiT3-XL/2", dtype="bfloat16",
+         sp_config=int(cfg.sp_size), sp_run=1, force_pad_h_for_sp_size=8, tokens_per_view=S,
+         scheduler="rflow-slice", views=6, frames=NUM_FRAMES, height=H848, width=W848,
+         steps=SP848_STEPS, vae_tiling=pipe.vae.tiling, setup_seconds=setup_s,
+         seconds_per_step=(seconds - decode_s) / SP848_STEPS, decode_seconds=decode_s,
+         seconds_per_sample_with_decode=seconds, peak_memory_bytes=peak,
+         launches_per_forward=per_forward, launches_per_sample=got, deterministic=True,
+         video_abs_mean=float(video.abs().mean()))
+    del pipe, video, latents, again
+    gc.collect()
+    torch.cuda.empty_cache()
+    return got
+
+
+def sp_ranks_model(torch, seed, dtype=None, **overrides):
+    """XL/2 at full width, depth 2 / control depth 1, fp32, on the current card."""
+    from magicdrive_v2_tpu_torch.models.magicdrive.stdit3 import MagicDriveSTDiT3
+    from magicdrive_v2_tpu_torch.utils.ckpt import init_weights
+    cfg = xl2_config(torch, torch.float32, depth=2, control_depth=1, **overrides)
+    with torch.device("cuda"):
+        model = MagicDriveSTDiT3(cfg).eval()
+    init_weights(model, seed=seed)
+    return model
+
+
+def sp_ranks_cases():
+    """(name, sp, mesh (dp, sp), pixels, dtype name, force_pad) of phase sp_ranks: one
+    forward each, in this order on every rank."""
+    return [("848_sp4_fp32", 4, (1, 4), (H848, W848), "fp32"),
+            ("848_sp2_fp32", 2, (2, 2), (H848, W848), "fp32"),
+            ("424_sp4_fp32", 4, (1, 4), (HEIGHT, WIDTH), "fp32"),
+            ("848_sp4_bf16", 4, (1, 4), (H848, W848), "bf16"),
+            ("848_sp2_bf16", 2, (2, 2), (H848, W848), "bf16")]
+
+
+def sp_rank_worker(torch, out_dir, seed):
+    """One rank of phase sp_ranks (``chip_smoke.py --sp-rank-worker DIR``): joins the
+    group the parent describes (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_*, and the
+    backend in MDV2_SP_BACKEND), runs every case of ``sp_ranks_cases`` sharded over
+    its mesh, then sp_vae; rank 0 writes the outputs, every rank its launches, the
+    K1 shapes of each case and the shapes each wrapper was handed."""
+    import torch.distributed as dist
+    from magicdrive_v2_tpu_torch.models.magicdrive.stdit3 import cast_model
+    from magicdrive_v2_tpu_torch.parallel.distributed import maybe_initialize, shutdown
+    from magicdrive_v2_tpu_torch.parallel.sharding import make_mesh, sp_vae, use_mesh
+    from magicdrive_v2_tpu_torch.pipelines.magicdrive import synthetic_batch
+    backend = os.environ["MDV2_SP_BACKEND"]
+    maybe_initialize("cuda", backend=backend, timeout_s=SP_RANKS_DEADLINE_S)
+    rank = dist.get_rank()
+    try:
+        meshes = {(1, 4): make_mesh(1, 4), (2, 2): make_mesh(2, 2)}
+        model = sp_ranks_model(torch, seed, enable_sequence_parallelism=True)
+        outs, launches, k1_shapes, seen_all = {}, {}, {}, no_shapes()
+        for name, sp, mesh, (h, w), dt in sp_ranks_cases():
+            if dt == "bf16" and model.dtype != torch.bfloat16:
+                cast_model(model, torch.bfloat16)
+            batch = to_card(torch, synthetic_batch(model.cfg, NUM_FRAMES, h, w, l_box=L_BOX))
+            seen = no_shapes()
+            with torch.no_grad(), no_tf32(torch), use_mesh(meshes[mesh]), \
+                    recorded_shapes(seen):
+                reset_counters()
+                out = model(**batch)
+                torch.cuda.synchronize()
+            launches[name] = read_counters()
+            k1_shapes[name] = sorted({k[0] for k in seen["fused_qkv_attention"]})
+            for key, perm in seen["fused_qkv_attention"].items():
+                seen_all["fused_qkv_attention"].setdefault(
+                    key, None if perm is None else torch.as_tensor(perm).cpu())
+            seen_all["adaln_modulate"] |= seen["adaln_modulate"]
+            seen_all["flash_attention"] |= seen["flash_attention"]
+            if rank == 0:
+                outs[name] = out.float().cpu()
+            del out, batch
+        del model
+        torch.cuda.empty_cache()
+        vae = cogvideox_vae(torch, torch.float32, seed + 1)
+        z = torch.randn(SP_VAE_LATENT, generator=torch.Generator().manual_seed(seed)).cuda()
+        with torch.no_grad(), no_tf32(torch):
+            video = sp_vae(z, vae.decode, meshes[(1, 4)])
+        if rank == 0:
+            outs["sp_vae"] = video.float().cpu()
+        torch.save(dict(outputs=outs, launches=launches, k1_shapes=k1_shapes, seen=seen_all,
+                        backend=dist.get_backend(), world_size=dist.get_world_size(),
+                        device=str(torch.cuda.current_device())),
+                   os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        shutdown()
+    return 0
+
+
+def spawn_sp_ranks(n, out_dir, seed):
+    """Starts ``n`` ranks of this script's sp worker (the port's launcher: it fails,
+    and kills every rank, when one fails or they outlive SP_RANKS_DEADLINE_S).
+    Returns the backend used: NCCL with a card a rank where the host has n cards,
+    else gloo with every rank on card 0 (NCCL refuses two ranks on one card)."""
+    import torch
+    from magicdrive_v2_tpu_torch.parallel.distributed import spawn_ranks
+    backend = "nccl" if torch.cuda.device_count() >= n else "gloo"
+    spawn_ranks(n, [os.path.abspath(__file__), "--sp-rank-worker", out_dir, "--seed", str(seed)],
+                SP_RANKS_DEADLINE_S, env={"MDV2_SP_BACKEND": backend},
+                local_ranks=None if backend == "nccl" else [0] * n)
+    return backend
+
+
+def run_sp_ranks(torch, seed, encode_launches, held):
+    """XL/2 at full width, depth 2 / control depth 1: one forward at sp=2 (mesh
+    (2, 2): two sp groups of 2) and one at sp=4 (mesh (1, 4)), 6x848x1600x17f, in
+    fp32 and bf16, and the 424x800 shape at sp=4 (the sp pad: S 1350 -> 1400), in
+    SP_RANKS processes; each against the unsharded forward on the card within
+    phase slice_vs_plain's limits (fp32: 1e-3 x max(1, |ref|max); bf16: rms(sharded
+    - unsharded) <= 2**-6 rms(unsharded) + rms(unsharded bf16 - unsharded fp32)).
+    Then sp_vae of 6 views over the 4 ranks against the direct decode (fp32). Last,
+    every shape a rank handed a wrapper is held against its plain version
+    (``held``: the ``HeldCases`` of phase kernels)."""
+    import numpy as np
+    from magicdrive_v2_tpu_torch.models.magicdrive.stdit3 import cast_model
+    from magicdrive_v2_tpu_torch.pipelines.magicdrive import synthetic_batch
+    refs = {}
+    t0 = time.time()
+    with torch.no_grad(), no_tf32(torch):
+        for force_pad, sizes in ((None, [(H848, W848)]), (4, [(HEIGHT, WIDTH)])):
+            model = sp_ranks_model(torch, seed, force_pad_h_for_sp_size=force_pad)
+            for dt in ("fp32", "bf16") if force_pad is None else ("fp32",):
+                if dt == "bf16":
+                    cast_model(model, torch.bfloat16)
+                for h, w in sizes:
+                    batch = to_card(torch, synthetic_batch(model.cfg, NUM_FRAMES, h, w,
+                                                           l_box=L_BOX))
+                    refs[(h, w, dt)] = model(**batch).float()
+                    del batch
+            del model
+        torch.cuda.empty_cache()
+        vae = cogvideox_vae(torch, torch.float32, seed + 1)
+        z = torch.randn(SP_VAE_LATENT, generator=torch.Generator().manual_seed(seed)).cuda()
+        direct = vae.decode(z).float()
+        del vae, z
+    torch.cuda.synchronize()
+    ref_seconds = time.time() - t0
+    torch.cuda.empty_cache()
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_sp_ranks_")
+    try:
+        t0 = time.time()
+        backend = spawn_sp_ranks(SP_RANKS, out_dir, seed)
+        ranks_seconds = time.time() - t0
+        res = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+               for r in range(SP_RANKS)]
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    rms = lambda x: float(x.square().mean().sqrt())  # noqa: E731
+    per_forward = expected_launches(xl2_config(torch, torch.float32, depth=2, control_depth=1))
+    rows = {}
+    for name, sp, mesh, (h, w), dt in sp_ranks_cases():
+        out, ref = res[0]["outputs"][name].cuda(), refs[(h, w, dt)]
+        require(out.shape == ref.shape and bool(out.isfinite().all()), (name, out.shape))
+        err, scale = max_err(out, ref)
+        row = dict(sp=sp, mesh=list(mesh), pixels=[h, w], max_abs_err=err, ref_max=scale,
+                   k1_qkv_shapes=[list(s) for s in res[0]["k1_shapes"][name]],
+                   launches_rank0=res[0]["launches"][name])
+        heads = {s[3] for s in res[0]["k1_shapes"][name]}
+        require(heads == {16 // sp}, (name, heads))
+        if dt == "fp32":
+            row["limit"] = 1e-3 * max(1.0, scale)
+            require(scale > 1e-3 and err <= row["limit"], (name, row))
+        else:
+            ref32 = refs[(h, w, "fp32")]
+            row["rms_err"] = rms(out - ref)
+            row["rms_limit"] = FORWARD_BF16_RMS_LIMIT * rms(ref) + rms(ref - ref32)
+            require(row["rms_err"] <= row["rms_limit"], (name, row))
+        # every rank launches what one unsharded forward (conditions embedded) does
+        want = {k: n + encode_launches[k] for k, n in per_forward.items()}
+        require(all(r["launches"][name] == want for r in res),
+                (name, want, [r["launches"][name] for r in res]))
+        rows[name] = row
+    video = res[0]["outputs"]["sp_vae"].cuda()
+    err, scale = max_err(video, direct)
+    rows["sp_vae"] = dict(views=SP_VAE_LATENT[0], ranks=SP_RANKS, shape=list(video.shape),
+                          max_abs_err=err, ref_max=scale, limit=1e-3 * max(1.0, scale))
+    require(video.shape == direct.shape and err <= rows["sp_vae"]["limit"], rows["sp_vae"])
+    seen = no_shapes()
+    for r in res:
+        for key, perm in r["seen"]["fused_qkv_attention"].items():
+            seen["fused_qkv_attention"].setdefault(key, perm)
+        seen["adaln_modulate"] |= r["seen"]["adaln_modulate"]
+        seen["flash_attention"] |= r["seen"]["flash_attention"]
+    emit("sp_ranks", backend=backend, world_size=res[0]["world_size"],
+         card_of_each_rank=[r["device"] for r in res], reference_seconds=ref_seconds,
+         ranks_seconds=ranks_seconds, depth=2, control_depth=1, frames=NUM_FRAMES,
+         results=rows, kernel_cases=held.hold(seen, "sp_ranks"))
+    del refs, direct, video
+    torch.cuda.empty_cache()
+    # rank 0's launches over the phase's forwards
+    return {k: sum(res[0]["launches"][name][k] for name, *_ in sp_ranks_cases())
+            for k in per_forward}
+
 
 # ---------------------------------------------------------------------------
 # phases 6 and 7: training
@@ -1154,7 +1600,7 @@ def time_backwards(torch, seen, per_step):
     return rows
 
 
-def run_train(torch, seed, seen, encode_launches, steps=4, with_profile=False):
+def run_train(torch, seed, seen, encode_launches, steps=2, with_profile=False):
     """The trainer at full width and depth from the stage-2 config: ``steps``
     steps, the first untimed (with ``with_profile``, two more, the second under
     torch.profiler); then the Functions' backward times."""
@@ -1540,7 +1986,7 @@ def run_dataset(torch, root):
             t1 = now
             require(batch["pixel_values"].shape[:2] == (4, NUM_FRAMES),
                     batch["pixel_values"].shape)
-            if bi == 2:
+            if bi == 1:
                 break
         pipelines[name] = dict(clips=len(dataset), clip_ms=clip_ms,
                                batch_of_4_ms=batch_ms, map_shape=list(
@@ -1573,10 +2019,13 @@ def write_config(path, lines):
 
 
 def run_test_app(torch, per_forward, encode_launches, ann, root, base_config=APP_CONFIG,
-                 extra_argv=(), phase="test_app"):
-    """The W-CODA test app on the 424x800 config ``base_config`` with a dataset on
-    the generated set, ``extra_argv`` added to its command line; its frames are
-    written under outputs/ in the checkout, read back and removed."""
+                 extra_argv=(), phase="test_app", data_yaml=DATA_YAML_424,
+                 save_mode="all-in-one", seen=None):
+    """The W-CODA test app on the config ``base_config`` with a dataset on the
+    generated set through ``data_yaml``, ``extra_argv`` added to its command line;
+    its frames are written under outputs/ in the checkout in ``save_mode``, read
+    back and removed. Two forwards a step under the config's rflow-slice. With
+    ``seen``, the shapes each wrapper was handed are noted there."""
     from magicdrive_v2_tpu_torch.config.presets import img_collate_param
     from magicdrive_v2_tpu_torch.scripts import test_magicdrive
     from magicdrive_v2_tpu_torch.utils.inference_utils import read_png
@@ -1585,9 +2034,9 @@ def run_test_app(torch, per_forward, encode_launches, ann, root, base_config=APP
     config = os.path.join(root, f"{phase}_config.py")
     write_config(config, {
         "_base_": os.path.abspath(base_config), "num_frames": NUM_FRAMES,
-        "validation_index": [0], "outputs": out_dir, "save_mode": "all-in-one",
+        "validation_index": [0], "outputs": out_dir, "save_mode": save_mode,
         "post": WCODA_POST, "scheduler": {"num_sampling_steps": 2},
-        "dataset": dict(dataset_config(DATA_YAML_424, ann, "val",
+        "dataset": dict(dataset_config(data_yaml, ann, "val",
                                        img_collate_param("all-xyz", is_train=False)))})
     messages = []
     handler = logging.Handler()
@@ -1598,32 +2047,37 @@ def run_test_app(torch, per_forward, encode_launches, ann, root, base_config=APP
     t0 = time.time()
     reset_counters()
     try:
-        saved = test_magicdrive.main([config, "--num-samples", "1", *extra_argv])
+        with (recorded_shapes(seen) if seen is not None else contextlib.nullcontext()):
+            saved = test_magicdrive.main([config, "--num-samples", "1", *extra_argv])
     finally:
         log.removeHandler(handler)
     seconds = time.time() - t0
     got = read_counters()
-    want = {k: per_forward[k] * 2 + encode_launches[k] for k in per_forward}
+    from magicdrive_v2_tpu_torch.config.config import Config
+    passes = 2 if "slice" in Config.fromfile(config).scheduler.type else 1
+    want = {k: passes * (per_forward[k] * 2 + encode_launches[k]) for k in per_forward}
     require(got == want, (got, want))
-    require(len(saved) == 1, len(saved))
-    path, frames = saved[0]
     cut = WCODA_POST["cut_length"]
     out_h = WCODA_POST["resize"][0] + WCODA_POST["padding"][1] + WCODA_POST["padding"][3]
     out_w = WCODA_POST["resize"][1] + WCODA_POST["padding"][0] + WCODA_POST["padding"][2]
-    names = sorted(os.listdir(path))
-    require(names == [f"{i:04d}.png" for i in range(cut)], names)
-    require(frames.shape == (cut, 2 * out_h, 3 * out_w, 3), frames.shape)
+    grid = save_mode == "all-in-one"  # else one video a view
+    require(len(saved) == (1 if grid else 6), len(saved))
     t1 = time.time()
-    for i, name in enumerate(names):
-        require(bool((read_png(os.path.join(path, name)) == frames[i]).all()), name)
+    for path, frames in saved:
+        names = sorted(os.listdir(path))
+        require(names == [f"{i:04d}.png" for i in range(cut)], names)
+        require(frames.shape == ((cut, 2 * out_h, 3 * out_w, 3) if grid
+                                 else (cut, out_h, out_w, 3)), frames.shape)
+        for i, name in enumerate(names):
+            require(bool((read_png(os.path.join(path, name)) == frames[i]).all()), name)
+        require(float(frames.std()) > 1.0, "constant frames")
+        # the zero padding of [-1, 1] frames is mid-grey in the written frames
+        require(bool((frames[:, :WCODA_POST["padding"][1]] == 128).all()), "top padding")
     read_s = time.time() - t1
-    require(float(frames.std()) > 1.0, "constant frames")
-    # the zero padding of [-1, 1] frames is mid-grey in the written frames
-    require(bool((frames[:, :WCODA_POST["padding"][1]] == 128).all()), "top padding")
     shutil.rmtree(out_dir, ignore_errors=True)
     timings = json.loads(next(m for m in messages if m.startswith("timings "))[8:])
-    emit(phase, config=f"_base_ {base_config}, dataset {DATA_YAML_424} val",
-         argv=list(extra_argv),
+    emit(phase, config=f"_base_ {base_config}, dataset {data_yaml} val",
+         argv=list(extra_argv), save_mode=save_mode, videos=len(saved),
          frames=len(names), frame_shape=list(frames.shape[1:]), seconds=seconds,
          host_seconds={k: timings[k] for k in ("setup_s", "load_s", "text_s",
                                                 "back_transform_s", "write_s")},
@@ -1632,7 +2086,7 @@ def run_test_app(torch, per_forward, encode_launches, ann, root, base_config=APP
     return got
 
 
-def run_train_data(torch, encode_launches, ann, root, synthetic_s_step, steps=3):
+def run_train_data(torch, encode_launches, ann, root, synthetic_s_step, steps=2):
     """The train app on the stage-2 config with a dataset on the generated set:
     XL/2 b=4, the VAE encode in front of each step, ``steps`` steps (the first
     untimed), no checkpoint, no validation; beside phase ``train``'s s/step on
@@ -1803,7 +2257,7 @@ def brushnet_pipeline(torch, model_type, scheduler_type, steps, seed):
     return pipe, time.time() - t0
 
 
-def timed_sample(torch, pipe, cond, **kw):
+def timed_sample(torch, pipe, cond, height=HEIGHT, width=WIDTH, **kw):
     """One sample with decode: (video, seconds in all, seconds of the decode,
     latents, launch counts, peak memory). The decode is timed inside
     ``sample(decode=True)`` by a wrapper on the instance that reaches the pipeline
@@ -1827,7 +2281,7 @@ def timed_sample(torch, pipe, cond, **kw):
     reset_counters()
     torch.cuda.synchronize()
     t0 = time.time()
-    video = pipe.sample(cond, num_frames=NUM_FRAMES, height=HEIGHT, width=WIDTH, **kw)
+    video = pipe.sample(cond, num_frames=NUM_FRAMES, height=height, width=width, **kw)
     torch.cuda.synchronize()
     return (video, time.time() - t0, timing["decode"], timing["latents"], read_counters(),
             torch.cuda.max_memory_allocated())
@@ -2069,7 +2523,7 @@ def run_brushnet_apps(torch, sde_per_forward, base_per_forward, encode_launches)
 # ---------------------------------------------------------------------------
 
 BRUSH_TRAIN_APP_CONFIG = "configs/magicdrive/train/brushnet_smoke.py"
-BRUSHNET_STEPS_TRAIN, PLAIN_BRUSHNET_STEPS_TRAIN = 4, 2
+BRUSHNET_STEPS_TRAIN, PLAIN_BRUSHNET_STEPS_TRAIN = 2, 2
 
 
 def brushnet_train_setup(torch, dtype, sde=True, **overrides):
@@ -2448,12 +2902,13 @@ def run_brushnet_train_app(torch):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--steps", type=int, default=30)
-    ap.add_argument("--requests", type=int, default=2)
+    ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--requests", type=int, default=1)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also trace one Euler step, one view's decode and one train "
                          "step with torch.profiler")
+    ap.add_argument("--sp-rank-worker", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
@@ -2461,6 +2916,8 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs one "
               "NVIDIA GPU and does not fall back to the CPU", file=sys.stderr)
         return 1
+    if args.sp_rank_worker:  # one rank of phase sp_ranks, started by that phase
+        return sp_rank_worker(torch, args.sp_rank_worker, args.seed)
     t_start = time.time()
     from magicdrive_v2_tpu_torch.ops import _cuda_build
 
@@ -2492,12 +2949,14 @@ def main():
         torch, args.steps, args.seed)
     # condition tokens per frame: ego-motion + camera + caption + boxes
     require(l_cond == 1 + 1 + pipe.model.cfg.model_max_length + L_BOX, l_cond)
-    kernel_numbers = check_kernels(torch, seen, l_cond)
+    kernel_numbers, held = check_kernels(torch, seen, l_cond)
     launches = run_slice(torch, pipe, cond, per_forward, encode_launches, l_cond,
                          args.steps, args.requests, args.profile)
     del pipe
     torch.cuda.empty_cache()
     run_slice_vs_plain(torch, args.seed)
+    sp848_launches = run_sp848(torch, args.seed, per_forward, encode_launches, l_cond)
+    sp_ranks_launches = run_sp_ranks(torch, args.seed, encode_launches, held)
     seen_train = run_grads(torch, args.seed)
     train_launches, backward_rows, synthetic_s_step = run_train(
         torch, args.seed, seen_train, encode_launches, with_profile=args.profile)
@@ -2526,8 +2985,17 @@ def main():
         torch.cuda.empty_cache()
         train_data_launches = run_train_data(torch, encode_launches, ann, data_root,
                                              synthetic_s_step)
+        torch.cuda.empty_cache()
+        seen848 = no_shapes()
+        app848_launches = run_test_app(
+            torch, per_forward, encode_launches, ann, data_root, base_config=APP848_CONFIG,
+            phase="app848", data_yaml=DATA_YAML_848, save_mode="image_filename",
+            seen=seen848)
     finally:
         shutil.rmtree(data_root, ignore_errors=True)
+    emit("app848_kernel_cases", cases=held.hold(seen848, "app848"))
+    for name, worst in held.worst.items():  # over every case held, later paths' too
+        kernel_numbers[name]["max_abs_err"] = worst
 
     # where the Pallas kernels sit in the JAX package (a path only: nothing of that
     # package is imported)
@@ -2562,7 +3030,10 @@ def main():
                                       "brushnet_sample": brushnet_launches[name],
                                       "repaint": repaint_launches[name],
                                       "brushnet_test_app": brushnet_test_app_launches[name],
-                                      "brushnet_train_step": brushnet_train_launches[name]},
+                                      "brushnet_train_step": brushnet_train_launches[name],
+                                      "sp848_sample": sp848_launches[name],
+                                      "sp_ranks_rank0": sp_ranks_launches[name],
+                                      "app848": app848_launches[name]},
                     **meta[name], **kernel_numbers[name], backward=backward[name])
                for name in meta]
     for k in kernels:

@@ -9,6 +9,12 @@ Spatial self-attention and cross-view attention run through
 ``ops.fused_qkv_attention``; condition cross-attention runs through
 ``ops.dot_product_attention``. The temporal self-attention is a plain einsum
 composition, as it is in the JAX package.
+
+Sequence parallelism (Ulysses): given an ``sp_group``, spatial self-attention
+and cross-view attention take tokens split over S, turn the qkv projection
+into heads split over the group by one all-to-all, run the kernel on the full S
+with H/sp heads, and turn its output back by another. Everything else is per
+token and needs no communication.
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ from torch import nn
 from ...ops.attention import dot_product_attention
 from ...ops.flash_fused import fused_qkv_attention
 from ...ops.rope import apply_rope, rope_frequencies, rotate_half_interleaved
+from ...parallel.comm import all_to_all
 
 
 def approx_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -193,12 +200,27 @@ def pos_embedding_2d(dim: int, h: int, w: int, scale: float = 1.0,
 # ---------------------------------------------------------------------------
 
 
+def ulysses_attention(qkv: torch.Tensor, q_norm_weight, k_norm_weight, kv_perm,
+                      scale: float, sp_group=None) -> torch.Tensor:
+    """``fused_qkv_attention`` on qkv (G, N, 3, H, D) -> (G, N, H, D). With an
+    ``sp_group`` of P ranks, N is this rank's block of the sequence: one
+    all-to-all makes it (G, P*N, 3, H/P, D), the kernel attends over the whole
+    sequence with H/P heads (the q/k norm is per head, kv_perm indexes G), and
+    one all-to-all turns the output back to (G, N, H, D)."""
+    if sp_group is None:
+        return fused_qkv_attention(qkv, q_norm_weight, k_norm_weight, kv_perm, scale)
+    qkv = all_to_all(qkv, 3, 1, sp_group)
+    out = fused_qkv_attention(qkv, q_norm_weight, k_norm_weight, kv_perm, scale)
+    return all_to_all(out, 1, 2, sp_group)
+
+
 class SelfAttention(nn.Module):
     """Fused-QKV self-attention with optional per-head RMS qk-norm and RoPE.
 
     Three branches: (B, N, C) without RoPE goes through the fused qkv kernel
-    (spatial attention); (B, T, S, C) with RoPE is the temporal einsum attention
-    batched over S; (B, N, C) with RoPE is the small temporal transformer of the
+    (spatial attention; with ``sp_group`` N is this rank's block of the
+    sequence); (B, T, S, C) with RoPE is the temporal einsum attention batched
+    over S; (B, N, C) with RoPE is the small temporal transformer of the
     condition embedders.
     """
 
@@ -212,10 +234,11 @@ class SelfAttention(nn.Module):
         self.k_norm = RMSNorm(self.head_dim) if qk_norm else None
         self.proj = nn.Linear(dim, dim)
 
-    def forward(self, x: torch.Tensor,
-                kv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, kv_mask: Optional[torch.Tensor] = None,
+                sp_group=None) -> torch.Tensor:
         """kv_mask: optional (B, N_keys) bool; False keys are excluded from every
-        query's softmax (logits set to -1e9)."""
+        query's softmax (logits set to -1e9). sp_group: the sequence-parallel
+        group x's tokens are split over (spatial attention only)."""
         H, D = self.num_heads, self.head_dim
         if x.ndim == 4 and self.use_rope:
             B, T, S, C = x.shape
@@ -241,7 +264,7 @@ class SelfAttention(nn.Module):
         qw = None if self.q_norm is None else self.q_norm.weight
         kw = None if self.k_norm is None else self.k_norm.weight
         if not self.use_rope and kv_mask is None:
-            out = fused_qkv_attention(qkv, qw, kw, None, D ** -0.5)
+            out = ulysses_attention(qkv, qw, kw, None, D ** -0.5, sp_group)
             return self.proj(out.reshape(B, N, C))
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         if qw is not None:
@@ -285,8 +308,10 @@ class CrossViewAttention(nn.Module):
             self._perms[key] = perm
         return perm
 
-    def forward(self, x_mv: torch.Tensor, neighbors: Sequence[Sequence[int]]) -> torch.Tensor:
-        # x_mv: (B', NC, S, C); neighbors: static (NC, n_nbr) index array
+    def forward(self, x_mv: torch.Tensor, neighbors: Sequence[Sequence[int]],
+                sp_group=None) -> torch.Tensor:
+        # x_mv: (B', NC, S, C); neighbors: static (NC, n_nbr) index array; with
+        # sp_group S is this rank's block (the views, on the batch axis, are whole)
         Bp, NC, S, C = x_mv.shape
         H, D = self.num_heads, self.head_dim
         nbr = np.asarray(neighbors)
@@ -294,8 +319,8 @@ class CrossViewAttention(nn.Module):
         qkv = self.qkv(x_mv).reshape(Bp * NC, S, 3, H, D)
         qw = None if self.q_norm is None else self.q_norm.weight
         kw = None if self.k_norm is None else self.k_norm.weight
-        out = fused_qkv_attention(qkv, qw, kw, self._perm(Bp, NC, nbr, x_mv.device),
-                                  D ** -0.5)
+        out = ulysses_attention(qkv, qw, kw, self._perm(Bp, NC, nbr, x_mv.device),
+                                D ** -0.5, sp_group)
         out = self.proj(out.reshape(Bp, NC, S, C))
         if n_nbr > 1 and self.proj.bias is not None:
             out = out + (n_nbr - 1) * self.proj.bias

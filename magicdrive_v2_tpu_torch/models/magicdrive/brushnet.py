@@ -18,6 +18,9 @@
 - The layer stack is walked in the reference order, one ``BrushLayerGroup`` per
   depth: base s, control s, brushnet s (``x + c_skip + xi_skip``), base t,
   control t (+skip), brushnet t (+skip).
+- Under a mesh the inpaint token stream xi is split over S with x and c (see
+  ``stdit3``); the ShallowEncoder, the mask resize and the structured noise run
+  before the split, on every rank.
 
 Randomness: the structured noise starts from a standard normal draw of shape
 (B*C*T', H', W') for the batch the model sees (``inpaint_input_noise``), or from
@@ -37,6 +40,7 @@ from torch import nn
 
 from ...ops.resize import resize_linear_antialiased
 from ...ops.structured_noise import generate_structured_noise, sample_cutoff_radius
+from ...parallel.comm import split_seq
 from ...registry import MODELS
 from ..layers.blocks import PatchEmbed3D, pos_embedding_2d
 from .stdit3 import MagicDriveSTDiT3, MagicDriveSTDiT3Config, MVSTDiTBlock
@@ -98,12 +102,12 @@ class BrushLayerGroup(nn.Module):
         # passes through)
         self.carry_updated = (True, control_s is not None or control_t is not None, True)
 
-    def forward(self, x, c, xi, y, t, t_bn, x_mask, t0, t0_bn, pad_mask):
-        x = self.base_s(x, y, t, x_mask, t0)
+    def forward(self, x, c, xi, y, t, t_bn, x_mask, t0, t0_bn, pad_mask, sp_group=None):
+        x = self.base_s(x, y, t, x_mask, t0, sp_group=sp_group)
         if self.control_s is not None:
-            c, c_skip = self.control_s(c, y, t, x_mask, t0)
+            c, c_skip = self.control_s(c, y, t, x_mask, t0, sp_group=sp_group)
             x = x + c_skip
-        xi, xi_skip = self.brushnet_s(xi, y, t_bn, x_mask, t0_bn)
+        xi, xi_skip = self.brushnet_s(xi, y, t_bn, x_mask, t0_bn, sp_group=sp_group)
         x = x + xi_skip
         if self.base_t is not None:
             x = self.base_t(x, y, t, x_mask, t0, pad_mask)
@@ -261,6 +265,9 @@ class MagicDriveSTDiT3BrushNet(MagicDriveSTDiT3):
                if cfg.use_x_control_embedder else x_b)
         xi = self.x_brushnet_embedder(torch.cat([x, xi_enc, mi], dim=1)).reshape(B, T, S, -1)
         xi = xi + pos
+        sp_group = self._sp_group(S)
+        if sp_group is not None:  # the token streams split over S
+            x_b, x_c, xi, c_map = (split_seq(a, 2, sp_group) for a in (x_b, x_c, xi, c_map))
         c = x_c + self.before_proj(c_map)
         x = x_b
 
@@ -270,17 +277,10 @@ class MagicDriveSTDiT3BrushNet(MagicDriveSTDiT3):
         pad_mask_rep = self._latent_pad_mask(frame_valid, T_img, T, NC)
 
         x, c, xi = self.run_layer_groups(
-            (x, c, xi), (y_cond, t_mlp, t_bn, x_mask_rep, t0_mlp, t0_bn, pad_mask_rep))
-
-        x = x.reshape(B, T * S, -1)
-        t_fin = t_emb.repeat_interleave(NC, dim=0)
-        t0_fin = None if t0_emb is None else t0_emb.repeat_interleave(NC, dim=0)
-        x = self.final_layer(x, t_fin, x_mask_rep, t0_fin, T, S)
-        x = self.unpatchify(x, T, H, W, Tx, Hx, Wx).float()
-
-        C_out = cfg.out_channels
-        x = x.reshape(b, NC, C_out, Tx, Hx, Wx).transpose(1, 2)
-        return x.reshape(b, C_out * NC, Tx, Hx, Wx)
+            (x, c, xi),
+            (y_cond, t_mlp, t_bn, x_mask_rep, t0_mlp, t0_bn, pad_mask_rep, sp_group))
+        return self._final(x, t_emb, t0_emb, x_mask_rep, sp_group, b, (T, H, W),
+                           (Tx, Hx, Wx))
 
 
 class MagicDriveSTDiT3SDEBrushNet(MagicDriveSTDiT3BrushNet):

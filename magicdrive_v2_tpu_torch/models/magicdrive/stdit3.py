@@ -17,11 +17,20 @@
   dtype comes from ``compute_params``, bf16 casts of fp32 master parameters
   handed to ``torch.func.functional_call`` (flax's ``param_dtype`` fp32 and
   ``dtype`` bf16).
+- Sequence parallelism: under a ``parallel.use_mesh`` context whose sp size is
+  above 1, ``forward`` splits the token streams over S after the embedders
+  (rank r holds the contiguous block r), the blocks run on the split tokens
+  (spatial and cross-view attention through the Ulysses all-to-all pair of
+  ``blocks.ulysses_attention``, everything else per token) and S is gathered
+  once, after the final layer. With ``enable_sequence_parallelism`` H is padded
+  so S divides the mesh's sp size (``force_pad_h_for_sp_size`` first), as in
+  the JAX package; the conditioning stays replicated.
 - Parameter names and layouts are the reference torch checkpoint's.
 """
 from __future__ import annotations
 
 import dataclasses
+import logging
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -33,6 +42,8 @@ from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from ...ops.fused_adaln import adaln_modulate
+from ...parallel.comm import gather_seq, split_seq
+from ...parallel.sharding import get_current_mesh, sp_size
 from ..layers.blocks import (
     CaptionEmbedder,
     CrossAttention,
@@ -54,6 +65,9 @@ from .embedder import (
     MapControlTempEmbedding,
 )
 
+logger = logging.getLogger(__name__)
+_UNSPLIT_WARNED = set()  # (S, sp) pairs the unsplit forward was reported for
+
 _EMBEDDER_CLASSES = {
     "CamEmbedder": CamEmbedder,
     "CamEmbedderTemp": CamEmbedderTemp,
@@ -73,9 +87,8 @@ DEFAULT_MV_ORDER_MAP = {0: [5, 1], 1: [0, 2], 2: [1, 3], 3: [2, 4], 4: [3, 5], 5
 
 @dataclasses.dataclass(frozen=True)
 class MagicDriveSTDiT3Config:
-    """Architecture hyper-parameters and the remat switch: the JAX package's
-    config without its sharding fields (``from_dict`` drops keys it does not
-    know)."""
+    """Architecture hyper-parameters, the sequence-parallel pad and the remat
+    switch (``from_dict`` drops keys it does not know)."""
     input_sq_size: int = 512
     in_channels: int = 4
     patch_size: Tuple[int, int, int] = (1, 2, 2)
@@ -105,6 +118,8 @@ class MagicDriveSTDiT3Config:
     control_skip_cross_view: bool = True
     control_skip_temporal: bool = True
     force_pad_h_for_sp_size: Optional[int] = None
+    # pad H so S divides the mesh's sp size (when force_pad_h_for_sp_size is unset)
+    enable_sequence_parallelism: bool = False
     # training: remat each layer group when autograd records; remat_policy "full"
     # (recompute the group in the backward), "dots" (keep the linear layers'
     # products) or "offload_carry" (keep the group's carry in host memory)
@@ -176,10 +191,11 @@ class MVSTDiTBlock(nn.Module):
         if is_control_block:
             self.after_proj = nn.Linear(hidden_size, hidden_size)
 
-    def forward(self, x, y, t, x_mask, t0, pad_mask=None):
+    def forward(self, x, y, t, x_mask, t0, pad_mask=None, sp_group=None):
         # x: (B, T, S, C) with B = b*NC; y: (B, Ty, L, C); t/t0: (b, 6C);
         # x_mask: (B, T) bool or None; pad_mask: optional (B, T) frame validity,
-        # used only as the temporal attention's key mask.
+        # used only as the temporal attention's key mask; sp_group: the group S
+        # is split over (x holds this rank's block).
         B, T, S, C = x.shape
         b = t.shape[0]
         NC = B // b
@@ -216,7 +232,7 @@ class MVSTDiTBlock(nn.Module):
         if self.temporal:
             x_m = self.attn(x_m, kv_mask=pad_mask)
         else:
-            x_m = self.attn(x_m.reshape(B * T, S, C)).reshape(B, T, S, C)
+            x_m = self.attn(x_m.reshape(B * T, S, C), sp_group=sp_group).reshape(B, T, S, C)
         x = x + gate(m, m0, 2, x_m)
 
         # ---- condition cross attention ----
@@ -235,7 +251,7 @@ class MVSTDiTBlock(nn.Module):
             x_v = norm_mod(x, 0, 1, mv, mv0)
             # (b*NC, T, S, C) -> (b*T, NC, S, C)
             x_mv = x_v.reshape(b, NC, T, S, C).transpose(1, 2).reshape(b * T, NC, S, C)
-            out = self.cross_view_attn(x_mv, self.neighbors)
+            out = self.cross_view_attn(x_mv, self.neighbors, sp_group=sp_group)
             out = out.reshape(b, T, NC, S, C).transpose(1, 2).reshape(B, T, S, C)
             x = x + self.mva_proj(gate(mv, mv0, 2, out))
 
@@ -262,10 +278,10 @@ class LayerGroup(nn.Module):
         # passes through)
         self.carry_updated = (True, control_s is not None or control_t is not None)
 
-    def forward(self, x, c, y, t, x_mask, t0, pad_mask):
-        x = self.base_s(x, y, t, x_mask, t0)
+    def forward(self, x, c, y, t, x_mask, t0, pad_mask, sp_group=None):
+        x = self.base_s(x, y, t, x_mask, t0, sp_group=sp_group)
         if self.control_s is not None:
-            c, c_skip = self.control_s(c, y, t, x_mask, t0)
+            c, c_skip = self.control_s(c, y, t, x_mask, t0, sp_group=sp_group)
             x = x + c_skip
         if self.base_t is not None:
             x = self.base_t(x, y, t, x_mask, t0, pad_mask)
@@ -509,12 +525,54 @@ class MagicDriveSTDiT3(nn.Module):
         return lat_valid.repeat_interleave(NC, dim=0)
 
     def _h_pad_size(self, H: int, W: int) -> int:
-        """H padding so S = H*W divides a sequence-parallel size. Unsharded (the
-        only mode so far) it is 0 unless ``force_pad_h_for_sp_size`` is set."""
+        """H padding so S = H*W divides a sequence-parallel size:
+        ``force_pad_h_for_sp_size``, else (with ``enable_sequence_parallelism``)
+        the current mesh's sp size. The pad changes the function (the grid
+        effect), so a sharded run equals the unsharded one with
+        ``force_pad_h_for_sp_size`` set to the same size."""
         pad_to = self.cfg.force_pad_h_for_sp_size
+        if pad_to is None and self.cfg.enable_sequence_parallelism:
+            pad_to = sp_size()
         if pad_to and (H * W) % pad_to != 0:
             return pad_to - H % pad_to
         return 0
+
+    def _sp_group(self, S: int):
+        """The sequence-parallel group this forward splits its S tokens over, or
+        None: no mesh, an sp size of 1, or S not divisible by it (then every rank
+        computes all of it, as the JAX package's ``shard_hint`` leaves such an
+        axis unsharded)."""
+        mesh = get_current_mesh()
+        if mesh is None or mesh.sp == 1:
+            return None
+        if S % mesh.sp:
+            if (S, mesh.sp) not in _UNSPLIT_WARNED:
+                _UNSPLIT_WARNED.add((S, mesh.sp))
+                logger.warning("S=%d tokens do not split over sp=%d ranks: every rank "
+                               "computes all of them", S, mesh.sp)
+            return None
+        if self.cfg.num_heads % mesh.sp:
+            raise ValueError(f"sequence parallelism over {mesh.sp} ranks splits the "
+                             f"{self.cfg.num_heads} heads: they must divide")
+        return mesh.sp_group
+
+    def _final(self, x, t_emb, t0_emb, x_mask_rep, sp_group, b, grid, latent):
+        """Final layer on this rank's tokens, S gathered, unpatchify: (B, T, S', C)
+        -> (b, C_out*NC, Tx, Hx, Wx) fp32. grid: (T, H, W) tokens, latent: (Tx, Hx,
+        Wx)."""
+        cfg = self.cfg
+        NC = cfg.nc
+        B, T, S_loc, _ = x.shape
+        t_fin = t_emb.repeat_interleave(NC, dim=0)
+        t0_fin = None if t0_emb is None else t0_emb.repeat_interleave(NC, dim=0)
+        x = self.final_layer(x.reshape(B, T * S_loc, -1), t_fin, x_mask_rep, t0_fin, T,
+                             S_loc)
+        if sp_group is not None:
+            x = gather_seq(x.reshape(B, T, S_loc, -1), 2, sp_group).reshape(B, -1, x.shape[-1])
+        x = self.unpatchify(x, *grid, *latent).float()
+        C_out = cfg.out_channels
+        x = x.reshape(b, NC, C_out, *latent).transpose(1, 2)
+        return x.reshape(b, C_out * NC, *latent)
 
     def _resize_cond_time(self, y_cond, T):
         if y_cond.shape[1] != T and y_cond.shape[1] > 1:
@@ -605,6 +663,9 @@ class MagicDriveSTDiT3(nn.Module):
             x_c = self.x_control_embedder(x).reshape(B, T, S, -1) + pos_emb.reshape(1, 1, S, -1)
         else:
             x_c = x_b
+        sp_group = self._sp_group(S)
+        if sp_group is not None:  # the token streams split over S
+            x_b, x_c, c_map = (split_seq(a, 2, sp_group) for a in (x_b, x_c, c_map))
         c = x_c + self.before_proj(c_map)
         x = x_b
 
@@ -613,18 +674,10 @@ class MagicDriveSTDiT3(nn.Module):
             x_mask_rep = x_mask.bool().repeat_interleave(NC, dim=0)  # (B, T)
         pad_mask_rep = self._latent_pad_mask(frame_valid, T_img, T, NC)
 
-        x, c = self.run_layer_groups((x, c),
-                                     (y_cond, t_mlp, x_mask_rep, t0_mlp, pad_mask_rep))
-
-        x = x.reshape(B, T * S, -1)
-        t_fin = t_emb.repeat_interleave(NC, dim=0)
-        t0_fin = None if t0_emb is None else t0_emb.repeat_interleave(NC, dim=0)
-        x = self.final_layer(x, t_fin, x_mask_rep, t0_fin, T, S)
-        x = self.unpatchify(x, T, H, W, Tx, Hx, Wx).float()
-
-        C_out = cfg.out_channels
-        x = x.reshape(b, NC, C_out, Tx, Hx, Wx).transpose(1, 2)
-        return x.reshape(b, C_out * NC, Tx, Hx, Wx)
+        x, c = self.run_layer_groups(
+            (x, c), (y_cond, t_mlp, x_mask_rep, t0_mlp, pad_mask_rep, sp_group))
+        return self._final(x, t_emb, t0_emb, x_mask_rep, sp_group, b, (T, H, W),
+                           (Tx, Hx, Wx))
 
     def run_layer_groups(self, carry: Tuple[torch.Tensor, ...], args: Tuple) -> Tuple:
         """Each layer group in turn on the ``carry`` (x, c[, xi]) with the shared

@@ -3,11 +3,20 @@
 One shared library per ``.cu`` file, each with a plain C interface, all compiled
 together (one ``nvcc`` process per source, started at once) the first time any
 kernel is needed. Libraries are keyed by a hash of every file under ``csrc/``,
-so an edit rebuilds them. Nothing is built when the module is imported.
+so an edit rebuilds them. Nothing is built when the module is imported. The
+build holds a file lock, so processes started together (the ranks of one run)
+build once and the others load what it built.
+
+Every launch goes through ``on_device``: the tensor's card is made the current
+device for it, so on a host with several GPUs rank k's kernels, and the
+per-device attributes their C entries set (``cudaFuncSetAttribute``'s dynamic
+shared-memory size, set at every launch), land on card k.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
@@ -57,13 +66,23 @@ def _lib_path(name: str, tag: str) -> Path:
 
 def build_all() -> Dict[str, Path]:
     """Compile every missing library; returns name -> path. Raises on failure."""
-    global build_seconds
     tag = source_hash()
     paths = {name: _lib_path(name, tag) for name in SOURCES}
-    todo = [name for name in SOURCES if not paths[name].is_file()]
-    if not todo:
+    if all(p.is_file() for p in paths.values()):
         return paths
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # one build at a time; a process that waited finds the libraries built (the
+    # lock goes with its holder's process, so a killed build leaves none behind)
+    with open(BUILD_DIR / f".lock-{tag}", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        _build([name for name in SOURCES if not paths[name].is_file()], paths, tag)
+    return paths
+
+
+def _build(todo: List[str], paths: Dict[str, Path], tag: str) -> None:
+    global build_seconds
+    if not todo:
+        return
     nvcc = _nvcc()
     t0 = time.time()
     procs = []
@@ -88,7 +107,6 @@ def build_all() -> Dict[str, Path]:
             f"--- {name} ---\n" + (BUILD_DIR / f"{name}-{tag}.log").read_text()[-4000:]
             for name in failed)
         raise RuntimeError(f"nvcc failed for {failed}:\n{logs}")
-    return paths
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -119,6 +137,15 @@ def ptxas_report(name: str) -> List[Dict[str, object]]:
         if m and rows:
             rows[-1]["registers"] = int(m.group(1))
     return rows
+
+
+@contextlib.contextmanager
+def on_device(t):
+    """The context of one launch on tensor ``t``'s card: that card is the current
+    device inside it; yields the handle of its current stream."""
+    import torch
+    with torch.cuda.device(t.device):
+        yield torch.cuda.current_stream(t.device).cuda_stream
 
 
 def check(err: int, what: str) -> None:

@@ -127,8 +127,7 @@ def attend_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
     has checked (``flash_attention`` calls it with ``plan_bf16``'s plan)."""
     B, N, H, D = q.shape
     out = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
+    with _cuda_build.on_device(q) as stream:
         err = _kernels()[0](q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                             B, N, k.shape[1], H, D, *_strides(q, k, v), float(scale),
                             int(plan.resident), plan.run, plan.blocks, plan.smem_bytes, stream)
@@ -181,8 +180,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> 
         out = attend_bf16(q, k, v, scale, plan_bf16(B, N, k.shape[1], H, D))
     else:
         out = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        with torch.cuda.device(q.device):
+        with _cuda_build.on_device(q) as stream:
             err = _kernels()[1](q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                                 B, N, k.shape[1], H, D, *_strides(q, k, v), float(scale),
                                 stream)

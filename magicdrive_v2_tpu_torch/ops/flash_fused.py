@@ -160,8 +160,7 @@ def tile_k(qkv: torch.Tensor, kw: Optional[torch.Tensor], plan: K1Plan) -> torch
     fp32 (D,) weight is given, laid out as the plan's zero-padded tiles."""
     G, N, _, H, D = qkv.shape
     tiles = torch.empty(plan.scratch_shape, dtype=torch.bfloat16, device=qkv.device)
-    stream = torch.cuda.current_stream(qkv.device).cuda_stream
-    with torch.cuda.device(qkv.device):
+    with _cuda_build.on_device(qkv) as stream:
         err = _kernels()[0](qkv.data_ptr(), tiles.data_ptr(),
                             None if kw is None else kw.data_ptr(),
                             G, N, H, D, plan.dp, plan.tiles, _EPS, stream)
@@ -235,17 +234,16 @@ def _launch(qkv: torch.Tensor, q_norm_weight: Optional[torch.Tensor],
         kw = _norm_weight(k_norm_weight, D, qkv.device)
     out = torch.empty((G, N, H * D), dtype=qkv.dtype, device=qkv.device)
     perm_ptr = None if perm is None else perm.data_ptr()
-    stream = torch.cuda.current_stream(qkv.device).cuda_stream
     _, attend, f32 = _kernels()
     if bf16:
         tiles = tile_k(qkv, kw, plan)
-        with torch.cuda.device(qkv.device):
+        with _cuda_build.on_device(qkv) as stream:
             err = attend(qkv.data_ptr(), tiles.data_ptr(), out.data_ptr(), perm_ptr,
                          None if qw is None else qw.data_ptr(), G, N, H, D, J,
                          float(scale), _EPS, plan.dp, plan.q_tiles, plan.blocks,
                          plan.smem_bytes, stream)
     else:
-        with torch.cuda.device(qkv.device):
+        with _cuda_build.on_device(qkv) as stream:
             err = f32(qkv.data_ptr(), out.data_ptr(), perm_ptr,
                       None if qw is None else qw.data_ptr(),
                       None if kw is None else kw.data_ptr(),

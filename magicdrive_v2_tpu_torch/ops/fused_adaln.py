@@ -84,8 +84,7 @@ def _launch(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor,
     code = _cuda_build.dtype_code(x.dtype)
     x, shift, scale = x.contiguous(), shift.contiguous(), scale.contiguous()
     out = torch.empty_like(x)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
+    with _cuda_build.on_device(x) as stream:
         err = _kernel()(x.data_ptr(), shift.data_ptr(), scale.data_ptr(),
                         out.data_ptr(), B * N, N, C, float(eps), code, stream)
     _cuda_build.check(err, "adaln_modulate")

@@ -1,0 +1,174 @@
+"""Multi-process runs of the port: one process per GPU, under ``torchrun`` or any
+launcher that sets ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
+``MASTER_PORT`` (the serving half of the JAX package's parallel/distributed.py,
+whose cluster is ``jax.distributed``).
+
+Everything here is a no-op in a single-process run, so the apps behave as before
+on one process.
+"""
+from __future__ import annotations
+
+import contextlib
+import datetime
+import logging
+import os
+import socket
+import subprocess
+import sys
+import tempfile
+import time
+from typing import Dict, List, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+
+logger = logging.getLogger(__name__)
+
+
+def world_size() -> int:
+    """The launcher's world size (1 without one)."""
+    return int(os.environ.get("WORLD_SIZE", "1") or 1)
+
+
+def local_rank() -> int:
+    return int(os.environ.get("LOCAL_RANK", os.environ.get("RANK", "0")) or 0)
+
+
+def rank_device(device="cuda") -> torch.device:
+    """The device this process runs on: for ``"cuda"`` in a multi-process run the
+    card ``LOCAL_RANK``; otherwise ``device`` as given."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None and world_size() > 1:
+        return torch.device("cuda", local_rank())
+    return device
+
+
+def maybe_initialize(device="cuda", backend: Optional[str] = None,
+                     timeout_s: Optional[float] = None) -> bool:
+    """Join the process group the launcher describes, once; returns whether a
+    process group was initialised by this call. ``backend`` defaults to ``nccl`` for a CUDA
+    ``device`` (one card per rank; the card ``LOCAL_RANK`` becomes the current
+    device first) and ``gloo`` for the CPU. An explicit ``backend="gloo"`` lets
+    several ranks share one card (NCCL refuses two ranks on one device)."""
+    if world_size() <= 1 or dist.is_initialized():
+        return False
+    device = rank_device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    if backend is None:
+        backend = "nccl" if device.type == "cuda" else "gloo"
+    kw = {}
+    if timeout_s is not None:
+        kw["timeout"] = datetime.timedelta(seconds=timeout_s)
+    if backend == "nccl":
+        kw["device_id"] = device
+    dist.init_process_group(backend, init_method="env://", world_size=world_size(),
+                            rank=int(os.environ["RANK"]), **kw)
+    logger.info("torch.distributed: rank %d of %d, backend %s, device %s",
+                dist.get_rank(), dist.get_world_size(), backend, device)
+    return True
+
+
+def is_main_process() -> bool:
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _warm_device(group) -> torch.device:
+    # an NCCL group takes tensors on the current card only
+    if dist.get_backend(group) == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def startup_barrier(mesh=None) -> None:
+    """A barrier and one warm-up all-reduce on each of the mesh's groups (the whole
+    mesh, its dp columns and sp rows) while every rank stands at the same point,
+    so a broken group fails at start-up and not in the middle of a sample.
+    No-op in a single-process run."""
+    if not dist.is_initialized():
+        return
+    dist.barrier()
+    groups = [None] if mesh is None else [None, mesh.group, mesh.dp_group, mesh.sp_group]
+    for group in groups:
+        x = torch.ones(1, device=_warm_device(group))
+        dist.all_reduce(x, group=group)
+        n = dist.get_world_size(group)
+        if int(x.item()) != n:
+            raise RuntimeError(f"startup all-reduce over {n} ranks gave {x.item()}")
+    logger.info("startup barrier passed (%d processes)", dist.get_world_size())
+
+
+def shutdown() -> None:
+    """Leave the process group (the apps' exit)."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def app_process_group(device="cuda"):
+    """An app's run: joins the launcher's process group (``maybe_initialize``),
+    yields this rank's device, and leaves the group at the end if it joined it."""
+    joined = maybe_initialize(device)
+    try:
+        yield rank_device(device)
+    finally:
+        if joined:
+            shutdown()
+
+
+def free_port() -> int:
+    """A TCP port of this host that is free now (bound to port 0, then released)."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(n: int, argv: Sequence[str], deadline_s: float,
+                env: Optional[Dict[str, str]] = None, cwd: Optional[str] = None,
+                local_ranks: Optional[Sequence[int]] = None) -> List[str]:
+    """Run ``python argv...`` as ranks 0..n-1 of one group on this host, as a
+    launcher would: RANK, WORLD_SIZE, LOCAL_RANK (``local_ranks[r]``, else r),
+    MASTER_ADDR and MASTER_PORT (a free port) set, ``env`` added. Each rank's
+    output goes to a file, so a rank that prints much never blocks on a pipe.
+    Raises, and kills every rank, when a rank fails or the group outlives
+    ``deadline_s``: a rank that died must not leave the others waiting in a
+    collective. Returns each rank's output."""
+    base = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
+                WORLD_SIZE=str(n), **(env or {}))
+    local = list(local_ranks) if local_ranks is not None else list(range(n))
+    logs = [tempfile.TemporaryFile("w+") for _ in range(n)]
+    procs = [subprocess.Popen([sys.executable] + list(argv), cwd=cwd,
+                              env=dict(base, RANK=str(r), LOCAL_RANK=str(local[r])),
+                              stdout=logs[r], stderr=subprocess.STDOUT, text=True)
+             for r in range(n)]
+
+    def output(r):
+        logs[r].flush()
+        logs[r].seek(0)
+        return logs[r].read()
+
+    end = time.time() + deadline_s
+    try:
+        while any(p.poll() is None for p in procs):
+            failed = [r for r, p in enumerate(procs) if p.poll() not in (None, 0)]
+            if failed:
+                r = failed[0]
+                raise RuntimeError(f"rank {r} of {n} exited with {procs[r].returncode}:\n"
+                                   f"{output(r)[-6000:]}")
+            if time.time() > end:
+                raise RuntimeError(f"{n} ranks outlived their deadline of {deadline_s} s; "
+                                   f"rank 0's output:\n{output(0)[-6000:]}")
+            time.sleep(0.05)
+        failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+        if failed:
+            r = failed[0]
+            raise RuntimeError(f"rank {r} of {n} exited with {procs[r].returncode}:\n"
+                               f"{output(r)[-6000:]}")
+        return [output(r) for r in range(n)]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for log in logs:
+            log.close()

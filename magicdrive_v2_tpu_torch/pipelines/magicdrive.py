@@ -11,6 +11,12 @@ Classifier-free guidance:
 The step-independent conditioning is embedded once per sample
 (``encode_conditions``) and reused by every Euler step. ``sample_repaint`` edits
 reference latents (RePaint): the known region is re-injected after each step.
+
+Sequence parallelism: a config with ``sp_size`` > 1 run on at least that many
+processes gets a (dp=1, sp) mesh; sampling runs under it (the model splits its
+tokens over the sp ranks) and the decode scatters the views over them
+(``parallel.sp_vae``). Every rank runs every forward on the same inputs and
+draws the same starting latent.
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config.presets import NUSCENES_CLASSES
 from ..models.magicdrive.brushnet import (BrushNetConfig, MagicDriveSTDiT3BrushNet,
@@ -28,6 +35,7 @@ from ..models.magicdrive.stdit3 import (MagicDriveSTDiT3, MagicDriveSTDiT3Config
 from ..models.text_encoder.t5 import DummyTextEncoder
 from ..models.vae.cogvideox import (CogVAEConfig, VideoAutoencoderKLCogVideoX,
                                     get_latent_size)
+from ..parallel.sharding import Mesh, make_mesh, sp_vae, use_mesh
 from ..registry import MODELS
 from ..schedulers.rf import RFLOW, RFLOW_SLICE_REPAINT, build_scheduler
 from ..utils.ckpt import init_weights
@@ -44,7 +52,8 @@ _INPAINT_KEYS = ("x_inpaint", "mask_inpaint", "t_inpaint", "num_timesteps",
 
 
 class MagicDrivePipeline:
-    """Model + scheduler + text encoder + VAE on one device.
+    """Model + scheduler + text encoder + VAE on one device (this rank's, under a
+    ``mesh``).
 
     ``device`` defaults to ``"cuda"`` and raises when no card is present; pass
     ``device="cpu"`` for the plain PyTorch versions of the kernels. Without a
@@ -53,9 +62,11 @@ class MagicDrivePipeline:
 
     def __init__(self, model_cfg: MagicDriveSTDiT3Config, scheduler: RFLOW,
                  text_encoder=None, model: Optional[MagicDriveSTDiT3] = None,
-                 device="cuda", vae: Optional[VideoAutoencoderKLCogVideoX] = None):
+                 device="cuda", vae: Optional[VideoAutoencoderKLCogVideoX] = None,
+                 mesh: Optional[Mesh] = None):
         self.device = resolve_device(device)
         self.vae = vae
+        self.mesh = mesh  # sequence-parallel sampling and a scattered decode
         self.model_cfg = model_cfg
         if model is None:
             model_cls = (MagicDriveSTDiT3BrushNet if isinstance(model_cfg, BrushNetConfig)
@@ -75,25 +86,29 @@ class MagicDrivePipeline:
         """Model, VAE, text encoder and scheduler from an experiment config (see
         configs/magicdrive/). Weights without a snapshot are random, seeded by the
         config's ``seed``; a configured VAE snapshot that is missing leaves the VAE
-        random with a warning, one that is present but unreadable raises."""
+        random with a warning, one that is present but unreadable raises.
+
+        ``sp_size`` > 1 in a run of at least that many processes (an initialised
+        ``torch.distributed`` default group, ``parallel.distributed``) builds the
+        (dp=1, sp) mesh over them; with fewer it runs unsharded and warns, as the
+        JAX package does with fewer devices (``force_pad_h_for_sp_size`` keeps
+        the function the same either way). Every rank must call it."""
         dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}.get(
             cfg.get("dtype", "bf16"), torch.bfloat16)
         seed = int(cfg.get("seed", 42))
-        if int(cfg.get("sp_size", 1) or 1) > 1:
-            raise NotImplementedError(
-                "sp_size > 1: sequence-parallel sampling is not ported yet (ROADMAP.md "
-                "queue A item 5); set sp_size=1")
+        sp, mesh = sequence_parallel_mesh(int(cfg.get("sp_size", 1) or 1))
         vae = build_vae(cfg, dtype, device, seed + 1)
         model_type = str(cfg.get("model", {}).get("type", ""))
         model_cfg = build_model_config(
             cfg.model, vae_out_channels=cfg.get("vae_out_channels", 16),
-            mv_order_map=cfg.get("mv_order_map"), dtype=dtype)
+            mv_order_map=cfg.get("mv_order_map"), dtype=dtype,
+            enable_sequence_parallelism=sp > 1)
         if "BrushNet" in model_type:  # the registered inpainting types
             model_cfg = BrushNetConfig.from_base(
                 model_cfg, sde_inpaint=MODELS.get(model_type) is MagicDriveSTDiT3SDEBrushNet)
         text_encoder = build_text_encoder(cfg, device)
         pipe = cls(model_cfg, build_scheduler(cfg.scheduler), text_encoder, device=device,
-                   vae=vae)
+                   vae=vae, mesh=mesh)
         init_weights(pipe.model, seed=seed)
         return pipe
 
@@ -240,10 +255,6 @@ class MagicDrivePipeline:
         else:
             null_y = self.null_y(b)
 
-        predict = self._build_predict_fn(
-            {**model_args, "height": float(height), "width": float(width)},
-            float(guidance_scale), sched.slice_cfg, z_shape=tuple(z.shape),
-            null_y=null_y, use_map0=use_map0)
         nf_valid = batch.get("num_frames_valid")
         hw = dict(height=torch.full((b,), float(height)),
                   width=torch.full((b,), float(width)),
@@ -251,8 +262,13 @@ class MagicDrivePipeline:
                   else torch.as_tensor(nf_valid, dtype=torch.float32))
         if mask is not None:
             mask = torch.as_tensor(mask, dtype=torch.float32).to(self.device)
-        latents = sched.sample(predict, z, mask=mask, noise_fn=noise_fn,
-                               generator=generator, **hw)
+        with use_mesh(self.mesh):
+            predict = self._build_predict_fn(
+                {**model_args, "height": float(height), "width": float(width)},
+                float(guidance_scale), sched.slice_cfg, z_shape=tuple(z.shape),
+                null_y=null_y, use_map0=use_map0)
+            latents = sched.sample(predict, z, mask=mask, noise_fn=noise_fn,
+                                   generator=generator, **hw)
         return self.decode(latents) if decode else latents
 
     def inpaint_noise_shape(self, latent_shape, slice_cfg: bool) -> tuple:
@@ -284,27 +300,47 @@ class MagicDrivePipeline:
         ref_z = torch.as_tensor(ref_z, dtype=torch.float32).to(self.device)
         lat_mask = torch.as_tensor(lat_mask, dtype=torch.float32).to(self.device)
         b = ref_z.shape[0]
-        predict = self._build_predict_fn(
-            {**model_args, "height": float(height), "width": float(width)},
-            float(guidance_scale), True, z_shape=tuple(ref_z.shape),
-            null_y=self.null_y(model_args["y"].shape[0]), use_map0=use_map0)
         nf_valid = batch.get("num_frames_valid")
         hw = dict(height=torch.full((b,), float(height)),
                   width=torch.full((b,), float(width)),
                   num_frames=torch.full((b,), float(num_frames)) if nf_valid is None
                   else torch.as_tensor(nf_valid, dtype=torch.float32))
-        return sched.sample_repaint(predict, ref_z, lat_mask, z0=z0, noise_fn=noise_fn,
-                                    generator=generator, **hw)
+        with use_mesh(self.mesh):
+            predict = self._build_predict_fn(
+                {**model_args, "height": float(height), "width": float(width)},
+                float(guidance_scale), True, z_shape=tuple(ref_z.shape),
+                null_y=self.null_y(model_args["y"].shape[0]), use_map0=use_map0)
+            return sched.sample_repaint(predict, ref_z, lat_mask, z0=z0,
+                                        noise_fn=noise_fn, generator=generator, **hw)
 
     @torch.no_grad()
     def decode(self, latents: torch.Tensor) -> torch.Tensor:
         """(b, C*NC, T', H', W') latents -> (b, NC, 3, T, H, W) fp32 video, every
-        view decoded in the VAE's dtype."""
+        view decoded in the VAE's dtype; under a mesh the views are scattered
+        over its ranks and gathered (``sp_vae``)."""
         b, _, t, h, w = latents.shape
         C, nc = self.model_cfg.in_channels, self.model_cfg.nc
         lat = latents.reshape(b, C, nc, t, h, w).transpose(1, 2).reshape(b * nc, C, t, h, w)
-        vids = self.vae.decode(lat.to(self.vae.dtype))
+        vids = sp_vae(lat.to(self.vae.dtype), self.vae.decode, self.mesh)
         return vids.float().reshape(b, nc, *vids.shape[1:])
+
+
+def sequence_parallel_mesh(sp: int):
+    """(sp, mesh) for a config's ``sp_size``: the (dp=1, sp) mesh when the
+    ``torch.distributed`` world has sp ranks; sp 1 and no mesh, with a warning,
+    when it has fewer (the JAX package's rule for devices). A world larger than
+    sp (sp_size 1 included) raises: the serving apps run one sequence-parallel
+    group, and ranks beyond it would only repeat its samples."""
+    world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    if world > max(sp, 1):
+        raise ValueError(f"sp_size={sp} in a world of {world} processes: launch sp_size "
+                         "processes (one sequence-parallel group)")
+    if sp <= 1:
+        return 1, None
+    if world < sp:
+        logger.warning("sp_size=%d but only %d process(es); running unsharded", sp, world)
+        return 1, None
+    return sp, make_mesh(dp=1, sp=sp)
 
 
 def build_vae(cfg, dtype, device, seed: int) -> VideoAutoencoderKLCogVideoX:

@@ -11,10 +11,17 @@ edited by ``force_daytime`` / ``force_rainy`` / ``force_night``). With
 ``num_frames = "full"`` every scene pads to one bucket (``full_bucket_t``, else the
 split's longest scene) and the video is trimmed back to the scene's own length.
 
+A config with ``sp_size`` > 1 runs sequence-parallel over that many processes,
+one GPU each (``torchrun --nproc_per_node N``): every rank runs every forward
+and rank 0 alone writes the frames.
+
 Usage (from the repository root):
   python3 -m magicdrive_v2_tpu_torch.scripts.inference_magicdrive \\
       configs/magicdrive/inference/XXX.py [--synthetic] [--num-frames 17] \\
       [--num-samples 1] [--device cuda] [--cfg-options key=value ...]
+  torchrun --nproc_per_node 8 -m magicdrive_v2_tpu_torch.scripts.inference_magicdrive \\
+      configs/magicdrive/inference/fullx848x1600_stdit3_CogVAE_boxTDS_wCT_xCE_wSST.py \\
+      --synthetic --num-frames 17
 """
 from __future__ import annotations
 
@@ -47,9 +54,17 @@ def main(argv: Optional[List[str]] = None) -> List[Tuple[str, np.ndarray]]:
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s %(message)s")
+    from ..parallel.distributed import app_process_group
+
+    with app_process_group(args.device) as device:
+        return _main(args, device)
+
+
+def _main(args, device) -> List[Tuple[str, np.ndarray]]:
     import torch
 
     from ..config.config import Config, merge_dot_options
+    from ..parallel.distributed import is_main_process, startup_barrier
     from ..pipelines.magicdrive import MagicDrivePipeline, synthetic_batch
     from ..utils.ckpt import load_reference_weights
     from ..utils.inference_utils import (build_val_dataset, concat_6_views,
@@ -73,9 +88,11 @@ def main(argv: Optional[List[str]] = None) -> List[Tuple[str, np.ndarray]]:
             logger.info("full-length generation: bucket max-T = %d frames", num_frames)
     height, width = cfg.get("image_size", (224, 400))
     out_dir = cfg.get("outputs", "outputs/inference")
-    os.makedirs(out_dir, exist_ok=True)
+    if is_main_process():  # the other ranks write nothing
+        os.makedirs(out_dir, exist_ok=True)
 
-    pipe = MagicDrivePipeline.from_config(cfg, device=args.device)
+    pipe = MagicDrivePipeline.from_config(cfg, device=device)
+    startup_barrier(pipe.mesh)
     loaded = load_reference_weights(pipe.model, cfg, args.ckpt_path)
     if loaded:
         logger.info("loaded %s: %d missing, %d unused keys", loaded[0],
@@ -119,7 +136,7 @@ def main(argv: Optional[List[str]] = None) -> List[Tuple[str, np.ndarray]]:
                            guidance_scale=cfg.scheduler.get("cfg_scale", 2.0), z=z,
                            neg_prompts=neg)
         vids = vids[:, :, :, :t_valid]  # a padded scene back to its own length
-        for bi in range(vids.shape[0]):  # (b, NC, 3, T, H, W) in [-1, 1]
+        for bi in range(vids.shape[0] if is_main_process() else 0):  # (b, NC, 3, T, H, W)
             grid = concat_6_views(vids[bi])
             path = save_sample(grid, os.path.join(out_dir, f"sample_{ns}_{bi}"))
             saved.append((path, to_uint8_video(grid)))

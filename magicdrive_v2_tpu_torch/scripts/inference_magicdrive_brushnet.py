@@ -14,6 +14,9 @@ model's structured noise is made from.
 Not ported: ``--ped-dir`` (the pedestrian renders are .mp4 files, and the port
 has no video reader; it raises ``NotImplementedError``).
 
+A config with ``sp_size`` > 1 runs sequence-parallel over that many processes
+(``torchrun --nproc_per_node N``), as ``inference_magicdrive`` does.
+
 Usage (from the repository root):
   python3 -m magicdrive_v2_tpu_torch.scripts.inference_magicdrive_brushnet \\
       configs/magicdrive/inference/XXX_brushnet.py --synthetic [--sde] \\
@@ -80,9 +83,17 @@ def main(argv: Optional[List[str]] = None) -> List[Tuple[str, np.ndarray]]:
                         format="%(asctime)s %(name)s %(levelname)s %(message)s")
     if args.ped_dir:
         raise NotImplementedError(f"--ped-dir {PED_VIDEO_MISSING}")
+    from ..parallel.distributed import app_process_group
+
+    with app_process_group(args.device) as device:
+        return _main(args, device)
+
+
+def _main(args, device) -> List[Tuple[str, np.ndarray]]:
     import torch
 
     from ..config.config import Config, merge_dot_options
+    from ..parallel.distributed import is_main_process, startup_barrier
     from ..pipelines.magicdrive import MagicDrivePipeline, synthetic_batch
     from ..utils.ckpt import load_reference_weights
     from ..utils.inference_utils import (concat_6_views, resolve_num_frames, save_sample,
@@ -95,9 +106,11 @@ def main(argv: Optional[List[str]] = None) -> List[Tuple[str, np.ndarray]]:
     num_frames = resolve_num_frames(cfg, args.num_frames, "inference_brushnet")
     height, width = cfg.get("image_size", (224, 400))
     out_dir = cfg.get("outputs", "outputs/inference_brushnet")
-    os.makedirs(out_dir, exist_ok=True)
+    if is_main_process():  # the other ranks write nothing
+        os.makedirs(out_dir, exist_ok=True)
 
-    pipe = MagicDrivePipeline.from_config(cfg, device=args.device)
+    pipe = MagicDrivePipeline.from_config(cfg, device=device)
+    startup_barrier(pipe.mesh)
     loaded = load_reference_weights(pipe.model, cfg, args.ckpt_path)
     if loaded:
         logger.info("loaded %s: %d missing, %d unused keys", loaded[0],
@@ -122,7 +135,7 @@ def main(argv: Optional[List[str]] = None) -> List[Tuple[str, np.ndarray]]:
             batch["inpaint_input_noise"] = draw(
                 pipe.inpaint_noise_shape(tuple(z.shape), pipe.scheduler.slice_cfg))
         vids = pipe.sample(batch, num_frames=num_frames, height=height, width=width, z=z)
-        for bi in range(vids.shape[0]):  # (b, NC, 3, T, H, W) in [-1, 1]
+        for bi in range(vids.shape[0] if is_main_process() else 0):  # (b, NC, 3, T, H, W)
             grid = concat_6_views(vids[bi])
             path = save_sample(grid, os.path.join(out_dir, f"sample_{ns}_{bi}"))
             saved.append((path, to_uint8_video(grid)))

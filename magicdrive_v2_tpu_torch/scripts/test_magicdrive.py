@@ -19,6 +19,10 @@ Like ``inference_magicdrive``, plus the benchmark's submission plumbing:
   num_timesteps`` and its noise's normal draw from a CPU generator seeded 1024 +
   sample index.
 
+A config with ``sp_size`` > 1 (the 848x1600 ones) runs sequence-parallel over
+that many processes (``torchrun --nproc_per_node N``): every rank samples, rank 0
+alone back-transforms and writes.
+
 Not ported: ``--ped-video-dir`` (pedestrian grid videos are .mp4 files, and the
 port has no video reader; it raises ``NotImplementedError``).
 
@@ -96,9 +100,17 @@ def main(argv: Optional[List[str]] = None) -> List[Tuple[str, np.ndarray]]:
                         format="%(asctime)s %(name)s %(levelname)s %(message)s")
     if args.ped_video_dir:
         raise NotImplementedError(f"--ped-video-dir {PED_VIDEO_MISSING}")
+    from ..parallel.distributed import app_process_group
+
+    with app_process_group(args.device) as device:
+        return _main(args, device)
+
+
+def _main(args, device) -> List[Tuple[str, np.ndarray]]:
     import torch
 
     from ..config.config import Config, merge_dot_options
+    from ..parallel.distributed import is_main_process, startup_barrier
     from ..pipelines.magicdrive import MagicDrivePipeline, synthetic_batch
     from ..utils.ckpt import load_reference_weights
     from ..utils.inference_utils import (build_val_dataset, concat_6_views,
@@ -127,9 +139,11 @@ def main(argv: Optional[List[str]] = None) -> List[Tuple[str, np.ndarray]]:
             dataset = build_val_dataset(cfg, num_frames)
     height, width = cfg.get("image_size", (224, 400))
     out_dir = cfg.get("outputs", "outputs/test")
-    os.makedirs(out_dir, exist_ok=True)
+    if is_main_process():  # the other ranks write nothing
+        os.makedirs(out_dir, exist_ok=True)
 
-    pipe = MagicDrivePipeline.from_config(cfg, device=args.device)
+    pipe = MagicDrivePipeline.from_config(cfg, device=device)
+    startup_barrier(pipe.mesh)
     loaded = load_reference_weights(pipe.model, cfg, args.ckpt_path)
     if loaded:
         logger.info("loaded %s: %d missing, %d unused keys", loaded[0],
@@ -190,7 +204,7 @@ def main(argv: Optional[List[str]] = None) -> List[Tuple[str, np.ndarray]]:
                            use_map0=use_map0)
         vids = vids[:, :, :, :t_valid].cpu().numpy()  # (b, NC, 3, T, H, W)
         timings["sample_s"] += time.time() - t1
-        for sample in vids:
+        for sample in (vids if is_main_process() else ()):
             if cut_length:
                 sample = sample[:, :, :int(cut_length)]
             t1 = time.time()
@@ -216,8 +230,10 @@ def main(argv: Optional[List[str]] = None) -> List[Tuple[str, np.ndarray]]:
         del vids
         if torch.cuda.is_available():
             torch.cuda.empty_cache()
-        logger.info("sample %d saved (%s)", ns, save_mode)
-    logger.info("timings %s", json.dumps(timings))
+        if is_main_process():
+            logger.info("sample %d saved (%s)", ns, save_mode)
+    if is_main_process():
+        logger.info("timings %s", json.dumps(timings))
     return saved
 
 

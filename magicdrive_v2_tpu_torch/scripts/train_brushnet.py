@@ -19,7 +19,7 @@ from a seed drawn first, then standard-normal pixels ``x_inpaint`` and 0/1 masks
 steps draw t, t_inpaint and noise from (seed + 1, step), the SDE model's cutoff
 and noise from a second stream of (seed + 1, step). One JSON line a step; a loss
 that is not finite stops the run. No resume, as in the JAX app; ``sp_size > 1``
-is not ported (ROADMAP.md queue A item 5).
+is not ported (ROADMAP.md queue A item 5b).
 """
 from __future__ import annotations
 
@@ -93,7 +93,7 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
     device = resolve_device(args.device)
     if int(cfg.get("sp_size", 1) or 1) > 1:
         raise NotImplementedError("sp_size > 1: sequence-parallel training is not ported "
-                                  "yet (ROADMAP.md queue A item 5); set sp_size=1")
+                                  "yet (ROADMAP.md queue A item 5b); set sp_size=1")
     sde = args.sde or cfg.get("sde_inpaint", False)
     seed = cfg.get("seed", 0)
     dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[cfg.get("dtype", "bf16")]

@@ -28,7 +28,7 @@ from salt 3, the condition dropout from salt 4, t and noise from (seed + 1, step
 each dataset item from (seed, epoch, index).
 
 Not ported yet: ``sp_size > 1`` and ``simulate_sp_size`` (ROADMAP.md queue A item
-5), and TensorBoard scalars (the JAX app only tries them; ``metrics.jsonl`` holds
+5b), and TensorBoard scalars (the JAX app only tries them; ``metrics.jsonl`` holds
 the same numbers). With ``record_time`` each metrics line also has the step's
 seconds, the seconds it waited on the loader and those of the VAE encode.
 """
@@ -232,10 +232,10 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
     synthetic = args.synthetic or "dataset" not in cfg
     if int(cfg.get("sp_size", 1) or 1) > 1:
         raise NotImplementedError("sp_size > 1: sequence-parallel training is not ported "
-                                  "yet (ROADMAP.md queue A item 5); set sp_size=1")
+                                  "yet (ROADMAP.md queue A item 5b); set sp_size=1")
     if list(cfg.model.get("simulate_sp_size", ()) or cfg.get("simulate_sp_size", ())):
         raise NotImplementedError("simulate_sp_size (the training-time H-pad) is not "
-                                  "ported yet (ROADMAP.md queue A item 5)")
+                                  "ported yet (ROADMAP.md queue A item 5b)")
 
     seed0 = int(cfg.get("seed", 42))
     dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[cfg.get("dtype", "bf16")]

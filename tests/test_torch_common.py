@@ -105,3 +105,13 @@ def test_tiny_configs_agree():
             continue
         assert getattr(jcfg, f.name) == getattr(tcfg, f.name), f.name
     assert (jcfg.nc, jcfg.out_channels) == (tcfg.nc, tcfg.out_channels)
+
+
+def spawn_ranks(n, argv, deadline_s, env=None, cwd=None):
+    """The port's launcher (``parallel.distributed.spawn_ranks``) for the CPU
+    tests: ranks of a gloo group started from the repo's root, one OpenMP thread
+    each."""
+    from magicdrive_v2_tpu_torch.parallel.distributed import spawn_ranks as spawn
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    return spawn(n, argv, deadline_s, env=dict(OMP_NUM_THREADS="1", **(env or {})),
+                 cwd=cwd or repo)

@@ -468,3 +468,54 @@ def test_functions_run_only_where_autograd_records():
     assert "PlainVJPFunction" not in type(out.grad_fn).__name__
     out.sum().backward()
     assert qkv.grad is not None
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_every_launch_runs_under_the_device_guard(monkeypatch, dtype):
+    """Each wrapper's launch (K1's pre-pass and attention, K2, K3), in bf16 and fp32,
+    calls its C entry only inside ``_cuda_build.on_device`` of its own input, with
+    the stream that guard yields: on a host with several cards rank k launches on
+    card k. The C entries are replaced by recorders and the launches driven on CPU
+    tensors (the guard is replaced too: this build has no CUDA)."""
+    import contextlib
+    import importlib
+
+    from magicdrive_v2_tpu_torch.ops import _cuda_build
+    k1, k2, k3 = (importlib.import_module(f"magicdrive_v2_tpu_torch.ops.{m}")
+                  for m in ("flash_fused", "fused_adaln", "flash_attention"))
+    guarded, calls = [], []
+
+    @contextlib.contextmanager
+    def guard(tensor):
+        guarded.append(tensor)
+        try:
+            yield 1234
+        finally:
+            guarded.pop()
+
+    def entry(name):
+        def call(*args):
+            assert guarded, f"{name} launched outside the device guard"
+            assert args[0] == guarded[-1].data_ptr() and args[-1] == 1234, name
+            calls.append(name)
+            return 0
+        return call
+
+    monkeypatch.setattr(_cuda_build, "on_device", guard)
+    monkeypatch.setattr(k1, "_fns", (entry("k1 pre-pass"), entry("k1"), entry("k1 fp32")))
+    monkeypatch.setattr(k2, "_fn", entry("k2"))
+    monkeypatch.setattr(k3, "_fns", (entry("k3"), entry("k3 fp32")))
+    for fn in (k1.fused_qkv_attention, k2.adaln_modulate, k3.flash_attention):
+        monkeypatch.setattr(fn, "launches", 0)
+    rng = np.random.default_rng(0)
+    qkv = torch.from_numpy(rng.standard_normal((2, 70, 3, 2, 72), np.float32)).to(dtype)
+    w = torch.ones(72)
+    k1._launch(qkv, w, w, None, 72 ** -0.5)
+    x = torch.from_numpy(rng.standard_normal((2, 10, 64), np.float32)).to(dtype)
+    k2._launch(x, x[:, 0], x[:, 1], 1e-6)
+    q = torch.from_numpy(rng.standard_normal((2, 70, 2, 72), np.float32)).to(dtype)
+    k3._launch(q, q[:, :20], q[:, 20:40], 72 ** -0.5)
+    bf16 = dtype == torch.bfloat16
+    assert calls == (["k1 pre-pass", "k1", "k2", "k3"] if bf16 else ["k1 fp32", "k2", "k3 fp32"])
+    assert (k1.fused_qkv_attention.launches, k2.adaln_modulate.launches,
+            k3.flash_attention.launches) == (1, 1, 1)

@@ -9,6 +9,7 @@ weights through ``from_jax_params``. Tolerance 3e-4 absolute on latents of order
 through a model that itself agrees to 1e-4.
 """
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -188,13 +189,15 @@ def test_decode_is_not_silently_skipped_and_latent_size(pipes):
     assert get_latent_size([35, 64, 80], 17) == vae.get_latent_size([35, 64, 80], 17)
 
 
-def test_inference_app_writes_the_six_view_grid(tmp_path):
+def test_inference_app_writes_the_six_view_grid(tmp_path, caplog):
     """The app on the CPU: the smoke_tiny config, synthetic conditioning, 2 steps,
     the tiny VAE from a diffusers snapshot the test writes. 9 frames -> 9 PNGs of
     the 2x3 grid (128x240) equal to the arrays the app returns; 1 frame -> one
     PNG. A missing T5 snapshot falls back to "t5-dummy"; a config with a dataset
     conditions on it (tests/test_torch_wcoda_app.py), so a val split without an
-    ann_file is refused; sp_size > 1 and a missing --ckpt-path are refused."""
+    ann_file is refused; sp_size > 1 in one process runs unsharded with a warning
+    (tests/test_torch_sp_pipeline.py runs it on ranks); a missing --ckpt-path is
+    refused."""
     from magicdrive_v2_tpu_torch.scripts.inference_magicdrive import main
     from magicdrive_v2_tpu_torch.utils.inference_utils import read_png
     _, tvae = _tiny_vaes()
@@ -220,8 +223,11 @@ def test_inference_app_writes_the_six_view_grid(tmp_path):
     np.testing.assert_array_equal(read_png(path1), frames1[0])
     with pytest.raises(TypeError, match="ann_file"):
         main(argv + ["dataset.data.val.type=NuScenesTDataset"])
-    with pytest.raises(NotImplementedError, match="sp_size"):
-        main(argv[:1] + ["--synthetic"] + argv[1:] + ["sp_size=2"])
+    with caplog.at_level(logging.WARNING):
+        [(_, frames_sp)] = main(argv[:1] + ["--synthetic", "--num-frames", "1"] + argv[1:]
+                                + ["sp_size=2"])
+    assert "sp_size=2 but only 1 process(es); running unsharded" in caplog.text
+    np.testing.assert_array_equal(frames_sp, frames1)
     with pytest.raises(FileNotFoundError, match="ckpt_path"):
         main(argv[:1] + ["--synthetic", "--ckpt-path", str(tmp_path / "no.pt")] + argv[1:])
 

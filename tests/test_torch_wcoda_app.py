@@ -266,16 +266,15 @@ def test_wcoda_test_app_matches_jax(assets, tmp_path, monkeypatch, caplog, save_
 
 
 def test_wcoda_test_app_refuses_what_is_not_ported(tmp_path, assets):
-    """What the app does not do: read pedestrian grid videos (no video reader),
-    sequence parallelism, a checkpoint that is not there. The inpainting options
-    run (tests/test_torch_brushnet_wcoda.py)."""
+    """What the app does not do: read pedestrian grid videos (no video reader), a
+    checkpoint that is not there. The inpainting options run
+    (tests/test_torch_brushnet_wcoda.py), and so does sequence parallelism
+    (tests/test_torch_sp_pipeline.py)."""
     from magicdrive_v2_tpu_torch.scripts import test_magicdrive
     cfg = write_config(tmp_path / "cfg.py", tmp_path / "out", assets["ann"],
                        assets["vae_dir"], 9, [0])
     with pytest.raises(NotImplementedError, match="video reader"):
         test_magicdrive.main([cfg, "--device", "cpu", "--sde", "--ped-video-dir",
                               str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
-        test_magicdrive.main([cfg, "--device", "cpu", "--cfg-options", "sp_size=4"])
     with pytest.raises(FileNotFoundError, match="ckpt_path"):
         test_magicdrive.main([cfg, "--device", "cpu", "--ckpt-path", str(tmp_path / "no.pt")])
