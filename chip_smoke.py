@@ -24,7 +24,7 @@ card. It imports only ``magicdrive_v2_tpu_torch`` and
 4. ``slice``    drives the main path: MagicDriveSTDiT3-XL/2 at full width and depth
                 in bf16, six views of 424x800, 17 frames, batched classifier-free
                 guidance, ``MagicDrivePipeline.sample(decode=True)`` for a few
-                requests: 10 Euler steps, then the CogVideoX-2b VAE decode in bf16
+                requests: 5 Euler steps, then the CogVideoX-2b VAE decode in bf16
                 one view at a time, with seeded random weights and the
                 ``t5-dummy`` text encoder; checks shape, finiteness, determinism
                 of the decoded video, that two seeds give two results (with one
@@ -37,7 +37,7 @@ card. It imports only ``magicdrive_v2_tpu_torch`` and
                 rflow-slice, VAE tiling) through ``MagicDrivePipeline.from_config``
                 in one process of an NCCL group of one, so it runs unsharded with
                 the fsp8 pad (S=5600): XL/2 full width and depth, bf16, 6 views, 17
-                frames, 2 steps, ``sample(decode=True)``, a rerun of the seed
+                frames, 1 step, ``sample(decode=True)``, a rerun of the seed
                 bit-equal; s/step, decode s, peak memory, launches, the shapes
                 each wrapper was handed;
 5b. ``sp_ranks`` sequence parallelism across processes: 4 ranks (gloo on one
@@ -62,6 +62,21 @@ card. It imports only ``magicdrive_v2_tpu_torch`` and
                 identity, launch counters equal to the remat layout's; s/step,
                 samples/s, tokens/s, peak memory; then the train app on the tiny
                 config for 2 steps and a resume of 2;
+7a. ``sp_train`` sequence-parallel training: XL/2 at full width, depth 2 / control
+                1, from the stage-3 config (bf16 over fp32 masters, remat full) at
+                its 848x1600 bucket (9 frames, b=1: S=5300, 2650 a rank), 2 steps
+                on 2 processes (gloo on one card, NCCL with a card a rank; the mesh
+                by the train apps' rule) against 2 in one process with the sp pad
+                forced: loss, grad norm, the grads before the clip, parameters and
+                EMA after the steps; the ranks bit-equal after them; launches
+                and backwards per step; the grad all-reduce's seconds; every shape
+                the ranks handed a wrapper held against its plain version;
+7b. ``stage3_app`` the train app on ``configs/magicdrive/train/
+                stage3_multires_sp4.py --synthetic`` in one process (sp = min(4, 1)
+                = 1: ``simulate_sp_size`` [4, 8] alone picks the pad), XL/2 at full
+                width and depth, the 224-400-12-33 bucket at its batch of 4, 2
+                steps: each step's pick, s/step, peak memory, the metrics read
+                back, launches;
 8. ``decode_vs_cpu``  the VAE decode on the card against the CPU's (fp32, TF32 off,
                 one view of 5 latent frames, so the 3 + 2 streaming runs), and a
                 bf16 against an fp32 decode of one main-path view on the card,
@@ -78,7 +93,7 @@ card. It imports only ``magicdrive_v2_tpu_torch`` and
                 polygon fill (timed on the BEV object layers);
 11. ``test_app`` the W-CODA test app (``scripts.test_magicdrive``) on a config
                 whose ``_base_`` is the 424x800 inference config, with a dataset on
-                that set: XL/2 bf16, 17 frames, 2 Euler steps, the CogVideoX-2b VAE
+                that set: XL/2 bf16, 17 frames, 1 Euler step, the CogVideoX-2b VAE
                 decode, back-transform to 900x1600, 16 all-in-one frames read back;
                 launch counters; host and device seconds apart;
 12. ``train_data`` the train app on a config whose ``_base_`` is the stage-2 config,
@@ -92,7 +107,7 @@ card. It imports only ``magicdrive_v2_tpu_torch`` and
                 timestep moves the output;
 14. ``brushnet`` full XL/2-SDEBrushNet (28 + 28 BrushNet blocks) from the 424x800
                 BrushNet config, bf16, 6x424x800x17f, batched CFG, t_inpaint 200:
-                launches of a forward, one request of 4 steps with the VAE decode
+                launches of a forward, one request of 2 steps with the VAE decode
                 (s/step, s/sample, peak memory), the ShallowEncoder, the mask resize
                 and the structured noise timed apart; then ``brushnet_plain``: one
                 request of the plain BrushNet type, 2 steps;
@@ -113,27 +128,28 @@ card. It imports only ``magicdrive_v2_tpu_torch`` and
 18. ``brushnet_train``  the BrushNet trainer at full width and depth in the
                 stage-2 bucket and settings (b=4, remat, bf16 over fp32 masters,
                 AdamW, EMA 0.99): XL/2-SDEBrushNet, 2 steps (the SDE loss, the cutoff
-                jitter), then ``brushnet_train_plain``: the BrushNet type, 2 steps;
+                jitter), then ``brushnet_train_plain``: the BrushNet type at depth
+                7 / control depth 4, 2 steps;
                 the frozen base and its EMA bit-equal after the steps, every branch
                 tensor moved, the EMA identity, launches and backwards as derived;
                 s/step, tokens/s, peak memory;
 19. ``remat``   base XL/2, stage-2 bucket, b=1: forward and backward under each
                 remat policy (``full``, ``dots``, ``offload_carry``) over the same
-                state on the card, one untimed and 3 timed (median, spread); grads
+                state on the card, one untimed and 2 timed (median, spread); grads
                 against ``full``'s, peak memory, bytes sent to the host;
 20. ``brushnet_train_app``  the BrushNet train app on the tiny config, with and
                 without ``--sde``, 2 steps; its checkpoint read back strictly;
 21. ``app848``  (after phase 12) the W-CODA app on the 848x1600 config
                 (``configs/magicdrive/test/17-16x848x1600_map0_fsp4_cfg2.0.py``,
                 rflow-slice) over the generated set through the 848x1600 dataset
-                yaml, 2 steps, ``image_filename`` frames read back; launch counters;
+                yaml, 1 step, ``image_filename`` frames read back; launch counters;
                 every shape it handed a wrapper held against its plain version as
                 in phase 3 (``app848_kernel_cases``).
 
 Every phase prints one JSON line. Any failure raises: the exit code is then not
 0 and no result line is printed. Without a card the script exits with code 1.
 
-Options (none needed): ``--steps N`` sampling steps of phase slice (default 10),
+Options (none needed): ``--steps N`` sampling steps of phase slice (default 5),
 ``--requests N``
 (default 1), ``--seed S`` weights seed, ``--profile`` to add ``profile`` phases
 (device time by kernel over one Euler step, over the decode of one view and over
@@ -1059,7 +1075,7 @@ SP848_CONFIG = "configs/magicdrive/inference/fullx848x1600_stdit3_CogVAE_boxTDS_
 APP848_CONFIG = "configs/magicdrive/test/17-16x848x1600_map0_fsp4_cfg2.0.py"
 DATA_YAML_848 = "Nuscenes_400_map_cache_box_t_with_n2t_12Hz_848x1600"
 H848, W848 = 848, 1600
-SP848_STEPS = 2
+SP848_STEPS = 1
 SP_RANKS = 4            # processes of phase sp_ranks (meshes (1, 4) and (2, 2))
 SP_RANKS_DEADLINE_S = 420
 # sp_vae's check: 6 views of the 224x400 bucket (4 ranks decode on one card at once)
@@ -1326,7 +1342,7 @@ GRAD_FP32_LIMIT = 1e-3       # per tensor: max|g_kernels - g_plain| / max|g_plai
 GRAD_BF16_RMS_LIMIT = 2.0 ** -6
 FN_FP32_LIMIT = 1e-5         # per grad: max|g_function - g_autograd| / max|g_autograd|
 FN_BF16_LIMIT = 2.0 ** -7    # the same in bf16 (one ulp of the largest element)
-REMAT_REPS = 3               # timed forward+backward runs a remat policy
+REMAT_REPS = 2               # timed forward+backward runs a remat policy
 
 
 def train_config(torch):
@@ -1735,6 +1751,331 @@ def run_train_app(torch):
          losses=[line["loss"] for line in lines], launches=got, validation_frames=len(frames))
 
 
+# ---------------------------------------------------------------------------
+# phases 7a and 7b: sequence-parallel training and the stage-3 config
+# ---------------------------------------------------------------------------
+
+STAGE3_CONFIG = "configs/magicdrive/train/stage3_multires_sp4.py"
+SP_TRAIN_RANKS = 2          # processes of phase sp_train (mesh (1, 2))
+SP_TRAIN_BUCKET = (9, H848, W848)  # 848-1600-12-9, one view group: S = 53 x 100
+SP_TRAIN_STEPS = 2
+SP_TRAIN_DEADLINE_S = 600
+# params and EMA after the steps, sharded against one process: an element may move
+# apart by at most two opposite AdamW steps a step; beyond an eighth of a step only
+# where a grad's sign flipped between the two runs' roundings, at most this share
+SP_TRAIN_FLIP_SHARE = 0.05
+STAGE3_APP_BUCKET = (33, 224, 400)  # 224-400-12-33 at its batch of 4
+STAGE3_APP_STEPS = 2
+
+
+def sp_train_config(torch):
+    """The stage-3 config as the port loads it, at the 848-1600-12-9 bucket, b=1."""
+    from magicdrive_v2_tpu_torch.config.config import Config
+    cfg = Config.fromfile(STAGE3_CONFIG)
+    require((cfg.sp_size, list(cfg.simulate_sp_size)) == (4, [4, 8]), cfg.sp_size)
+    require("848-1600-12-9" in cfg.bucket_config, cfg.bucket_config)
+    cfg.synthetic_buckets = [SP_TRAIN_BUCKET]
+    cfg.batch_size = 1
+    return cfg
+
+
+def sp_train_state(torch, cfg, seed, dtype, **overrides):
+    """XL/2 at full width, depth 2 / control depth 1, from the stage-3 config (remat
+    full, AdamW at its lr 1e-5 without the 500-step warm-up, so that two steps move
+    the parameters by that lr; EMA 0.99) in ``dtype`` over fp32 masters on the
+    current card, with seeded weights: (model config, state, the bucket's step)."""
+    from magicdrive_v2_tpu_torch.models.magicdrive.stdit3 import MagicDriveSTDiT3
+    from magicdrive_v2_tpu_torch.schedulers.rf import build_scheduler
+    from magicdrive_v2_tpu_torch.training.trainer import build_training_multibucket
+    from magicdrive_v2_tpu_torch.utils.ckpt import init_weights
+    model_cfg = train_model_config(torch, cfg, dtype, depth=2, control_depth=1,
+                                   remat_policy="full", **overrides)
+    with torch.device("cuda"):
+        model = MagicDriveSTDiT3(model_cfg)
+    init_weights(model, seed=seed)
+    run_cfg = dict(cfg, warmup_steps=0,
+                   dtype={torch.bfloat16: "bf16", torch.float32: "fp32"}[dtype])
+    state, get_step = build_training_multibucket(model, build_scheduler(cfg.scheduler),
+                                                 run_cfg, seed=seed + 1)
+    nf, h, w = SP_TRAIN_BUCKET
+    return model_cfg, state, get_step(h, w, nf)
+
+
+def sp_train_steps(torch, cfg, model_cfg, state, step_fn, seed, steps, mesh=None,
+                   seen=None, after_step=None):
+    """``steps`` steps of the app's synthetic batches (frame masks, condition
+    dropout) under ``mesh``; each step's loss, grad norm, seconds, launches and
+    backwards; the grads of the first step before the clip, on the host."""
+    from magicdrive_v2_tpu_torch.parallel.sharding import use_mesh
+    from magicdrive_v2_tpu_torch.utils.misc import to_device
+    named = dict(state.model.named_parameters())
+    grads0 = {}
+    clip_step = state.optimizer.step
+
+    def step_keeping_grads():
+        if not grads0:
+            grads0.update({n: None if p.grad is None else p.grad.detach().cpu().clone()
+                           for n, p in named.items()})
+        return clip_step()
+
+    state.optimizer.step = step_keeping_grads
+    rows = []
+    batches = train_batches(cfg, model_cfg, seed)
+    for i in range(steps):
+        batch, bucket = next(batches)
+        require(bucket == (SP_TRAIN_BUCKET[0], float(H848), float(W848)), bucket)
+        dev = to_device(batch, "cuda")
+        torch.cuda.synchronize()
+        reset_counters()
+        reset_backward_calls()
+        t0 = time.time()
+        with use_mesh(mesh), (recorded_shapes(seen) if seen is not None
+                              else contextlib.nullcontext()):
+            state, metrics = step_fn(state, dev)
+        torch.cuda.synchronize()
+        rows.append(dict(seconds=time.time() - t0, loss=float(metrics["loss"]),
+                         grad_norm=float(metrics["grad_norm"]), launches=read_counters(),
+                         backwards=read_backward_calls()))
+        if after_step is not None:
+            rows[-1].update(after_step(state))
+    state.optimizer.step = clip_step
+    return rows, grads0
+
+
+def flat_state(torch, state):
+    """Every parameter and EMA tensor, flattened into one host tensor, in order."""
+    parts = [p.detach().reshape(-1) for p in state.model.parameters()]
+    parts += [p.detach().reshape(-1) for p in state.ema.parameters()]
+    return torch.cat(parts).cpu()
+
+
+def sp_train_worker(torch, out_dir, seed):
+    """One rank of phase sp_train (``chip_smoke.py --sp-train-worker DIR``): joins
+    the group the parent describes (backend in MDV2_SP_BACKEND), builds the mesh by
+    the train apps' rule (``training_mesh``: sp = min(sp_size 4, 2 ranks)), runs
+    the steps sharded with the grad reduction timed, and after the last step sends
+    its parameters and EMA to rank 0, which compares them bit for bit. Rank 0 writes the
+    first step's grads and the final parameters and EMA; every rank its steps and
+    the shapes it handed each wrapper."""
+    import torch.distributed as dist
+    from magicdrive_v2_tpu_torch.parallel.distributed import (maybe_initialize, shutdown,
+                                                              training_mesh)
+    from magicdrive_v2_tpu_torch.training import trainer
+    backend = os.environ["MDV2_SP_BACKEND"]
+    maybe_initialize("cuda", backend=backend, timeout_s=SP_TRAIN_DEADLINE_S)
+    rank = dist.get_rank()
+    reduce_sp_grads = trainer.reduce_sp_grads
+    reduces = []
+
+    def timed_reduce(params, group):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        calls = reduce_sp_grads(params, group)
+        torch.cuda.synchronize()
+        reduces.append(dict(seconds=time.time() - t0, all_reduces=calls,
+                            bytes=sum(p.grad.numel() * p.grad.element_size()
+                                      for p in params if p.grad is not None)))
+        return calls
+
+    trainer.reduce_sp_grads = timed_reduce
+    try:
+        cfg = sp_train_config(torch)
+        mesh = training_mesh(cfg.sp_size)
+        require(mesh is not None and (mesh.dp, mesh.sp) == (1, SP_TRAIN_RANKS), mesh)
+        model_cfg, state, step_fn = sp_train_state(torch, cfg, seed, torch.bfloat16,
+                                                   enable_sequence_parallelism=True)
+
+        def ranks_equal(state):
+            if state.step < SP_TRAIN_STEPS:
+                return {}
+            flat = flat_state(torch, state)
+            other = flat.clone() if rank == 0 else flat
+            dist.broadcast(other, src=1, group=mesh.sp_group)
+            return {"equal_to_rank1": bool(torch.equal(flat, other)) if rank == 0 else None}
+
+        seen = no_shapes()
+        with no_tf32(torch):  # as the one-process reference runs
+            rows, grads0 = sp_train_steps(torch, cfg, model_cfg, state, step_fn, seed,
+                                          SP_TRAIN_STEPS, mesh=mesh, seen=seen,
+                                          after_step=ranks_equal)
+        out = dict(rows=rows, reduces=reduces, seen=seen, backend=dist.get_backend(),
+                   device=str(torch.cuda.current_device()))
+        if rank == 0:
+            out.update(grads0=grads0,
+                       params={n: p.detach().cpu() for n, p in state.model.named_parameters()},
+                       ema={n: p.detach().cpu() for n, p in state.ema.named_parameters()})
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        trainer.reduce_sp_grads = reduce_sp_grads
+        shutdown()
+    return 0
+
+
+def run_sp_train(torch, seed, encode_launches, held):
+    """Sequence-parallel training at the 848x1600 bucket of the stage-3 config: XL/2
+    at full width, depth 2 / control depth 1, bf16 over fp32 masters, remat full,
+    b=1, 6 views x 9 frames (S=5300, 2650 a rank). Two steps on SP_TRAIN_RANKS
+    processes (gloo on one card, NCCL with a card a rank) against two in one
+    process with force_pad_h_for_sp_size=2 (the same function; S needs no pad).
+    Held: the loss and grad norm within 2**-6; the first step's grads before the
+    clip by phase grads' bf16 rule (rms of the difference within 2**-6 rms plus the
+    distance of the one-process bf16 grad from its fp32 one); the parameters and
+    EMA after both steps within two opposite AdamW steps, beyond an eighth of a
+    step in at most SP_TRAIN_FLIP_SHARE of the elements; the ranks bit-equal after
+    the steps (the CPU tests hold them after every step); each rank's launches and
+    backwards those of one unsharded remat step; every shape a rank handed a
+    wrapper held against its plain version."""
+    from magicdrive_v2_tpu_torch.utils.train_utils import multistep_warmup_schedule
+    t_phase = time.time()
+    cfg = sp_train_config(torch)
+    ref_rows = {}
+    grads_ref = {}
+    with no_tf32(torch):
+        for dtype, steps in ((torch.float32, 1), (torch.bfloat16, SP_TRAIN_STEPS)):
+            torch.cuda.reset_peak_memory_stats()
+            model_cfg, state, step_fn = sp_train_state(torch, cfg, seed, dtype,
+                                                       force_pad_h_for_sp_size=2)
+            ref_rows[dtype], grads_ref[dtype] = sp_train_steps(
+                torch, cfg, model_cfg, state, step_fn, seed, steps)
+            if dtype == torch.bfloat16:
+                params_ref = {n: p.detach().cpu() for n, p in state.model.named_parameters()}
+                ema_ref = {n: p.detach().cpu() for n, p in state.ema.named_parameters()}
+                ref_peak = torch.cuda.max_memory_allocated()
+            del state, step_fn
+            torch.cuda.empty_cache()
+    ref_seconds = time.time() - t_phase
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_sp_train_")
+    try:
+        t0 = time.time()
+        from magicdrive_v2_tpu_torch.parallel.distributed import spawn_ranks
+        backend = "nccl" if torch.cuda.device_count() >= SP_TRAIN_RANKS else "gloo"
+        spawn_ranks(SP_TRAIN_RANKS, [os.path.abspath(__file__), "--sp-train-worker", out_dir,
+                                     "--seed", str(seed)],
+                    SP_TRAIN_DEADLINE_S, env={"MDV2_SP_BACKEND": backend},
+                    local_ranks=None if backend == "nccl" else [0] * SP_TRAIN_RANKS)
+        ranks_seconds = time.time() - t0
+        res = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+               for r in range(SP_TRAIN_RANKS)]
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    bf16_model_cfg = train_model_config(torch, cfg, torch.bfloat16, depth=2, control_depth=1)
+    per_forward = expected_launches(bf16_model_cfg, x_mask=True)
+    want = {k: 2 * per_forward[k] + encode_launches[k] for k in per_forward}
+    want_backward = {k: per_forward[k] + encode_launches[k] for k in per_forward}
+    rows0, ref = res[0]["rows"], ref_rows[torch.bfloat16]
+    for r in res:
+        for row in r["rows"]:
+            require(row["launches"] == want and row["backwards"] == want_backward,
+                    (row["launches"], want, row["backwards"], want_backward))
+    require(rows0[-1]["equal_to_rank1"] is True, "the ranks' parameters differ")
+    metrics = []
+    for got, one in zip(rows0, ref):
+        for k in ("loss", "grad_norm"):
+            err = abs(got[k] - one[k])
+            require(math.isfinite(got[k]) and err <= 2.0 ** -6 * abs(one[k]), (k, got, one))
+        metrics.append(dict(loss=got["loss"], loss_one_process=one["loss"],
+                            grad_norm=got["grad_norm"], grad_norm_one_process=one["grad_norm"]))
+    worst, with_grad, roundings = compare_grads(torch, res[0]["grads0"],
+                                                grads_ref[torch.bfloat16],
+                                                grads_ref[torch.float32])
+    require(worst[0] <= 1.0 and with_grad > 0, worst)
+    sched = multistep_warmup_schedule(cfg.lr)  # sp_train_state's: no warm-up
+    lrs = [sched(i) for i in range(SP_TRAIN_STEPS)]
+    flip = 2 * sum(lrs) * (1 + cfg.weight_decay)
+    agreement = {}
+    for key, got, one, scale in (("params", res[0]["params"], params_ref, 1.0),
+                                 ("ema", res[0]["ema"], ema_ref, 1 - cfg.ema_decay ** 2)):
+        worst_abs, beyond, total = 0.0, 0, 0
+        for name, p in one.items():
+            err = (got[name] - p).abs()
+            worst_abs = max(worst_abs, float(err.max()))
+            beyond += int((err > scale * sum(lrs) / 8).sum())
+            total += err.numel()
+        agreement[key] = dict(max_abs_err=worst_abs, limit=scale * flip,
+                              share_beyond_eighth_step=beyond / total)
+        require(worst_abs <= scale * flip and beyond / total <= SP_TRAIN_FLIP_SHARE,
+                (key, agreement[key]))
+    seen = no_shapes()
+    for r in res:
+        for k, perm in r["seen"]["fused_qkv_attention"].items():
+            seen["fused_qkv_attention"].setdefault(k, perm)
+        seen["adaln_modulate"] |= r["seen"]["adaln_modulate"]
+        seen["flash_attention"] |= r["seen"]["flash_attention"]
+    heads = {k[0][3] for k in seen["fused_qkv_attention"]}
+    require(heads == {16 // SP_TRAIN_RANKS}, heads)
+    nf, h, w = SP_TRAIN_BUCKET
+    tokens = 6 * ((nf - 1) // 4 + 1) * (h // 16) * (w // 16)
+    emit("sp_train", config=STAGE3_CONFIG, bucket="848-1600-12-9", batch=1,
+         depth=2, control_depth=1, dtype="bfloat16 compute, float32 masters",
+         remat="full", ranks=SP_TRAIN_RANKS, backend=res[0]["backend"],
+         card_of_each_rank=[r["device"] for r in res], tokens_per_step=tokens,
+         tokens_per_rank=tokens // SP_TRAIN_RANKS,
+         k1_heads_per_rank=sorted(heads), metrics=metrics,
+         grads_worst_ratio_to_limit=worst[0], grads_worst_tensor=worst[1],
+         tensors_with_grad=with_grad,
+         bf16_rounding_rms_ratio_max=max(roundings) if roundings else None,
+         after_steps=agreement, ranks_bit_equal_after_the_steps=rows0[-1]["equal_to_rank1"],
+         seconds_per_step_rank0=[row["seconds"] for row in rows0],
+         seconds_per_step_one_process=[row["seconds"] for row in ref],
+         grad_all_reduce=res[0]["reduces"], launches_per_step_rank0=rows0[-1]["launches"],
+         backwards_per_step=want_backward, one_process_peak_memory_bytes=ref_peak,
+         reference_seconds=ref_seconds, ranks_seconds=ranks_seconds,
+         kernel_cases=held.hold(seen, "sp_train"), seconds=time.time() - t_phase)
+    torch.cuda.empty_cache()
+    return {k: sum(row["launches"][k] for row in rows0) for k in per_forward}
+
+
+def run_stage3_app(torch, encode_launches):
+    """The train app on the stage-3 config (sp_size 4, simulate_sp_size [4, 8]) in
+    one process: sp = min(4, 1) = 1, so the simulate pick alone pads H (14 -> 16
+    for either pick). XL/2 at full width and depth, the 224-400-12-33 bucket at its
+    batch of 4, synthetic, 2 steps, no checkpoint (33 GB); each step's pick, s/step,
+    peak memory, the metrics read back, the launches of 2 remat steps."""
+    import random
+    from magicdrive_v2_tpu_torch.scripts import train_magicdrive
+    t_phase = time.time()
+    cfg = sp_train_config(torch)
+    nf, h, w = STAGE3_APP_BUCKET
+    b = cfg.bucket_config[f"{h}-{w}-12-{nf}"]
+    require(b == 4, b)
+    out_dir = os.path.join("outputs", "chip_smoke_stage3_app")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    argv = [STAGE3_CONFIG, "--synthetic", "--max-steps", str(STAGE3_APP_STEPS),
+            "--cfg-options", f"outputs={out_dir}", f"synthetic_buckets=[({nf},{h},{w})]",
+            f"batch_size={b}", "ckpt_every=0", "log_every=1", "record_time=True"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    lines = train_magicdrive.main(argv)
+    got = read_counters()
+    peak = torch.cuda.max_memory_allocated()
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        read_back = [json.loads(line) for line in f]
+    shutil.rmtree(out_dir, ignore_errors=True)
+    picks = [random.Random((cfg.seed + 2) * 1_000_003 + s).choice(list(cfg.simulate_sp_size))
+             for s in range(STAGE3_APP_STEPS)]
+    require([line["step"] for line in read_back] == list(range(1, STAGE3_APP_STEPS + 1))
+            and [line["simulate_sp"] for line in read_back] == picks, (read_back, picks))
+    require(all(math.isfinite(line["loss"]) and math.isfinite(line["grad_norm"])
+                for line in read_back), read_back)
+    require([(x["loss"], x["grad_norm"]) for x in lines]
+            == [(x["loss"], x["grad_norm"]) for x in read_back], (lines, read_back))
+    model_cfg = train_model_config(torch, cfg, torch.bfloat16)
+    require((model_cfg.depth, model_cfg.control_depth, model_cfg.hidden_size)
+            == (28, 13, 1152), model_cfg)
+    per_forward = expected_launches(model_cfg, x_mask=True)
+    want = {k: STAGE3_APP_STEPS * (2 * per_forward[k] + encode_launches[k])
+            for k in per_forward}
+    require(got == want, (got, want))
+    T, H, W = (nf - 1) // 4 + 1, h // 16, w // 16
+    emit("stage3_app", config=STAGE3_CONFIG, bucket=f"{h}-{w}-12-{nf}", batch=b,
+         sp=1, simulate_sp_choices=list(cfg.simulate_sp_size), picks=picks,
+         h_tokens=[H, 16], tokens_unpadded=b * 6 * T * H * W, tokens_padded=b * 6 * T * 16 * W,
+         seconds_per_step=[x["step_s"] for x in read_back], metrics=read_back,
+         peak_memory_bytes=peak, launches=got, seconds=time.time() - t_phase)
+    return got
+
+
 DECODE_FP32_LIMIT = 1e-4  # absolute, frames of order 1: fp32 in another summation order
 DECODE_BF16_RMS_LIMIT = 2.0 ** -5.5  # rms(bf16 - fp32) / rms(fp32), see run_decode_vs_cpu
 
@@ -2018,13 +2359,18 @@ def write_config(path, lines):
         f.write("\n".join(f"{k} = {v!r}" for k, v in lines.items()) + "\n")
 
 
+# Euler steps of the W-CODA app's phases (test_app, brushnet_test_app, app848)
+TEST_APP_STEPS = 1
+
+
 def run_test_app(torch, per_forward, encode_launches, ann, root, base_config=APP_CONFIG,
                  extra_argv=(), phase="test_app", data_yaml=DATA_YAML_424,
                  save_mode="all-in-one", seen=None):
     """The W-CODA test app on the config ``base_config`` with a dataset on the
     generated set through ``data_yaml``, ``extra_argv`` added to its command line;
     its frames are written under outputs/ in the checkout in ``save_mode``, read
-    back and removed. Two forwards a step under the config's rflow-slice. With
+    back and removed. TEST_APP_STEPS steps, two forwards a step under the config's
+    rflow-slice. With
     ``seen``, the shapes each wrapper was handed are noted there."""
     from magicdrive_v2_tpu_torch.config.presets import img_collate_param
     from magicdrive_v2_tpu_torch.scripts import test_magicdrive
@@ -2035,7 +2381,7 @@ def run_test_app(torch, per_forward, encode_launches, ann, root, base_config=APP
     write_config(config, {
         "_base_": os.path.abspath(base_config), "num_frames": NUM_FRAMES,
         "validation_index": [0], "outputs": out_dir, "save_mode": save_mode,
-        "post": WCODA_POST, "scheduler": {"num_sampling_steps": 2},
+        "post": WCODA_POST, "scheduler": {"num_sampling_steps": TEST_APP_STEPS},
         "dataset": dict(dataset_config(data_yaml, ann, "val",
                                        img_collate_param("all-xyz", is_train=False)))})
     messages = []
@@ -2055,7 +2401,8 @@ def run_test_app(torch, per_forward, encode_launches, ann, root, base_config=APP
     got = read_counters()
     from magicdrive_v2_tpu_torch.config.config import Config
     passes = 2 if "slice" in Config.fromfile(config).scheduler.type else 1
-    want = {k: passes * (per_forward[k] * 2 + encode_launches[k]) for k in per_forward}
+    want = {k: passes * (per_forward[k] * TEST_APP_STEPS + encode_launches[k])
+            for k in per_forward}
     require(got == want, (got, want))
     cut = WCODA_POST["cut_length"]
     out_h = WCODA_POST["resize"][0] + WCODA_POST["padding"][1] + WCODA_POST["padding"][3]
@@ -2152,7 +2499,7 @@ REPAINT_CONFIG = ("configs/magicdrive/inference/"
 SDE_BRUSHNET = "MagicDriveSTDiT3-XL/2-SDEBrushNet"
 PLAIN_BRUSHNET = "MagicDriveSTDiT3-XL/2-BrushNet"
 INPAINT_NOISE_SCALE = 0.2
-BRUSHNET_STEPS = 4
+BRUSHNET_STEPS = 2
 REPAINT_STEPS = 3
 # bf16 forward, kernels against plain versions (the rule of phase grads):
 # rms(out_kernels - out_plain) <= 2**-6 * rms(out_plain) + rms(out_plain - out_fp32)
@@ -2524,6 +2871,9 @@ def run_brushnet_apps(torch, sde_per_forward, base_per_forward, encode_launches)
 
 BRUSH_TRAIN_APP_CONFIG = "configs/magicdrive/train/brushnet_smoke.py"
 BRUSHNET_STEPS_TRAIN, PLAIN_BRUSHNET_STEPS_TRAIN = 2, 2
+# depth / control depth of the plain BrushNet type's steps (cut from 28 / 13 in PR 11
+# to keep the script inside its time: the SDE type trains at full depth before it)
+PLAIN_BRUSHNET_TRAIN_DEPTH = (7, 4)
 
 
 def brushnet_train_setup(torch, dtype, sde=True, **overrides):
@@ -2654,11 +3004,12 @@ def run_brushnet_grads(torch, seed, encode_launches):
 
 
 def run_brushnet_train(torch, seed, encode_launches):
-    """The BrushNet trainer at full width and depth in the stage-2 bucket and
-    settings (b=4, remat, bf16 over fp32 masters, AdamW, EMA 0.99, logit-normal t),
-    only the branch trainable: XL/2-SDEBrushNet (the SDE loss, the cutoff jitter)
-    for BRUSHNET_STEPS_TRAIN steps, then the plain BrushNet type for
-    PLAIN_BRUSHNET_STEPS_TRAIN, the first step of each untimed. The frozen base and
+    """The BrushNet trainer at full width in the stage-2 bucket and settings (b=4,
+    remat, bf16 over fp32 masters, AdamW, EMA 0.99, logit-normal t), only the
+    branch trainable: XL/2-SDEBrushNet at full depth (the SDE loss, the cutoff
+    jitter) for BRUSHNET_STEPS_TRAIN steps, then the plain BrushNet type at
+    PLAIN_BRUSHNET_TRAIN_DEPTH for PLAIN_BRUSHNET_STEPS_TRAIN, the first step of
+    each untimed. The frozen base and
     its EMA stay bit-equal, every branch tensor moves, the EMA identity holds, the
     launches and backwards are the remat layout's. Returns the SDE step's launches."""
     from magicdrive_v2_tpu_torch.models.magicdrive.brushnet import MagicDriveSTDiT3BrushNet
@@ -2668,10 +3019,12 @@ def run_brushnet_train(torch, seed, encode_launches):
 
     sde_launches = None
     for sde, steps in ((True, BRUSHNET_STEPS_TRAIN), (False, PLAIN_BRUSHNET_STEPS_TRAIN)):
-        cfg, base_cfg, model_cfg, sched = brushnet_train_setup(torch, torch.bfloat16, sde=sde)
+        depth = (28, 13) if sde else PLAIN_BRUSHNET_TRAIN_DEPTH
+        cfg, base_cfg, model_cfg, sched = brushnet_train_setup(
+            torch, torch.bfloat16, sde=sde, depth=depth[0], control_depth=depth[1])
         require((model_cfg.depth, model_cfg.control_depth, model_cfg.hidden_size,
                  model_cfg.grad_checkpoint, model_cfg.remat_policy)
-                == (28, 13, 1152, True, "full"), model_cfg)
+                == (*depth, 1152, True, "full"), model_cfg)
         t0 = time.time()
         with torch.device("cuda"):
             model = MagicDriveSTDiT3BrushNet(model_cfg)
@@ -2737,6 +3090,7 @@ def run_brushnet_train(torch, seed, encode_launches):
         s_step = sum(timed) / len(timed)
         emit("brushnet_train" if sde else "brushnet_train_plain",
              model=SDE_BRUSHNET if sde else PLAIN_BRUSHNET, config=TRAIN_CONFIG,
+             depth=model_cfg.depth, control_depth=model_cfg.control_depth,
              params=n_params, trainable_params=n_trainable,
              trainable_tensors=len(trainable), frozen_tensors=len(before) - len(trainable),
              dtype="bfloat16 compute, float32 masters", batch=cfg.batch_size,
@@ -2902,13 +3256,14 @@ def run_brushnet_train_app(torch):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--requests", type=int, default=1)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also trace one Euler step, one view's decode and one train "
                          "step with torch.profiler")
     ap.add_argument("--sp-rank-worker", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--sp-train-worker", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
@@ -2918,6 +3273,8 @@ def main():
         return 1
     if args.sp_rank_worker:  # one rank of phase sp_ranks, started by that phase
         return sp_rank_worker(torch, args.sp_rank_worker, args.seed)
+    if args.sp_train_worker:  # one rank of phase sp_train, started by that phase
+        return sp_train_worker(torch, args.sp_train_worker, args.seed)
     t_start = time.time()
     from magicdrive_v2_tpu_torch.ops import _cuda_build
 
@@ -2961,6 +3318,10 @@ def main():
     train_launches, backward_rows, synthetic_s_step = run_train(
         torch, args.seed, seen_train, encode_launches, with_profile=args.profile)
     run_train_app(torch)
+    torch.cuda.empty_cache()
+    sp_train_launches = run_sp_train(torch, args.seed, encode_launches, held)
+    stage3_launches = run_stage3_app(torch, encode_launches)
+    torch.cuda.empty_cache()
     run_decode_vs_cpu(torch, args.seed)
     torch.cuda.empty_cache()
     run_app(torch, per_forward, encode_launches)
@@ -3033,6 +3394,8 @@ def main():
                                       "brushnet_train_step": brushnet_train_launches[name],
                                       "sp848_sample": sp848_launches[name],
                                       "sp_ranks_rank0": sp_ranks_launches[name],
+                                      "sp_train_rank0": sp_train_launches[name],
+                                      "stage3_app": stage3_launches[name],
                                       "app848": app848_launches[name]},
                     **meta[name], **kernel_numbers[name], backward=backward[name])
                for name in meta]

@@ -40,7 +40,7 @@ from torch import nn
 
 from ...ops.resize import resize_linear_antialiased
 from ...ops.structured_noise import generate_structured_noise, sample_cutoff_radius
-from ...parallel.comm import split_seq
+from ...parallel.comm import split_seq_share
 from ...registry import MODELS
 from ..layers.blocks import PatchEmbed3D, pos_embedding_2d
 from .stdit3 import MagicDriveSTDiT3, MagicDriveSTDiT3Config, MVSTDiTBlock
@@ -168,7 +168,8 @@ class MagicDriveSTDiT3BrushNet(MagicDriveSTDiT3):
                 drop_cond_mask=None, drop_frame_mask=None, x_mask=None, t_inpaint=None,
                 num_timesteps: float = 1000.0, inpaint_input_noise=None,
                 generator: Optional[torch.Generator] = None, cond_cache=None,
-                frame_valid=None, train: bool = False, cutoff_radius=None):
+                frame_valid=None, train: bool = False, cutoff_radius=None,
+                simulate_sp: Optional[int] = None):
         """As ``MagicDriveSTDiT3.forward`` plus the inpaint inputs: x_inpaint
         (b, 3*NC, T_img, H, W) pixels, mask_inpaint (b, NC, T_img, H, W) in
         [0, 1]; with ``frame_valid`` their pad frames must be zero (the temporal
@@ -179,7 +180,8 @@ class MagicDriveSTDiT3BrushNet(MagicDriveSTDiT3):
         FFT cutoff is ``structured_noise_r0``; with ``train`` it is jittered to
         r0 + Exp(rate 0.1): ``cutoff_radius`` if given, else drawn from
         ``generator`` before the normal draw (the JAX model splits its key into
-        the cutoff's and the noise's)."""
+        the cutoff's and the noise's). ``simulate_sp``: the H pad of that sp size,
+        as in the base model."""
         cfg = self.cfg
         NC, dt = cfg.nc, self.dtype
         b = x.shape[0]
@@ -220,7 +222,7 @@ class MagicDriveSTDiT3BrushNet(MagicDriveSTDiT3):
             xi_enc = (tp * xi_enc.float() + (1 - tp) * noise_inpaint.float()).to(dt)
 
         T, H, W = self.get_dynamic_size((Tx, Hx, Wx))
-        h_pad_size = self._h_pad_size(H, W)
+        h_pad_size = self._h_pad_size(H, W, simulate_sp)
         if h_pad_size > 0:
             pad = (0, 0, 0, h_pad_size * cfg.patch_size[1])
             x, xi_enc, mi = F.pad(x, pad), F.pad(xi_enc, pad), F.pad(mi, pad)
@@ -257,7 +259,7 @@ class MagicDriveSTDiT3BrushNet(MagicDriveSTDiT3):
         else:
             y_cond, c_map = self.encode_conditions(
                 (b, C_in * NC, Tx, Hx, Wx), y, maps, bbox, cams, rel_pos,
-                drop_cond_mask, drop_frame_mask, frame_valid)
+                drop_cond_mask, drop_frame_mask, frame_valid, simulate_sp)
 
         pos = pos_emb.reshape(1, 1, S, -1)
         x_b = self.x_embedder(x).reshape(B, T, S, -1) + pos
@@ -267,7 +269,8 @@ class MagicDriveSTDiT3BrushNet(MagicDriveSTDiT3):
         xi = xi + pos
         sp_group = self._sp_group(S)
         if sp_group is not None:  # the token streams split over S
-            x_b, x_c, xi, c_map = (split_seq(a, 2, sp_group) for a in (x_b, x_c, xi, c_map))
+            x_b, x_c, xi, c_map = (split_seq_share(a, 2, sp_group)
+                                   for a in (x_b, x_c, xi, c_map))
         c = x_c + self.before_proj(c_map)
         x = x_b
 

@@ -22,9 +22,13 @@
   (rank r holds the contiguous block r), the blocks run on the split tokens
   (spatial and cross-view attention through the Ulysses all-to-all pair of
   ``blocks.ulysses_attention``, everything else per token) and S is gathered
-  once, after the final layer. With ``enable_sequence_parallelism`` H is padded
-  so S divides the mesh's sp size (``force_pad_h_for_sp_size`` first), as in
-  the JAX package; the conditioning stays replicated.
+  once, after the final layer. H is padded so S divides a sequence-parallel
+  size: ``force_pad_h_for_sp_size``, else ``forward``'s ``simulate_sp`` (the
+  training-time pad of ``simulate_sp_size``), else with
+  ``enable_sequence_parallelism`` the mesh's sp size, as in the JAX package; the
+  conditioning stays replicated. In a backward under the mesh every grad is this
+  rank's share of one process's (``parallel.comm``'s grad rule): the trainer sums
+  them over the sp group.
 - Parameter names and layouts are the reference torch checkpoint's.
 """
 from __future__ import annotations
@@ -42,7 +46,7 @@ from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from ...ops.fused_adaln import adaln_modulate
-from ...parallel.comm import gather_seq, split_seq
+from ...parallel.comm import gather_seq, share_grad, split_seq_share
 from ...parallel.sharding import get_current_mesh, sp_size
 from ..layers.blocks import (
     CaptionEmbedder,
@@ -524,13 +528,16 @@ class MagicDriveSTDiT3(nn.Module):
             frame_valid.shape, T_img, T)
         return lat_valid.repeat_interleave(NC, dim=0)
 
-    def _h_pad_size(self, H: int, W: int) -> int:
+    def _h_pad_size(self, H: int, W: int, simulate_sp: Optional[int] = None) -> int:
         """H padding so S = H*W divides a sequence-parallel size:
-        ``force_pad_h_for_sp_size``, else (with ``enable_sequence_parallelism``)
-        the current mesh's sp size. The pad changes the function (the grid
-        effect), so a sharded run equals the unsharded one with
-        ``force_pad_h_for_sp_size`` set to the same size."""
+        ``force_pad_h_for_sp_size``, else ``simulate_sp`` (the training-time pad
+        the app picks from ``simulate_sp_size`` each step), else (with
+        ``enable_sequence_parallelism``) the current mesh's sp size. The pad
+        changes the function (the grid effect), so a sharded run equals the
+        unsharded one with ``force_pad_h_for_sp_size`` set to the same size."""
         pad_to = self.cfg.force_pad_h_for_sp_size
+        if pad_to is None and simulate_sp:
+            pad_to = simulate_sp
         if pad_to is None and self.cfg.enable_sequence_parallelism:
             pad_to = sp_size()
         if pad_to and (H * W) % pad_to != 0:
@@ -559,7 +566,8 @@ class MagicDriveSTDiT3(nn.Module):
     def _final(self, x, t_emb, t0_emb, x_mask_rep, sp_group, b, grid, latent):
         """Final layer on this rank's tokens, S gathered, unpatchify: (B, T, S', C)
         -> (b, C_out*NC, Tx, Hx, Wx) fp32. grid: (T, H, W) tokens, latent: (Tx, Hx,
-        Wx)."""
+        Wx). A forward that ran whole on every rank of a mesh leaves each rank
+        1/sp of the grads (``share_grad``), as a split one leaves its share."""
         cfg = self.cfg
         NC = cfg.nc
         B, T, S_loc, _ = x.shape
@@ -572,6 +580,9 @@ class MagicDriveSTDiT3(nn.Module):
         x = self.unpatchify(x, *grid, *latent).float()
         C_out = cfg.out_channels
         x = x.reshape(b, NC, C_out, *latent).transpose(1, 2)
+        mesh = get_current_mesh()
+        if sp_group is None and mesh is not None and mesh.sp > 1:
+            x = share_grad(x, mesh.sp_group)
         return x.reshape(b, C_out * NC, *latent)
 
     def _resize_cond_time(self, y_cond, T):
@@ -584,10 +595,12 @@ class MagicDriveSTDiT3(nn.Module):
     # ------------------------------------------------------------------
 
     def encode_conditions(self, x_shape, y, maps, bbox, cams, rel_pos,
-                          drop_cond_mask=None, drop_frame_mask=None, frame_valid=None):
+                          drop_cond_mask=None, drop_frame_mask=None, frame_valid=None,
+                          simulate_sp: Optional[int] = None):
         """Step-independent conditioning (y_cond, c_map), computed once per sample
         and passed to ``forward`` as ``cond_cache``. x_shape: the
-        (b, C*NC, T', H', W') latent shape the denoiser will be called with."""
+        (b, C*NC, T', H', W') latent shape the denoiser will be called with;
+        ``simulate_sp`` the one it will be called with (c_map takes its pad)."""
         cfg = self.cfg
         NC, dt = cfg.nc, self.dtype
         b = x_shape[0]
@@ -599,7 +612,7 @@ class MagicDriveSTDiT3(nn.Module):
             drop_frame_mask = torch.ones((b, T_img), dtype=torch.float32, device=dev)
         Tx, Hx, Wx = x_shape[-3:]
         T, H, W = self.get_dynamic_size((Tx, Hx, Wx))
-        h_pad_size = self._h_pad_size(H, W)
+        h_pad_size = self._h_pad_size(H, W, simulate_sp)
         H += h_pad_size
         S = H * W
         y_cond = self.encode_cond_sequence(bbox, cams, rel_pos, y.to(dt), drop_cond_mask,
@@ -610,13 +623,15 @@ class MagicDriveSTDiT3(nn.Module):
 
     def forward(self, x, timestep, y, maps, bbox, cams, rel_pos, fps,
                 height: float, width: float, drop_cond_mask=None,
-                drop_frame_mask=None, x_mask=None, cond_cache=None, frame_valid=None):
+                drop_frame_mask=None, x_mask=None, cond_cache=None, frame_valid=None,
+                simulate_sp: Optional[int] = None):
         """x: (b, C*NC, T', H', W') latents; timestep: (b,); y: (b, 1, L, 4096);
         maps: (b, T_img, C_map, Hm, Wm); bbox: dict or None;
         cams: (b*NC, T_img, 1, 3, 7); rel_pos: (b*NC, T_img, 1, 4, 4); fps: (b,) or
         (1,); height/width: python numbers. cond_cache: optional (y_cond, c_map)
-        from ``encode_conditions``. Returns fp32 of x's shape (out_channels folded
-        like in_channels)."""
+        from ``encode_conditions``; simulate_sp: the H pad of that sp size (see
+        ``_h_pad_size``). Returns fp32 of x's shape (out_channels folded like
+        in_channels)."""
         cfg = self.cfg
         NC, dt = cfg.nc, self.dtype
         b = x.shape[0]
@@ -630,7 +645,7 @@ class MagicDriveSTDiT3(nn.Module):
         x = x.reshape(B, C_in, Tx, Hx, Wx).to(dt)
 
         T, H, W = self.get_dynamic_size((Tx, Hx, Wx))
-        h_pad_size = self._h_pad_size(H, W)
+        h_pad_size = self._h_pad_size(H, W, simulate_sp)
         if h_pad_size > 0:
             x = F.pad(x, (0, 0, 0, h_pad_size * cfg.patch_size[1]))
             H += h_pad_size
@@ -656,7 +671,7 @@ class MagicDriveSTDiT3(nn.Module):
         else:
             y_cond, c_map = self.encode_conditions(
                 (b, C_in * NC, Tx, Hx, Wx), y, maps, bbox, cams, rel_pos,
-                drop_cond_mask, drop_frame_mask, frame_valid)
+                drop_cond_mask, drop_frame_mask, frame_valid, simulate_sp)
 
         x_b = self.x_embedder(x).reshape(B, T, S, -1) + pos_emb.reshape(1, 1, S, -1)
         if cfg.use_x_control_embedder:
@@ -665,7 +680,7 @@ class MagicDriveSTDiT3(nn.Module):
             x_c = x_b
         sp_group = self._sp_group(S)
         if sp_group is not None:  # the token streams split over S
-            x_b, x_c, c_map = (split_seq(a, 2, sp_group) for a in (x_b, x_c, c_map))
+            x_b, x_c, c_map = (split_seq_share(a, 2, sp_group) for a in (x_b, x_c, c_map))
         c = x_c + self.before_proj(c_map)
         x = x_b
 

@@ -18,11 +18,13 @@ On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor it
 runs the plain version. Where autograd records (grad enabled, an input requires
 grad) the launch goes through ``plain_vjp.PlainVJPFunction``, whose backward is
 the plain version's, recomputed, as the JAX ``_bwd`` recomputes through XLA: it
-gives the grads of qkv and of both norm weights. In bf16 the kernel is
-two launches: a pre-pass that normalises k once per row into a scratch buffer
-of zero-padded tiles, then the attention, which reads q and v from qkv and k
-from those tiles; their launch plan (``plan_bf16``) is computed here, in Python,
-and handed to the C entry points.
+gives the grads of qkv and of both norm weights. The recompute runs over blocks of
+groups whose fp32 logits stay within ``BACKWARD_LOGITS_BYTES``: at 848x1600 one
+group's logits are 16 x 5300^2 x 4 B = 1.8 GB, and all of a step's groups at once
+would not fit the card. In bf16 the kernel is two launches: a pre-pass that
+normalises k once per row into a scratch buffer of zero-padded tiles, then the
+attention, which reads q and v from qkv and k from those tiles; their launch plan
+(``plan_bf16``) is computed here, in Python, and handed to the C entry points.
 """
 from __future__ import annotations
 
@@ -37,6 +39,8 @@ from .plain_vjp import PlainVJPFunction, needs_grad
 
 _EPS = 1e-6
 _fns = None
+# fp32 logits (of one source) that the backward's plain recompute holds at once
+BACKWARD_LOGITS_BYTES = 2 ** 31
 
 
 def _rms(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -65,10 +69,14 @@ def fused_qkv_attention_plain(qkv: torch.Tensor,
                               q_norm_weight: Optional[torch.Tensor],
                               k_norm_weight: Optional[torch.Tensor],
                               kv_perm=None, scale: Optional[float] = None,
-                              group_chunk: Optional[int] = None) -> torch.Tensor:
+                              group_chunk: Optional[int] = None,
+                              groups: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """The same function in plain PyTorch, with the kernel's cast points.
-    ``group_chunk`` bounds the fp32 logits held at once (groups per pass)."""
+    ``group_chunk`` bounds the fp32 logits held at once (groups per pass);
+    ``groups`` (g0, g1): only those groups' output (their k/v sources may be any
+    group)."""
     G, N, _, H, D = qkv.shape
+    lo, hi = groups if groups is not None else (0, G)
     if scale is None:
         scale = D ** -0.5
     perm = _perm_array(kv_perm, G)
@@ -78,10 +86,10 @@ def fused_qkv_attention_plain(qkv: torch.Tensor,
     if q_norm_weight is not None:
         q = _rms(q, q_norm_weight)
         k = _rms(k, k_norm_weight)
-    out = torch.zeros((G, N, H, D), dtype=torch.float32, device=qkv.device)
-    step = group_chunk or G
-    for g0 in range(0, G, step):
-        g1 = min(g0 + step, G)
+    out = torch.zeros((hi - lo, N, H, D), dtype=torch.float32, device=qkv.device)
+    step = group_chunk or hi - lo
+    for g0 in range(lo, hi, step):
+        g1 = min(g0 + step, hi)
         q32 = q[g0:g1].float()
         for j in range(perm.shape[0]):
             idx = torch.as_tensor(perm[j, g0:g1].astype(np.int64), device=qkv.device)
@@ -90,8 +98,18 @@ def fused_qkv_attention_plain(qkv: torch.Tensor,
             p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
             denom = p.sum(dim=-1)  # (g, H, N)
             o = torch.einsum("ghnm,gmhd->gnhd", p.to(qkv.dtype).float(), v_j.float())
-            out[g0:g1] += o / denom.permute(0, 2, 1)[..., None]
+            out[g0 - lo:g1 - lo] += o / denom.permute(0, 2, 1)[..., None]
     return out.to(qkv.dtype)
+
+
+def _backward_group_step(qkv: torch.Tensor, *args) -> Optional[int]:
+    """Groups a pass of the backward's recompute takes, or None for all at once."""
+    G, N, _, H, _ = qkv.shape
+    step = max(1, BACKWARD_LOGITS_BYTES // (H * N * N * 4))
+    return step if step < G else None
+
+
+fused_qkv_attention_plain.backward_group_step = _backward_group_step
 
 
 # ---------------------------------------------------------------- bf16 launch plan

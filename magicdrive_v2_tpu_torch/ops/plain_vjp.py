@@ -31,7 +31,9 @@ class PlainVJPFunction(torch.autograd.Function):
     inputs. The tensor arguments are saved and get grads; the others (None,
     numbers, index lists) are kept as they are. Grads of views (k and v of one
     projection) go back through those views. ``backward_calls[name]`` counts the
-    backwards."""
+    backwards. A ``plain_fn`` with a ``backward_group_step(*args)`` that names a
+    number of groups recomputes that many groups (dim 0 of its output) a pass,
+    ``plain_fn(*args, groups=(g0, g1))``, and sums the passes' grads."""
 
     @staticmethod
     def forward(ctx, forward_fn: Callable, plain_fn: Callable, name: str, *args):
@@ -49,10 +51,21 @@ class PlainVJPFunction(torch.autograd.Function):
         for i, t, n in zip(ctx.tensor_at, ctx.saved_tensors, needs):
             args[i] = t.detach().requires_grad_(n)
         wanted = [i for i, n in zip(ctx.tensor_at, needs) if n]
+        step_fn = getattr(ctx.plain_fn, "backward_group_step", None)
+        step = step_fn(*args) if step_fn is not None else None
+        inputs = [args[i] for i in wanted]
         with torch.enable_grad():
-            out = ctx.plain_fn(*args)
-            grads = torch.autograd.grad(out, [args[i] for i in wanted], grad,
-                                        allow_unused=True)
+            if step is None:
+                out = ctx.plain_fn(*args)
+                grads = torch.autograd.grad(out, inputs, grad, allow_unused=True)
+            else:
+                grads = [None] * len(inputs)
+                for g0 in range(0, grad.shape[0], step):
+                    g1 = min(g0 + step, grad.shape[0])
+                    out = ctx.plain_fn(*args, groups=(g0, g1))
+                    part = torch.autograd.grad(out, inputs, grad[g0:g1], allow_unused=True)
+                    grads = [p if g is None else g if p is None else g + p
+                             for g, p in zip(grads, part)]
         result = [None] * (3 + len(args))
         for i, g in zip(wanted, grads):
             result[3 + i] = g

@@ -1,7 +1,8 @@
 """Multi-process runs of the port: one process per GPU, under ``torchrun`` or any
 launcher that sets ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
-``MASTER_PORT`` (the serving half of the JAX package's parallel/distributed.py,
-whose cluster is ``jax.distributed``).
+``MASTER_PORT`` (the JAX package's parallel/distributed.py, whose cluster is
+``jax.distributed``, without its data-parallel rows: serving, and the training
+mesh rule of ``training_sp_size``).
 
 Everything here is a no-op in a single-process run, so the apps behave as before
 on one process.
@@ -105,15 +106,43 @@ def shutdown() -> None:
 
 
 @contextlib.contextmanager
-def app_process_group(device="cuda"):
-    """An app's run: joins the launcher's process group (``maybe_initialize``),
-    yields this rank's device, and leaves the group at the end if it joined it."""
-    joined = maybe_initialize(device)
+def app_process_group(device="cuda", timeout_s: Optional[float] = None):
+    """An app's run: joins the launcher's process group (``maybe_initialize``,
+    collectives and barriers time out after ``timeout_s``, else the backend's
+    default), yields this rank's device, and leaves the group at the end if it
+    joined it."""
+    joined = maybe_initialize(device, timeout_s=timeout_s)
     try:
         yield rank_device(device)
     finally:
         if joined:
             shutdown()
+
+
+def training_sp_size(sp_size: int, world: int) -> int:
+    """The sp size of a training run in a world of ``world`` processes: the JAX
+    train apps' ``min(sp_size, devices)``, so a config's sp_size 4 trains
+    sharded over 2 ranks, and unsharded in one process (where its
+    ``simulate_sp_size`` alone picks the pad). Serving differs: there fewer
+    ranks than ``sp_size`` run unsharded (``pipelines.sequence_parallel_mesh``).
+    Ranks beyond sp would be data-parallel rows, which the port does not train
+    yet: NotImplementedError."""
+    sp = max(1, min(int(sp_size or 1), world))
+    if world > sp:
+        raise NotImplementedError(
+            f"{world} processes train sp={sp} (sp_size {sp_size}): the other ranks would "
+            f"be data-parallel (dp={world // sp}), which is not ported yet (ROADMAP.md "
+            f"queue A item 2, FSDP and dp data); run {sp} processes")
+    return sp
+
+
+def training_mesh(sp_size: int):
+    """The (1, sp) mesh of a training run by ``training_sp_size`` over this
+    process group, or None in a single-process run (sp 1)."""
+    from .sharding import make_mesh
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    sp = training_sp_size(sp_size, world)
+    return make_mesh(dp=1, sp=sp) if world > 1 else None
 
 
 def free_port() -> int:

@@ -9,6 +9,7 @@ Usage (from the repository root):
   python3 -m magicdrive_v2_tpu_torch.scripts.train_brushnet \\
       configs/magicdrive/train/brushnet_smoke.py --synthetic [--sde] [--max-steps N] \\
       [--device cuda] [--cfg-options key=value ...]
+  torchrun --nproc-per-node N -m magicdrive_v2_tpu_torch.scripts.train_brushnet ...
 
 As in the JAX app the data is synthetic only (``--synthetic`` is accepted for the
 same command line): the batch of step s comes from ``np.random.default_rng((seed,
@@ -18,8 +19,11 @@ from a seed drawn first, then standard-normal pixels ``x_inpaint`` and 0/1 masks
 ``sde_inpaint``) trains the SDE variant with ``RFLOW_SDEBRUSHNET``'s loss. The
 steps draw t, t_inpaint and noise from (seed + 1, step), the SDE model's cutoff
 and noise from a second stream of (seed + 1, step). One JSON line a step; a loss
-that is not finite stops the run. No resume, as in the JAX app; ``sp_size > 1``
-is not ported (ROADMAP.md queue A item 5b).
+that is not finite stops the run. No resume, as in the JAX app. Under a
+launcher the run is sequence-parallel over sp = min(sp_size, N) ranks, as in
+``train_magicdrive`` (the same batch and draws on every rank, the grads summed
+over the sp group, rank 0 writes the checkpoint); a world larger than sp is
+refused.
 """
 from __future__ import annotations
 
@@ -75,31 +79,41 @@ def brushnet_scheduler(cfg, sde: bool):
 
 
 def main(argv: Optional[List[str]] = None) -> List[dict]:
-    """Runs the app; returns the metrics lines it logged."""
+    """Runs the app; returns the metrics lines it logged (every rank)."""
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s %(message)s")
+    from ..parallel.distributed import app_process_group
+
+    with app_process_group(args.device) as device:
+        return _main(args, device)
+
+
+def _main(args, device) -> List[dict]:
     import torch
 
     from ..config.config import Config, merge_dot_options
     from ..models.magicdrive.brushnet import BrushNetConfig, MagicDriveSTDiT3BrushNet
     from ..models.magicdrive.stdit3 import build_model_config
+    from ..parallel.distributed import startup_barrier, training_mesh
+    from ..parallel.sharding import use_mesh
     from ..training.trainer import build_brushnet_training
     from ..utils.ckpt import init_weights, save_checkpoint
     from ..utils.misc import resolve_device, to_device
 
     cfg = Config.fromfile(args.config)
     merge_dot_options(cfg, args.cfg_options)
-    device = resolve_device(args.device)
-    if int(cfg.get("sp_size", 1) or 1) > 1:
-        raise NotImplementedError("sp_size > 1: sequence-parallel training is not ported "
-                                  "yet (ROADMAP.md queue A item 5b); set sp_size=1")
+    device = resolve_device(device)
+    mesh = training_mesh(cfg.get("sp_size", 1))
+    sp = 1 if mesh is None else mesh.sp
+    startup_barrier(mesh)
     sde = args.sde or cfg.get("sde_inpaint", False)
     seed = cfg.get("seed", 0)
     dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[cfg.get("dtype", "bf16")]
     base_cfg = build_model_config(
         cfg.model, vae_out_channels=cfg.get("vae_out_channels", 16),
         mv_order_map=cfg.get("mv_order_map"), dtype=dtype,
+        enable_sequence_parallelism=sp > 1,
         grad_checkpoint=cfg.get("grad_checkpoint", True))
     model_cfg = BrushNetConfig.from_base(
         base_cfg, sde_inpaint=sde,
@@ -107,7 +121,8 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
     with torch.device(device):
         model = MagicDriveSTDiT3BrushNet(model_cfg)
     init_weights(model, seed=seed)
-    logger.info("params: %d, sde: %s", sum(p.numel() for p in model.parameters()), sde)
+    logger.info("params: %d, sde: %s, sp: %d", sum(p.numel() for p in model.parameters()),
+                sde, sp)
     scheduler = brushnet_scheduler(cfg, sde)
     t_img, (height, width) = cfg.get("num_frames", 9), cfg.get("image_size", (64, 80))
     state, step_fn = build_brushnet_training(model, scheduler, cfg, height=float(height),
@@ -121,7 +136,8 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
     t0 = time.time()
     for step in range(1, steps + 1):
         batch = to_device(make_batch(model_cfg, cfg, step), device)
-        state, metrics = step_fn(state, batch)
+        with use_mesh(mesh):
+            state, metrics = step_fn(state, batch)
         loss = float(metrics["loss"])
         line = {"step": step, "loss": loss, "grad_norm": float(metrics["grad_norm"]),
                 "elapsed_s": round(time.time() - t0, 1)}

@@ -19,18 +19,33 @@ Usage (from the repository root):
   python3 -m magicdrive_v2_tpu_torch.scripts.train_magicdrive \\
       configs/magicdrive/train/XXX.py [--synthetic] [--max-steps N] [--device cuda] \\
       [--cfg-options key=value ...]
+  torchrun --nproc-per-node N -m magicdrive_v2_tpu_torch.scripts.train_magicdrive ...
 
-One device, one process. Every random stream of a step is derived from (seed,
-salt, step) and never advanced across steps, so a run resumed from
-``global_step{N}`` (found under ``outputs`` with ``find_latest``) draws what an
-uninterrupted run would: the synthetic batch from (seed, step), the frame masks
+One process, or N under a launcher: the run trains sequence-parallel over
+sp = min(sp_size, N) ranks, as the JAX app does on its devices
+(``parallel.distributed.training_sp_size``; a world larger than sp would be
+data-parallel, which is refused). Every rank draws the same batch and the same
+randomness, the model splits its tokens over the sp group, and the grads are
+summed over it (``training/trainer.py``), so the parameters stay equal on every
+rank. Rank 0 alone writes ``metrics.jsonl``, the checkpoints (the one-process
+``global_step{N}`` format, so a run resumes at another world size) and the
+validation frames; the other ranks wait at a barrier meanwhile. The VAE encode
+is scattered over the ranks (``sp_vae``) with the posterior noise drawn whole.
+
+``simulate_sp_size`` (in ``model`` or at the top level): each step pads H as if
+at one of these sp sizes, picked from (seed, salt 2, step) on every rank alike;
+under sp > 1 only the sizes at or above sp stay eligible (the JAX app's rule).
+
+Every random stream of a step is derived from (seed, salt, step) and never
+advanced across steps, so a run resumed from ``global_step{N}`` (found under
+``outputs`` with ``find_latest``) draws what an uninterrupted run would: the
+synthetic batch from (seed, step), the simulate pick from salt 2, the frame masks
 from salt 3, the condition dropout from salt 4, t and noise from (seed + 1, step);
 each dataset item from (seed, epoch, index).
 
-Not ported yet: ``sp_size > 1`` and ``simulate_sp_size`` (ROADMAP.md queue A item
-5b), and TensorBoard scalars (the JAX app only tries them; ``metrics.jsonl`` holds
-the same numbers). With ``record_time`` each metrics line also has the step's
-seconds, the seconds it waited on the loader and those of the VAE encode.
+Not ported: TensorBoard scalars (the JAX app only tries them; ``metrics.jsonl``
+holds the same numbers). With ``record_time`` each metrics line also has the
+step's seconds, the seconds it waited on the loader and those of the VAE encode.
 """
 from __future__ import annotations
 
@@ -45,6 +60,11 @@ from typing import Dict, List, Optional
 import numpy as np
 
 logger = logging.getLogger("train")
+
+# collectives and barriers of a multi-process run time out after this: rank 0's
+# validation render and checkpoint writes, which the other ranks wait out at a
+# barrier, stay well inside it
+GROUP_TIMEOUT_S = 2 * 3600
 
 
 def parse_args(argv=None):
@@ -118,22 +138,35 @@ def build_dataloader(cfg, seed: int):
     return loader, sampler, dataset
 
 
+def posterior_noise(vae, x_px, generator):
+    """The encode's posterior noise for pixel clips ``x_px`` (B, 3, T, H, W), as
+    ``vae.encode(x_px, generator)`` draws it: standard normal of the latent shape
+    in the VAE's dtype, on the generator's device."""
+    import torch
+    shape = (x_px.shape[0], vae.out_channels, *vae.get_latent_size(list(x_px.shape[2:])))
+    return torch.randn(shape, generator=generator, device=generator.device,
+                       dtype=vae.dtype)
+
+
 def encode_batch(raw: dict, vae, text_encoder, *, box_latent_dim: Optional[int], seed: int,
-                 step: int, device, timing: Optional[dict] = None) -> dict:
+                 step: int, device, timing: Optional[dict] = None, mesh=None) -> dict:
     """One collated batch of clips -> the train step's batch for global step
     ``step``: the model batch with box latents from (seed + 13, step), the VAE
-    latents of its pixel clips (posterior noise from (seed + 7, step)) in the model
-    layout (B, C*NC, T', H', W') fp32 on ``device``, the captions' text
-    embeddings. ``timing`` (a dict) gets the encode's seconds, synchronised."""
+    latents of its pixel clips (posterior noise from (seed + 7, step), drawn whole;
+    the encode scattered over ``mesh``'s ranks, ``sp_vae``) in the model layout
+    (B, C*NC, T', H', W') fp32 on ``device``, the captions' text embeddings.
+    ``timing`` (a dict) gets the encode's seconds, synchronised."""
     import torch
 
     from ..datasets import clip_to_model_batch
+    from ..parallel.sharding import sp_vae
     from ..training.trainer import step_generator
     mb = clip_to_model_batch(raw, box_latent_dim=box_latent_dim,
                              rng=np.random.default_rng((seed + 13, step)))
     t0 = time.time()
     x_px = torch.from_numpy(mb.pop("x")).to(device=device, dtype=vae.dtype)
-    lat = vae.encode(x_px, generator=step_generator(seed + 7, step))
+    noise = posterior_noise(vae, x_px, step_generator(seed + 7, step))
+    lat = sp_vae(x_px, vae.encode, mesh, noise=noise)
     del x_px
     bb = raw["pixel_values"].shape[0]
     C = lat.shape[1]
@@ -155,7 +188,8 @@ class EncodedLoader:
     seconds waiting on the loader and encoding."""
 
     def __init__(self, raw_loader, vae, text_encoder, box_latent_dim, seed: int,
-                 step_holder: Dict[str, int], device, record_time: bool = False):
+                 step_holder: Dict[str, int], device, record_time: bool = False,
+                 mesh=None):
         self.raw_loader = raw_loader
         self.vae, self.text_encoder = vae, text_encoder
         self.box_latent_dim = box_latent_dim
@@ -163,6 +197,7 @@ class EncodedLoader:
         self.step_holder = step_holder
         self.device = device
         self.record_time = record_time
+        self.mesh = mesh
         self.timing: Dict[str, float] = {}
 
     def __len__(self):
@@ -179,7 +214,8 @@ class EncodedLoader:
             yield encode_batch(raw, self.vae, self.text_encoder,
                                box_latent_dim=self.box_latent_dim, seed=self.seed,
                                step=self.step_holder["step"], device=self.device,
-                               timing=self.timing if self.record_time else None)
+                               timing=self.timing if self.record_time else None,
+                               mesh=self.mesh)
 
 
 def step_rng(seed: int, salt: int, step: int) -> pyrandom.Random:
@@ -210,15 +246,33 @@ def step_inputs(batch: dict, cfg, mask_gen, seed: int, step: int):
     return batch, (t_img, h, w)
 
 
+def simulate_sp_choices(cfg, sp: int) -> List[int]:
+    """The config's ``simulate_sp_size`` list (the model's, else the top level's);
+    under sp > 1 only the sizes at or above sp (the JAX app's rule)."""
+    choices = list(cfg.model.get("simulate_sp_size", ()) or ()) \
+        or list(cfg.get("simulate_sp_size", ()) or ())
+    return [s for s in choices if s >= sp] if sp > 1 else choices
+
+
 def main(argv: Optional[List[str]] = None) -> List[dict]:
-    """Runs the app; returns the metrics lines it logged."""
+    """Runs the app; returns the metrics lines it logged (every rank)."""
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s %(message)s")
+    from ..parallel.distributed import app_process_group
+
+    with app_process_group(args.device, timeout_s=GROUP_TIMEOUT_S) as device:
+        return _main(args, device)
+
+
+def _main(args, device) -> List[dict]:
     import torch
+    import torch.distributed as dist
 
     from ..config.config import Config, merge_dot_options
     from ..models.magicdrive.stdit3 import MagicDriveSTDiT3, build_model_config
+    from ..parallel.distributed import is_main_process, startup_barrier, training_mesh
+    from ..parallel.sharding import use_mesh
     from ..pipelines.magicdrive import build_text_encoder, build_vae
     from ..schedulers.rf import build_scheduler
     from ..training.trainer import build_training_multibucket
@@ -228,20 +282,22 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
 
     cfg = Config.fromfile(args.config)
     merge_dot_options(cfg, args.cfg_options)
-    device = resolve_device(args.device)
+    device = resolve_device(device)
     synthetic = args.synthetic or "dataset" not in cfg
-    if int(cfg.get("sp_size", 1) or 1) > 1:
-        raise NotImplementedError("sp_size > 1: sequence-parallel training is not ported "
-                                  "yet (ROADMAP.md queue A item 5b); set sp_size=1")
-    if list(cfg.model.get("simulate_sp_size", ()) or cfg.get("simulate_sp_size", ())):
-        raise NotImplementedError("simulate_sp_size (the training-time H-pad) is not "
-                                  "ported yet (ROADMAP.md queue A item 5b)")
+    mesh = training_mesh(cfg.get("sp_size", 1))
+    sp = 1 if mesh is None else mesh.sp
+    simu_sp_list = simulate_sp_choices(cfg, sp)
+    logger.info("sequence parallel: sp=%d (sp_size %s), simulate_sp from %s", sp,
+                cfg.get("sp_size", 1), simu_sp_list)
+    startup_barrier(mesh)
 
     seed0 = int(cfg.get("seed", 42))
     dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[cfg.get("dtype", "bf16")]
     model_cfg = build_model_config(
         cfg.model, vae_out_channels=cfg.get("vae_out_channels", 16),
         mv_order_map=cfg.get("mv_order_map"), dtype=dtype,
+        enable_sequence_parallelism=sp > 1,
+        force_pad_h_for_sp_size=cfg.get("force_pad_h_for_sp_size"),
         grad_checkpoint=cfg.get("grad_checkpoint", True),
         remat_policy=cfg.get("remat_policy", "full"))
     with torch.device(device):
@@ -263,7 +319,7 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
         loader = EncodedLoader(raw_loader, vae, text_encoder,
                                bbox_param.get("class_token_dim", 1152)
                                if bbox_param.get("sample_id") else None,
-                               seed0, step_holder, device, record_time)
+                               seed0, step_holder, device, record_time, mesh)
     state, get_step = build_training_multibucket(
         model, scheduler, cfg, freeze_patterns=tuple(cfg.get("freeze_patterns", ())),
         seed=seed0 + 1)
@@ -296,6 +352,9 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
     def maybe_validate(cur_step, bucket):
         if not report_every or cur_step % report_every != 0:
             return
+        if not is_main_process():  # rank 0 renders, outside the mesh
+            dist.barrier()
+            return
         from ..utils.train_utils import run_validation
         vt, vh, vw = cfg.get("validation_bucket", bucket)
         if not val:
@@ -307,6 +366,8 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
                                guidance_scale=cfg.get("val_guidance_scale", 2.0),
                                weights=state.ema if state.ema is not None else state.model)
         logger.info("validation at step %d: %s", cur_step, paths)
+        if dist.is_initialized():
+            dist.barrier()
 
     def checkpoint(step):
         running = dict(pos)
@@ -332,9 +393,12 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
             if done():
                 break
             batch, (t_img, h, w) = step_inputs(batch, cfg, mask_gen, seed0, step)
-            step_fn = get_step(h, w, t_img)
+            simu_sp = (step_rng(seed0, 2, step).choice(simu_sp_list)
+                       if simu_sp_list else None)
+            step_fn = get_step(h, w, t_img, simulate_sp=simu_sp)
             t_step = time.time()
-            state, metrics = step_fn(state, to_device(batch, device))
+            with use_mesh(mesh):
+                state, metrics = step_fn(state, to_device(batch, device))
             step += 1
             pos["epoch_step"] += 1
             step_holder["step"] = step
@@ -342,13 +406,16 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
                 loss = float(metrics["loss"])
                 line = {"step": step, "loss": loss, "grad_norm": float(metrics["grad_norm"]),
                         "elapsed_s": round(time.time() - t_start, 1)}
+                if simu_sp_list:
+                    line["simulate_sp"] = simu_sp
                 if record_time:
                     line["step_s"] = round(time.time() - t_step, 3)
                     line.update({k: round(v, 3) for k, v in getattr(loader, "timing",
                                                                    {}).items()})
                 logger.info("%s", line)
-                with open(metrics_path, "a") as f:
-                    f.write(json.dumps(line) + "\n")
+                if is_main_process():
+                    with open(metrics_path, "a") as f:
+                        f.write(json.dumps(line) + "\n")
                 logged.append(line)
                 if not np.isfinite(loss):
                     raise FloatingPointError(f"NaN loss at step {step}")

@@ -1,6 +1,12 @@
 """Training step of the port (counterpart of the JAX package's training/trainer.py):
 the rectified-flow loss through the model in its compute dtype, the backward,
-global-norm clipping, AdamW and the EMA update, on one device.
+global-norm clipping, AdamW and the EMA update, on one device or on the (1, sp)
+mesh of a ``parallel.use_mesh`` context. There every rank runs the step on the
+same batch and the same draws; the model leaves each rank its share of the
+grads (``parallel.comm``), and one all-reduce sum over the sp group
+(``reduce_sp_grads``) between the backward and the clip gives every rank one
+process's grads, so the clip's norm, AdamW and the EMA see the same grads and
+the parameters stay equal on every rank.
 
 Mixed precision as flax does it: the model holds fp32 master parameters; each
 forward reads bf16 casts of them (``compute_params``) through
@@ -22,6 +28,8 @@ import torch
 from torch.func import functional_call
 
 from ..models.magicdrive.stdit3 import MagicDriveSTDiT3, compute_params
+from ..parallel.comm import reduce_sp_grads
+from ..parallel.sharding import get_current_mesh
 from ..schedulers.rf import RFLOW, RFLOW_SDEBRUSHNET
 from ..utils.train_utils import ClippedAdamW, make_optimizer, trainable_mask, update_ema
 from .lora import BRUSHNET_EXTRA_TRAINABLE, lora_trainable_mask
@@ -70,14 +78,16 @@ def training_loss(model: MagicDriveSTDiT3, scheduler: RFLOW, batch: Dict, *,
                   t: Optional[torch.Tensor] = None,
                   noise: Optional[torch.Tensor] = None,
                   t_inpaint: Optional[torch.Tensor] = None,
-                  model_kwargs: Optional[Dict] = None):
+                  model_kwargs: Optional[Dict] = None,
+                  simulate_sp: Optional[int] = None):
     """(mean loss, t) of one batch (already on the model's device) through the
     model in ``dtype``; autograd records down to the fp32 masters. A BrushNet
     batch carries ``x_inpaint`` and ``mask_inpaint`` too. For the SDE-BrushNet
     model (``cfg.sde_inpaint``) the scheduler must be an ``RFLOW_SDEBRUSHNET``:
     its loss draws an independent ``t_inpaint``, and the model runs with
     ``train=True`` and ``model_kwargs``, its randomness (a ``generator``, or
-    ``cutoff_radius`` and ``inpaint_input_noise``)."""
+    ``cutoff_radius`` and ``inpaint_input_noise``). ``simulate_sp``: the model's
+    training-time H pad (``MagicDriveSTDiT3._h_pad_size``)."""
     sde = getattr(model.cfg, "sde_inpaint", False)
     if sde != isinstance(scheduler, RFLOW_SDEBRUSHNET):
         raise ValueError(f"{type(scheduler).__name__} does not train a model with "
@@ -95,7 +105,7 @@ def training_loss(model: MagicDriveSTDiT3, scheduler: RFLOW, batch: Dict, *,
 
     def model_fn(x_t, tt, x_mask, *sde_t_inpaint):
         kw = dict(**cond, height=float(height), width=float(width), x_mask=x_mask,
-                  frame_valid=frame_valid)
+                  frame_valid=frame_valid, simulate_sp=simulate_sp)
         if sde:
             kw.update(t_inpaint=sde_t_inpaint[0], num_timesteps=float(scheduler.num_timesteps),
                       train=True, **(model_kwargs or {}))
@@ -109,7 +119,8 @@ def training_loss(model: MagicDriveSTDiT3, scheduler: RFLOW, batch: Dict, *,
 
 def make_train_step(scheduler: RFLOW, *, height: float, width: float, num_frames: int,
                     dtype=torch.bfloat16, ema_decay: float = 0.99,
-                    ema_mask: Optional[Dict[str, bool]] = None, seed: int = 0) -> Callable:
+                    ema_mask: Optional[Dict[str, bool]] = None, seed: int = 0,
+                    simulate_sp: Optional[int] = None) -> Callable:
     """The step for one (height, width, num_frames) bucket, of the base model and
     of the BrushNet variants (the JAX package's ``make_train_step`` and
     ``make_brushnet_train_step``): ``train_step(state, batch, **draws) -> (state,
@@ -122,9 +133,13 @@ def make_train_step(scheduler: RFLOW, *, height: float, width: float, num_frames
     SDE-BrushNet model, ``t_inpaint``) from ``step_generator(seed, step)`` in the
     order t, t_inpaint, noise; the SDE model's ``cutoff_radius`` and
     ``inpaint_input_noise`` from ``step_generator(seed, step, 1)``, cutoff first
-    (the JAX step splits its key into the loss's and the model's). The JAX step's
-    ``simulate_sp`` (the training-time H-pad) is not ported (ROADMAP.md queue A
-    item 5)."""
+    (the JAX step splits its key into the loss's and the model's). All of them
+    are drawn whole, before the model splits anything, so they are the same on
+    every rank of a mesh. ``simulate_sp``: the training-time H pad of that sp
+    size (the JAX step's; each value is a step of its own).
+
+    Under a mesh of sp > 1 (``parallel.use_mesh``) the grads of the parameters
+    that require grad are summed over the sp group before the clip."""
 
     def train_step(state: TrainState, batch: Dict, **draws):
         sde = getattr(state.model.cfg, "sde_inpaint", False)
@@ -143,8 +158,13 @@ def make_train_step(scheduler: RFLOW, *, height: float, width: float, num_frames
         state.optimizer.zero_grad()
         loss, t_used = training_loss(
             state.model, scheduler, batch, height=height, width=width,
-            num_frames=num_frames, dtype=dtype, generator=gen, model_kwargs=model_kwargs, **{k: draws.get(k) for k in loss_draws})
+            num_frames=num_frames, dtype=dtype, generator=gen, model_kwargs=model_kwargs,
+            simulate_sp=simulate_sp, **{k: draws.get(k) for k in loss_draws})
         loss.backward()
+        mesh = get_current_mesh()
+        if mesh is not None and mesh.sp > 1:
+            reduce_sp_grads([p for p in state.model.parameters() if p.requires_grad],
+                            mesh.sp_group)
         grad_norm = state.optimizer.step()
         if state.ema is not None:
             update_ema(state.ema, state.model, ema_decay, ema_mask)
@@ -161,7 +181,8 @@ def build_training_multibucket(model: MagicDriveSTDiT3, scheduler: RFLOW, cfg, *
     on their device). Each (height, width, num_frames) bucket gets its own step,
     built once and cached: the bucket's statics feed ``timestep_transform``.
 
-    Returns (state, get_step) with ``get_step(height, width, num_frames)``."""
+    Returns (state, get_step) with ``get_step(height, width, num_frames,
+    simulate_sp=None)``, keyed on all four as the JAX package's."""
     dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[cfg.get("dtype", "bf16")]
     mask = trainable_mask(model.named_parameters(), freeze_patterns)
     opt = make_optimizer(
@@ -175,12 +196,14 @@ def build_training_multibucket(model: MagicDriveSTDiT3, scheduler: RFLOW, cfg, *
     ema_decay = cfg.get("ema_decay", 0.99)
     cache: Dict[tuple, Callable] = {}
 
-    def get_step(height, width, num_frames):
-        key = (float(height), float(width), int(num_frames))
+    def get_step(height, width, num_frames, simulate_sp=None):
+        key = (float(height), float(width), int(num_frames),
+               None if simulate_sp is None else int(simulate_sp))
         if key not in cache:
             cache[key] = make_train_step(scheduler, height=key[0], width=key[1],
                                          num_frames=key[2], dtype=dtype,
-                                         ema_decay=ema_decay, ema_mask=mask, seed=seed)
+                                         ema_decay=ema_decay, ema_mask=mask, seed=seed,
+                                         simulate_sp=key[3])
         return cache[key]
 
     return state, get_step
@@ -195,13 +218,14 @@ def build_training(model, scheduler, cfg, *, height, width, num_frames,
 
 
 def build_brushnet_training(model, scheduler: RFLOW, cfg, *, height, width, num_frames,
-                            seed: int = 0):
+                            seed: int = 0, simulate_sp: Optional[int] = None):
     """State and step of the BrushNet apps' training over ``model`` (a
     ``MagicDriveSTDiT3BrushNet``, fp32 masters on their device): only the branch
     trains (``lora_trainable_mask`` of ``BRUSHNET_EXTRA_TRAINABLE``; the frozen
     base stops requiring grad), AdamW (lr 5e-5 by default) with the clip, an EMA
     of every parameter (the frozen ones stay as they are), the SDE loss when the
-    model is the SDE variant. Returns (state, step)."""
+    model is the SDE variant; ``simulate_sp`` as in ``make_train_step``. Returns
+    (state, step)."""
     dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[cfg.get("dtype", "bf16")]
     mask = lora_trainable_mask(model.named_parameters(), BRUSHNET_EXTRA_TRAINABLE)
     opt = make_optimizer(
@@ -213,5 +237,6 @@ def build_brushnet_training(model, scheduler: RFLOW, cfg, *, height, width, num_
                        ema=copy.deepcopy(model).requires_grad_(False))
     step = make_train_step(
         scheduler, height=height, width=width, num_frames=num_frames, dtype=dtype,
-        ema_decay=cfg.get("ema_decay", 0.99), ema_mask=mask, seed=seed)
+        ema_decay=cfg.get("ema_decay", 0.99), ema_mask=mask, seed=seed,
+        simulate_sp=simulate_sp)
     return state, step

@@ -370,8 +370,22 @@ def load_rng_state(path: str) -> dict:
 def save_checkpoint(ckpt_dir: str, step: int, *, model: torch.nn.Module,
                     optimizer=None, ema: Optional[torch.nn.Module] = None,
                     running_states: Optional[dict] = None) -> str:
-    """Write one resumable checkpoint directory; returns its path."""
+    """Write one resumable checkpoint directory; returns its path. In a
+    ``torch.distributed`` group every rank calls it: rank 0 writes (the ranks hold
+    the same state) and every rank leaves only once the directory is whole, so
+    none resumes from a half-written one."""
+    import torch.distributed as dist
     path = os.path.abspath(os.path.join(ckpt_dir, _ckpt_name(step)))
+    if dist.is_initialized():
+        if dist.get_rank() == 0:
+            _write_checkpoint(path, model, optimizer, ema, running_states, step)
+        dist.barrier()
+        return path
+    _write_checkpoint(path, model, optimizer, ema, running_states, step)
+    return path
+
+
+def _write_checkpoint(path, model, optimizer, ema, running_states, step):
     os.makedirs(path, exist_ok=True)
     torch.save(model.state_dict(), os.path.join(path, "model.pt"))
     if ema is not None:
@@ -384,7 +398,6 @@ def save_checkpoint(ckpt_dir: str, step: int, *, model: torch.nn.Module,
         json.dump(running, f, indent=2, default=str)
     save_rng_state(os.path.join(path, "rng_state.json"))
     logger.info("saved checkpoint: %s", path)
-    return path
 
 
 def load_checkpoint(path: str, *, model: Optional[torch.nn.Module] = None,

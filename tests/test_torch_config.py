@@ -1,7 +1,7 @@
 """PyTorch port, the config system (``config/config.py``, ``config/presets.py``)
-against the JAX package's: every inference config loads in a process that
-imports nothing of JAX and gives the dict the JAX loader gives; overrides and
-``_base_`` inheritance behave alike."""
+against the JAX package's: every inference, train and test config loads in a
+process that imports nothing of JAX and gives the dict the JAX loader gives;
+overrides and ``_base_`` inheritance behave alike."""
 import glob
 import json
 import os
@@ -17,12 +17,16 @@ from magicdrive_v2_tpu_torch.config import presets as TP
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 INFERENCE = sorted(glob.glob(os.path.join(REPO, "configs/magicdrive/inference/*.py")))
+TRAIN_TEST = sorted(glob.glob(os.path.join(REPO, "configs/magicdrive/train/*.py"))
+                    + glob.glob(os.path.join(REPO, "configs/magicdrive/test/*.py")))
 
 _NO_JAX_LOAD = r"""
 import glob, json, sys
 from magicdrive_v2_tpu_torch.config.config import Config
 out = {}
-for path in sorted(glob.glob("configs/magicdrive/inference/*.py")):
+for path in sorted(glob.glob("configs/magicdrive/inference/*.py")
+                   + glob.glob("configs/magicdrive/train/*.py")
+                   + glob.glob("configs/magicdrive/test/*.py")):
     cfg = Config.fromfile(path)
     out[path] = sorted(cfg)
 bad = sorted(m for m in sys.modules
@@ -48,13 +52,22 @@ def test_inference_configs_load_without_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
     loaded = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert len(loaded) == len(INFERENCE) >= 9
+    assert len(loaded) == len(INFERENCE) + len(TRAIN_TEST)
+    assert len(INFERENCE) >= 9 and len(TRAIN_TEST) >= 10
     for keys in loaded.values():
         assert {"model", "scheduler", "config_path"} <= set(keys)
 
 
 @pytest.mark.parametrize("path", INFERENCE, ids=os.path.basename)
 def test_inference_config_equals_the_jax_loader(path):
+    ours, theirs = _plain(T.Config.fromfile(path)), _plain(J.Config.fromfile(path))
+    assert ours.pop("config_path") == theirs.pop("config_path") == path
+    assert ours == theirs
+
+
+@pytest.mark.parametrize("path", TRAIN_TEST, ids=lambda p: os.path.relpath(
+    p, os.path.join(REPO, "configs/magicdrive")))
+def test_train_and_test_config_equals_the_jax_loader(path):
     ours, theirs = _plain(T.Config.fromfile(path)), _plain(J.Config.fromfile(path))
     assert ours.pop("config_path") == theirs.pop("config_path") == path
     assert ours == theirs

@@ -476,15 +476,21 @@ def test_app_resume_equals_an_uninterrupted_run(tmp_path, caplog):
 
 
 def test_app_refuses_what_is_not_ported(tmp_path):
+    """A dataset without a train split is refused. sp_size 2 and simulate_sp_size
+    run in one process (sp = min(2, 1) = 1; the simulate pick pads H); a world
+    larger than sp would be data-parallel, refused by name. No card, no silent
+    CPU run."""
     out = f"outputs={tmp_path}"
+    from magicdrive_v2_tpu_torch.parallel.distributed import training_sp_size
     from magicdrive_v2_tpu_torch.scripts import train_magicdrive
     with pytest.raises(KeyError, match="data.train"):
         train_magicdrive.main([SMOKE, "--device", "cpu", "--cfg-options", out,
                                "dataset={'type': 'x'}"])
-    with pytest.raises(NotImplementedError, match="sp_size"):
-        _app(["--cfg-options", out, "sp_size=2"])
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
-        _app(["--cfg-options", out, "simulate_sp_size=[4]"])
+    (line,) = _app(["--max-steps", "1", "--cfg-options", out, "sp_size=2",
+                    "simulate_sp_size=[4]"])
+    assert line["step"] == 1 and line["simulate_sp"] == 4 and np.isfinite(line["loss"])
+    with pytest.raises(NotImplementedError, match="queue A item 2"):
+        training_sp_size(2, 4)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             train_magicdrive.main([SMOKE, "--synthetic", "--cfg-options", out])
