@@ -42,7 +42,7 @@ card. It imports only ``magicdrive_v2_tpu_torch`` and
                 each wrapper was handed;
 5b. ``sp_ranks`` sequence parallelism across processes: 4 ranks (gloo on one
                 card, NCCL where the host has a card a rank) run XL/2 at full width,
-                depth 2 / control 1, 6x848x1600x17f at sp=4 (mesh (1, 4)) and sp=2
+                depth 2 / control 1, 6x848x1600x9f at sp=4 (mesh (1, 4)) and sp=2
                 (mesh (2, 2)) in fp32 and bf16, and 424x800 at sp=4 (the sp pad),
                 each against the unsharded forward; then ``sp_vae`` of 6 views
                 over the 4 ranks against the direct decode; last, every shape the
@@ -74,9 +74,26 @@ card. It imports only ``magicdrive_v2_tpu_torch`` and
 7b. ``stage3_app`` the train app on ``configs/magicdrive/train/
                 stage3_multires_sp4.py --synthetic`` in one process (sp = min(4, 1)
                 = 1: ``simulate_sp_size`` [4, 8] alone picks the pad), XL/2 at full
-                width and depth, the 224-400-12-33 bucket at its batch of 4, 2
+                width, depth 7 / control 4, the 224-400-12-33 bucket at its batch of 4, 2
                 steps: each step's pick, s/step, peak memory, the metrics read
                 back, launches;
+7c. ``dp_train`` data-parallel training with the fp32 state split over dp
+                (``parallel/fsdp.py``): XL/2 at full width, depth 2 /
+                control 1, from the stage-2 config (bf16 over fp32 masters, remat
+                full), 2 steps on 2 ranks of a (2, 1) mesh at the stage-2 bucket (2
+                rows a rank) and on 4 ranks of a (2, 2) mesh at 424x800x9 (the sp
+                pad), gloo on one card (NCCL with a card a rank), each against 2
+                steps in one process on the global batch: loss, grad norm, the grads
+                before the clip, parameters and EMA after the steps; each rank's
+                bytes of split state against one process's; s/step, each rank's
+                peak memory, the gather, reduce-scatter and all-reduce seconds and
+                bytes a step; launches and backwards per rank; every shape the
+                ranks handed a wrapper held against its plain version;
+7d. ``dp_app``  the train app on 2 ranks at sp_size 1 (dp=2) on the stage-2
+                config, 2 rows a rank: XL/2 at full depth for 2 steps (each rank's
+                peak memory beside one process's), then at depth 2 for 2 steps with
+                a checkpoint: rank 0 alone writes the metrics and ``global_step2``,
+                which one process loads exactly (the ranks' blocks, joined);
 8. ``decode_vs_cpu``  the VAE decode on the card against the CPU's (fp32, TF32 off,
                 one view of 5 latent frames, so the 3 + 2 streaming runs), and a
                 bf16 against an fp32 decode of one main-path view on the card,
@@ -125,15 +142,16 @@ card. It imports only ``magicdrive_v2_tpu_torch`` and
                 of phase 6); every branch tensor has a grad, no frozen one has; the
                 launches and each Function's backwards equal their counts derived
                 from the graph;
-18. ``brushnet_train``  the BrushNet trainer at full width and depth in the
-                stage-2 bucket and settings (b=4, remat, bf16 over fp32 masters,
-                AdamW, EMA 0.99): XL/2-SDEBrushNet, 2 steps (the SDE loss, the cutoff
-                jitter), then ``brushnet_train_plain``: the BrushNet type at depth
-                7 / control depth 4, 2 steps;
+18. ``brushnet_train``  the BrushNet trainer at full width in the stage-2
+                bucket and settings (b=4, remat, bf16 over fp32 masters, AdamW, EMA
+                0.99): XL/2-SDEBrushNet at depth 14 / control depth 7, 2 steps (the
+                SDE loss, the cutoff jitter), then ``brushnet_train_plain``: the
+                BrushNet type at depth 7 / control depth 4, 2 steps;
                 the frozen base and its EMA bit-equal after the steps, every branch
                 tensor moved, the EMA identity, launches and backwards as derived;
                 s/step, tokens/s, peak memory;
-19. ``remat``   base XL/2, stage-2 bucket, b=1: forward and backward under each
+19. ``remat``   base XL/2 at depth 14 / control depth 7, stage-2 bucket, b=1:
+                forward and backward under each
                 remat policy (``full``, ``dots``, ``offload_carry``) over the same
                 state on the card, one untimed and 2 timed (median, spread); grads
                 against ``full``'s, peak memory, bytes sent to the host;
@@ -354,13 +372,16 @@ class HeldCases:
     def __init__(self, torch):
         self.torch = torch
         self.gen = torch.Generator(device="cpu").manual_seed(0)
+        # the large inputs are drawn on the card: a CPU draw of one 848x1600 K1 input
+        # (580 M numbers) takes seconds
+        self.card_gen = torch.Generator(device="cuda").manual_seed(0)
         self.cases = []
         self.worst = {"fused_qkv_attention": 0.0, "adaln_modulate": 0.0,
                       "flash_attention": 0.0}
         self.held = {name: set() for name in self.worst}
 
     def randn(self, *shape, dtype):
-        return self.torch.randn(*shape, generator=self.gen).to("cuda", dtype)
+        return self.torch.randn(*shape, generator=self.card_gen, device="cuda").to(dtype)
 
     def judge(self, kernel, out, ref, slack, **what):
         self.torch.cuda.synchronize()
@@ -1077,6 +1098,7 @@ DATA_YAML_848 = "Nuscenes_400_map_cache_box_t_with_n2t_12Hz_848x1600"
 H848, W848 = 848, 1600
 SP848_STEPS = 1
 SP_RANKS = 4            # processes of phase sp_ranks (meshes (1, 4) and (2, 2))
+SP_RANKS_FRAMES = 9     # frames of its forwards (cut from 17 to keep the script in time)
 SP_RANKS_DEADLINE_S = 420
 # sp_vae's check: 6 views of the 224x400 bucket (4 ranks decode on one card at once)
 SP_VAE_LATENT = (6, 16, 5, TRAIN_HEIGHT // 8, TRAIN_WIDTH // 8)
@@ -1191,7 +1213,8 @@ def sp_rank_worker(torch, out_dir, seed):
         for name, sp, mesh, (h, w), dt in sp_ranks_cases():
             if dt == "bf16" and model.dtype != torch.bfloat16:
                 cast_model(model, torch.bfloat16)
-            batch = to_card(torch, synthetic_batch(model.cfg, NUM_FRAMES, h, w, l_box=L_BOX))
+            batch = to_card(torch, synthetic_batch(model.cfg, SP_RANKS_FRAMES, h, w,
+                                                   l_box=L_BOX))
             seen = no_shapes()
             with torch.no_grad(), no_tf32(torch), use_mesh(meshes[mesh]), \
                     recorded_shapes(seen):
@@ -1228,20 +1251,18 @@ def sp_rank_worker(torch, out_dir, seed):
 def spawn_sp_ranks(n, out_dir, seed):
     """Starts ``n`` ranks of this script's sp worker (the port's launcher: it fails,
     and kills every rank, when one fails or they outlive SP_RANKS_DEADLINE_S).
-    Returns the backend used: NCCL with a card a rank where the host has n cards,
-    else gloo with every rank on card 0 (NCCL refuses two ranks on one card)."""
+    Returns the backend used (``collective_backend``)."""
     import torch
     from magicdrive_v2_tpu_torch.parallel.distributed import spawn_ranks
-    backend = "nccl" if torch.cuda.device_count() >= n else "gloo"
+    backend, local_ranks = collective_backend(torch, n)
     spawn_ranks(n, [os.path.abspath(__file__), "--sp-rank-worker", out_dir, "--seed", str(seed)],
-                SP_RANKS_DEADLINE_S, env={"MDV2_SP_BACKEND": backend},
-                local_ranks=None if backend == "nccl" else [0] * n)
+                SP_RANKS_DEADLINE_S, env={"MDV2_SP_BACKEND": backend}, local_ranks=local_ranks)
     return backend
 
 
 def run_sp_ranks(torch, seed, encode_launches, held):
     """XL/2 at full width, depth 2 / control depth 1: one forward at sp=2 (mesh
-    (2, 2): two sp groups of 2) and one at sp=4 (mesh (1, 4)), 6x848x1600x17f, in
+    (2, 2): two sp groups of 2) and one at sp=4 (mesh (1, 4)), 6x848x1600x9f, in
     fp32 and bf16, and the 424x800 shape at sp=4 (the sp pad: S 1350 -> 1400), in
     SP_RANKS processes; each against the unsharded forward on the card within
     phase slice_vs_plain's limits (fp32: 1e-3 x max(1, |ref|max); bf16: rms(sharded
@@ -1261,7 +1282,7 @@ def run_sp_ranks(torch, seed, encode_launches, held):
                 if dt == "bf16":
                     cast_model(model, torch.bfloat16)
                 for h, w in sizes:
-                    batch = to_card(torch, synthetic_batch(model.cfg, NUM_FRAMES, h, w,
+                    batch = to_card(torch, synthetic_batch(model.cfg, SP_RANKS_FRAMES, h, w,
                                                            l_box=L_BOX))
                     refs[(h, w, dt)] = model(**batch).float()
                     del batch
@@ -1321,7 +1342,7 @@ def run_sp_ranks(torch, seed, encode_launches, held):
         seen["flash_attention"] |= r["seen"]["flash_attention"]
     emit("sp_ranks", backend=backend, world_size=res[0]["world_size"],
          card_of_each_rank=[r["device"] for r in res], reference_seconds=ref_seconds,
-         ranks_seconds=ranks_seconds, depth=2, control_depth=1, frames=NUM_FRAMES,
+         ranks_seconds=ranks_seconds, depth=2, control_depth=1, frames=SP_RANKS_FRAMES,
          results=rows, kernel_cases=held.hold(seen, "sp_ranks"))
     del refs, direct, video
     torch.cuda.empty_cache()
@@ -1343,6 +1364,7 @@ GRAD_BF16_RMS_LIMIT = 2.0 ** -6
 FN_FP32_LIMIT = 1e-5         # per grad: max|g_function - g_autograd| / max|g_autograd|
 FN_BF16_LIMIT = 2.0 ** -7    # the same in bf16 (one ulp of the largest element)
 REMAT_REPS = 2               # timed forward+backward runs a remat policy
+REMAT_DEPTH = (14, 7)        # depth and control depth (cut from 28 / 13, as below)
 
 
 def train_config(torch):
@@ -1362,18 +1384,20 @@ def train_model_config(torch, cfg, dtype, **overrides):
                               grad_checkpoint=cfg.grad_checkpoint, **overrides)
 
 
-def train_batches(cfg, model_cfg, seed):
+def train_batches(cfg, model_cfg, seed, dp_row=0):
     """The app's synthetic batches of steps 0, 1, ... with their frame masks and
-    condition dropout, as numpy; captions of the text encoder's full length."""
+    condition dropout, as numpy, those of dp row ``dp_row``; captions of the text
+    encoder's full length."""
     from magicdrive_v2_tpu_torch.scripts.train_magicdrive import (SyntheticLoader,
                                                                    step_inputs)
     from magicdrive_v2_tpu_torch.utils.train_utils import MaskGenerator
     holder = {"step": 0}
     mask_gen = MaskGenerator(dict(cfg.get("mask_ratios", {})))
     for step, batch in enumerate(SyntheticLoader(model_cfg, cfg, holder,
-                                                 l_txt=model_cfg.model_max_length)):
+                                                 l_txt=model_cfg.model_max_length,
+                                                 dp_row=dp_row)):
         holder["step"] = step + 1
-        yield step_inputs(batch, cfg, mask_gen, seed, step)
+        yield step_inputs(batch, cfg, mask_gen, seed, step, dp_row)
 
 
 def check_functions(torch, seen):
@@ -1384,17 +1408,17 @@ def check_functions(torch, seen):
     from magicdrive_v2_tpu_torch.ops import (adaln_modulate, adaln_modulate_plain,
                                              flash_attention, flash_attention_plain,
                                              fused_qkv_attention, fused_qkv_attention_plain)
-    gen = torch.Generator().manual_seed(1)
+    gen = torch.Generator(device="cuda").manual_seed(1)
     cases = []
 
     def randn(*shape, dtype, scale=1.0, shift=0.0):
-        x = torch.randn(*shape, generator=gen) * scale + shift
-        return x.to("cuda", dtype).requires_grad_()
+        x = torch.randn(*shape, generator=gen, device="cuda") * scale + shift
+        return x.to(dtype).requires_grad_()
 
     def judge(kernel, out, inputs, plain_out, what):
         require(type(out.grad_fn).__name__ == "PlainVJPFunctionBackward",
                 f"{kernel}: output not from PlainVJPFunction: {out.grad_fn}")
-        g = torch.randn(out.shape, generator=gen).to("cuda", out.dtype)
+        g = torch.randn(out.shape, generator=gen, device="cuda").to(out.dtype)
         got = torch.autograd.grad(out, inputs, g)
         want = torch.autograd.grad(plain_out, inputs, g)
         limit = FN_FP32_LIMIT if out.dtype == torch.float32 else FN_BF16_LIMIT
@@ -1551,20 +1575,20 @@ def time_backwards(torch, seen, per_step):
     the nearest PyTorch call at the same shape as the yardstick."""
     import torch.nn.functional as F
     from magicdrive_v2_tpu_torch.ops import adaln_modulate, flash_attention, fused_qkv_attention
-    gen = torch.Generator().manual_seed(2)
+    gen = torch.Generator(device="cuda").manual_seed(2)
     bf16 = torch.bfloat16
 
     def randn(*shape):
-        return torch.randn(*shape, generator=gen).to("cuda", bf16).requires_grad_()
+        return torch.randn(*shape, generator=gen, device="cuda").to(bf16).requires_grad_()
 
     def backward_ms(out, inputs):
-        g = torch.randn(out.shape, generator=gen).to("cuda", out.dtype)
+        g = torch.randn(out.shape, generator=gen, device="cuda").to(out.dtype)
         return time_ms(torch, lambda: torch.autograd.grad(out, inputs, g, retain_graph=True),
                        3)
 
     def fwd_bwd_ms(fn, inputs):
         out = fn()
-        g = torch.randn(out.shape, generator=gen).to("cuda", out.dtype)
+        g = torch.randn(out.shape, generator=gen, device="cuda").to(out.dtype)
         return time_ms(torch, lambda: torch.autograd.grad(fn(), inputs, g), 3)
 
     rows = {}
@@ -1573,7 +1597,7 @@ def time_backwards(torch, seen, per_step):
     for J, (shape, perm) in sorted(k1.items()):
         G, N, _, H, D = shape
         qkv = randn(*shape)
-        qw = (torch.randn(D, generator=gen) * 0.1 + 1).cuda().requires_grad_()
+        qw = (torch.randn(D, generator=gen, device="cuda") * 0.1 + 1).requires_grad_()
         ms = backward_ms(fused_qkv_attention(qkv, qw, qw, perm), [qkv, qw])
         # the yardstick: one SDPA a source on its own k/v leaves, outputs summed
         q = randn(G, H, N, D)
@@ -1766,6 +1790,7 @@ SP_TRAIN_DEADLINE_S = 600
 SP_TRAIN_FLIP_SHARE = 0.05
 STAGE3_APP_BUCKET = (33, 224, 400)  # 224-400-12-33 at its batch of 4
 STAGE3_APP_STEPS = 2
+STAGE3_APP_DEPTH = (7, 4)  # depth and control depth (cut from 28 / 13; PERF.md has both)
 
 
 def sp_train_config(torch):
@@ -1779,12 +1804,14 @@ def sp_train_config(torch):
     return cfg
 
 
-def sp_train_state(torch, cfg, seed, dtype, **overrides):
-    """XL/2 at full width, depth 2 / control depth 1, from the stage-3 config (remat
-    full, AdamW at its lr 1e-5 without the 500-step warm-up, so that two steps move
-    the parameters by that lr; EMA 0.99) in ``dtype`` over fp32 masters on the
-    current card, with seeded weights: (model config, state, the bucket's step)."""
+def small_train_state(torch, cfg, seed, dtype, bucket, mesh=None, **overrides):
+    """XL/2 at full width, depth 2 / control depth 1, from ``cfg`` (remat full, AdamW
+    at its lr without a warm-up, so that two steps move the parameters by that lr;
+    EMA 0.99) in ``dtype`` over fp32 masters on the current card, with seeded
+    weights, split over the dp of ``mesh`` (``parallel.fsdp``) when it has dp > 1:
+    (model config, state, the step of ``bucket`` (frames, height, width))."""
     from magicdrive_v2_tpu_torch.models.magicdrive.stdit3 import MagicDriveSTDiT3
+    from magicdrive_v2_tpu_torch.parallel.fsdp import shard_for_training
     from magicdrive_v2_tpu_torch.schedulers.rf import build_scheduler
     from magicdrive_v2_tpu_torch.training.trainer import build_training_multibucket
     from magicdrive_v2_tpu_torch.utils.ckpt import init_weights
@@ -1795,35 +1822,41 @@ def sp_train_state(torch, cfg, seed, dtype, **overrides):
     init_weights(model, seed=seed)
     run_cfg = dict(cfg, warmup_steps=0,
                    dtype={torch.bfloat16: "bf16", torch.float32: "fp32"}[dtype])
-    state, get_step = build_training_multibucket(model, build_scheduler(cfg.scheduler),
-                                                 run_cfg, seed=seed + 1)
-    nf, h, w = SP_TRAIN_BUCKET
+    state, get_step = build_training_multibucket(
+        model, build_scheduler(cfg.scheduler), run_cfg, seed=seed + 1,
+        sharding=shard_for_training(model, mesh))
+    nf, h, w = bucket
     return model_cfg, state, get_step(h, w, nf)
 
 
-def sp_train_steps(torch, cfg, model_cfg, state, step_fn, seed, steps, mesh=None,
-                   seen=None, after_step=None):
-    """``steps`` steps of the app's synthetic batches (frame masks, condition
-    dropout) under ``mesh``; each step's loss, grad norm, seconds, launches and
-    backwards; the grads of the first step before the clip, on the host."""
+def train_steps(torch, state, step_fn, batches, bucket, steps, mesh=None, seen=None,
+                after_step=None, capture=contextlib.nullcontext):
+    """``steps`` steps of ``batches`` (the app's synthetic batches with frame masks
+    and condition dropout, each of ``bucket``) under ``mesh``; each step's loss,
+    grad norm, seconds, launches and backwards; the grads of the first step
+    before the clip, on the host, whole (gathered over dp, within ``capture``)."""
     from magicdrive_v2_tpu_torch.parallel.sharding import use_mesh
     from magicdrive_v2_tpu_torch.utils.misc import to_device
     named = dict(state.model.named_parameters())
     grads0 = {}
     clip_step = state.optimizer.step
 
+    def whole(name, g):
+        return g if state.sharding is None else state.sharding.full(name, g)
+
     def step_keeping_grads():
         if not grads0:
-            grads0.update({n: None if p.grad is None else p.grad.detach().cpu().clone()
-                           for n, p in named.items()})
+            with capture():
+                grads0.update({n: None if p.grad is None else whole(n, p.grad).cpu().clone()
+                               for n, p in named.items()})
         return clip_step()
 
     state.optimizer.step = step_keeping_grads
     rows = []
-    batches = train_batches(cfg, model_cfg, seed)
+    nf, h, w = bucket
     for i in range(steps):
-        batch, bucket = next(batches)
-        require(bucket == (SP_TRAIN_BUCKET[0], float(H848), float(W848)), bucket)
+        batch, got_bucket = next(batches)
+        require(got_bucket == (nf, float(h), float(w)), got_bucket)
         dev = to_device(batch, "cuda")
         torch.cuda.synchronize()
         reset_counters()
@@ -1882,8 +1915,9 @@ def sp_train_worker(torch, out_dir, seed):
         cfg = sp_train_config(torch)
         mesh = training_mesh(cfg.sp_size)
         require(mesh is not None and (mesh.dp, mesh.sp) == (1, SP_TRAIN_RANKS), mesh)
-        model_cfg, state, step_fn = sp_train_state(torch, cfg, seed, torch.bfloat16,
-                                                   enable_sequence_parallelism=True)
+        model_cfg, state, step_fn = small_train_state(torch, cfg, seed, torch.bfloat16,
+                                                      SP_TRAIN_BUCKET,
+                                                      enable_sequence_parallelism=True)
 
         def ranks_equal(state):
             if state.step < SP_TRAIN_STEPS:
@@ -1895,9 +1929,10 @@ def sp_train_worker(torch, out_dir, seed):
 
         seen = no_shapes()
         with no_tf32(torch):  # as the one-process reference runs
-            rows, grads0 = sp_train_steps(torch, cfg, model_cfg, state, step_fn, seed,
-                                          SP_TRAIN_STEPS, mesh=mesh, seen=seen,
-                                          after_step=ranks_equal)
+            rows, grads0 = train_steps(torch, state, step_fn,
+                                       train_batches(cfg, model_cfg, seed), SP_TRAIN_BUCKET,
+                                       SP_TRAIN_STEPS, mesh=mesh, seen=seen,
+                                       after_step=ranks_equal)
         out = dict(rows=rows, reduces=reduces, seen=seen, backend=dist.get_backend(),
                    device=str(torch.cuda.current_device()))
         if rank == 0:
@@ -1933,10 +1968,12 @@ def run_sp_train(torch, seed, encode_launches, held):
     with no_tf32(torch):
         for dtype, steps in ((torch.float32, 1), (torch.bfloat16, SP_TRAIN_STEPS)):
             torch.cuda.reset_peak_memory_stats()
-            model_cfg, state, step_fn = sp_train_state(torch, cfg, seed, dtype,
-                                                       force_pad_h_for_sp_size=2)
-            ref_rows[dtype], grads_ref[dtype] = sp_train_steps(
-                torch, cfg, model_cfg, state, step_fn, seed, steps)
+            model_cfg, state, step_fn = small_train_state(torch, cfg, seed, dtype,
+                                                          SP_TRAIN_BUCKET,
+                                                          force_pad_h_for_sp_size=2)
+            ref_rows[dtype], grads_ref[dtype] = train_steps(
+                torch, state, step_fn, train_batches(cfg, model_cfg, seed), SP_TRAIN_BUCKET,
+                steps)
             if dtype == torch.bfloat16:
                 params_ref = {n: p.detach().cpu() for n, p in state.model.named_parameters()}
                 ema_ref = {n: p.detach().cpu() for n, p in state.ema.named_parameters()}
@@ -1948,11 +1985,11 @@ def run_sp_train(torch, seed, encode_launches, held):
     try:
         t0 = time.time()
         from magicdrive_v2_tpu_torch.parallel.distributed import spawn_ranks
-        backend = "nccl" if torch.cuda.device_count() >= SP_TRAIN_RANKS else "gloo"
+        backend, local_ranks = collective_backend(torch, SP_TRAIN_RANKS)
         spawn_ranks(SP_TRAIN_RANKS, [os.path.abspath(__file__), "--sp-train-worker", out_dir,
                                      "--seed", str(seed)],
                     SP_TRAIN_DEADLINE_S, env={"MDV2_SP_BACKEND": backend},
-                    local_ranks=None if backend == "nccl" else [0] * SP_TRAIN_RANKS)
+                    local_ranks=local_ranks)
         ranks_seconds = time.time() - t0
         res = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
                for r in range(SP_TRAIN_RANKS)]
@@ -1979,7 +2016,7 @@ def run_sp_train(torch, seed, encode_launches, held):
                                                 grads_ref[torch.bfloat16],
                                                 grads_ref[torch.float32])
     require(worst[0] <= 1.0 and with_grad > 0, worst)
-    sched = multistep_warmup_schedule(cfg.lr)  # sp_train_state's: no warm-up
+    sched = multistep_warmup_schedule(cfg.lr)  # small_train_state's: no warm-up
     lrs = [sched(i) for i in range(SP_TRAIN_STEPS)]
     flip = 2 * sum(lrs) * (1 + cfg.weight_decay)
     agreement = {}
@@ -2028,9 +2065,9 @@ def run_sp_train(torch, seed, encode_launches, held):
 def run_stage3_app(torch, encode_launches):
     """The train app on the stage-3 config (sp_size 4, simulate_sp_size [4, 8]) in
     one process: sp = min(4, 1) = 1, so the simulate pick alone pads H (14 -> 16
-    for either pick). XL/2 at full width and depth, the 224-400-12-33 bucket at its
-    batch of 4, synthetic, 2 steps, no checkpoint (33 GB); each step's pick, s/step,
-    peak memory, the metrics read back, the launches of 2 remat steps."""
+    for either pick). XL/2 at full width, depth STAGE3_APP_DEPTH, the 224-400-12-33
+    bucket at its batch of 4, synthetic, 2 steps, no checkpoint; each step's pick,
+    s/step, peak memory, the metrics read back, the launches of 2 remat steps."""
     import random
     from magicdrive_v2_tpu_torch.scripts import train_magicdrive
     t_phase = time.time()
@@ -2042,7 +2079,8 @@ def run_stage3_app(torch, encode_launches):
     shutil.rmtree(out_dir, ignore_errors=True)
     argv = [STAGE3_CONFIG, "--synthetic", "--max-steps", str(STAGE3_APP_STEPS),
             "--cfg-options", f"outputs={out_dir}", f"synthetic_buckets=[({nf},{h},{w})]",
-            f"batch_size={b}", "ckpt_every=0", "log_every=1", "record_time=True"]
+            f"batch_size={b}", "ckpt_every=0", "log_every=1", "record_time=True",
+            f"model.depth={STAGE3_APP_DEPTH[0]}", f"model.control_depth={STAGE3_APP_DEPTH[1]}"]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_counters()
@@ -2060,20 +2098,466 @@ def run_stage3_app(torch, encode_launches):
                 for line in read_back), read_back)
     require([(x["loss"], x["grad_norm"]) for x in lines]
             == [(x["loss"], x["grad_norm"]) for x in read_back], (lines, read_back))
-    model_cfg = train_model_config(torch, cfg, torch.bfloat16)
-    require((model_cfg.depth, model_cfg.control_depth, model_cfg.hidden_size)
-            == (28, 13, 1152), model_cfg)
+    model_cfg = train_model_config(torch, cfg, torch.bfloat16, depth=STAGE3_APP_DEPTH[0],
+                                   control_depth=STAGE3_APP_DEPTH[1])
+    require(model_cfg.hidden_size == 1152, model_cfg)
     per_forward = expected_launches(model_cfg, x_mask=True)
     want = {k: STAGE3_APP_STEPS * (2 * per_forward[k] + encode_launches[k])
             for k in per_forward}
     require(got == want, (got, want))
     T, H, W = (nf - 1) // 4 + 1, h // 16, w // 16
     emit("stage3_app", config=STAGE3_CONFIG, bucket=f"{h}-{w}-12-{nf}", batch=b,
-         sp=1, simulate_sp_choices=list(cfg.simulate_sp_size), picks=picks,
+         depth=list(STAGE3_APP_DEPTH), sp=1,
+         simulate_sp_choices=list(cfg.simulate_sp_size), picks=picks,
          h_tokens=[H, 16], tokens_unpadded=b * 6 * T * H * W, tokens_padded=b * 6 * T * 16 * W,
          seconds_per_step=[x["step_s"] for x in read_back], metrics=read_back,
          peak_memory_bytes=peak, launches=got, seconds=time.time() - t_phase)
     return got
+
+
+# ---------------------------------------------------------------------------
+# phases 7c and 7d: data-parallel training
+# ---------------------------------------------------------------------------
+
+DP_TRAIN_STEPS = 2
+DP_TRAIN_DEADLINE_S = 600
+# the meshes of phase dp_train: (dp, sp), the bucket (frames, height, width) and the
+# rows of each dp row; the (2, 2) bucket's 27 token rows take the sp pad (28)
+DP_TRAIN_MESHES = {
+    "dp2": dict(dp=2, sp=1, bucket=(TRAIN_FRAMES, TRAIN_HEIGHT, TRAIN_WIDTH), rows=2),
+    "dp2sp2": dict(dp=2, sp=2, bucket=(9, HEIGHT, WIDTH), rows=1),
+}
+DP_APP_RANKS = 2
+DP_APP_ROWS = 2          # a rank's rows: the global batch is the stage-2 config's 4
+DP_APP_DEADLINE_S = 900
+
+
+def collective_backend(torch, n):
+    """NCCL with a card a rank where the host has ``n`` cards, else gloo with every
+    rank on card 0 (NCCL refuses two ranks on one card): (backend, local ranks)."""
+    if torch.cuda.device_count() >= n:
+        return "nccl", None
+    return "gloo", [0] * n
+
+
+def dp_train_config(torch, case):
+    """The stage-2 config at ``case``'s bucket, its rows a dp row and its sp_size."""
+    cfg = train_config(torch)
+    cfg.synthetic_buckets = [case["bucket"]]
+    cfg.batch_size = case["rows"]
+    cfg.sp_size = case["sp"]
+    return cfg
+
+
+def concat_rows(parts):
+    """The global batch of the dp rows' batches ``parts`` (leading dims b or b*NC,
+    sample-major), rows in dp order."""
+    import numpy as np
+    if isinstance(parts[0], dict):
+        return {k: concat_rows([p[k] for p in parts]) for k in parts[0]}
+    return np.concatenate(parts)
+
+
+def global_batches(cfg, model_cfg, seed, dp):
+    """The global batches of ``dp`` rows, step by step: each row's as that rank draws
+    it (``train_batches(dp_row=d)``), concatenated in dp order."""
+    rows = [train_batches(cfg, model_cfg, seed, dp_row=d) for d in range(dp)]
+    while True:
+        parts = [next(r) for r in rows]
+        yield concat_rows([batch for batch, _ in parts]), parts[0][1]
+
+
+def dp_train_worker(torch, out_dir, seed):
+    """One rank of phase dp_train (``chip_smoke.py --dp-train-worker DIR``): joins the
+    group the parent describes (backend in MDV2_SP_BACKEND, the mesh in
+    MDV2_DP_CASE), builds the mesh by the train apps' rule, splits the state over dp
+    and runs the steps on its dp row's rows with the gathers, reduce-scatters and
+    all-reduces of FSDP timed, then gathers the parameters and EMA. Rank 0 writes
+    the first step's grads and the final parameters and EMA, every rank its steps,
+    its peak memory, the bytes of its blocks and the shapes it handed each
+    wrapper."""
+    import torch.distributed as dist
+    from magicdrive_v2_tpu_torch.parallel import fsdp
+    from magicdrive_v2_tpu_torch.parallel.distributed import (maybe_initialize, shutdown,
+                                                              training_mesh)
+    case = DP_TRAIN_MESHES[os.environ["MDV2_DP_CASE"]]
+    maybe_initialize("cuda", backend=os.environ["MDV2_SP_BACKEND"],
+                     timeout_s=DP_TRAIN_DEADLINE_S)
+    rank = dist.get_rank()
+    timed = {"gather": [], "reduce_scatter": [], "all_reduce": []}
+    paused = []
+    originals = dict(gather=fsdp._gather, reduce_scatter=fsdp._reduce_scatter,
+                     all_reduce=fsdp.all_reduce_grads)
+
+    def timing(kind, nbytes):
+        fn = originals[kind]
+
+        def run(*args):
+            if paused:
+                return fn(*args)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            timed[kind].append((time.time() - t0, nbytes(args, out)))
+            return out
+        return run
+
+    def size(t):
+        return t.numel() * t.element_size()
+
+    @contextlib.contextmanager
+    def untimed():
+        paused.append(True)
+        try:
+            yield
+        finally:
+            paused.pop()
+
+    fsdp._gather = timing("gather", lambda a, out: size(out))
+    fsdp._reduce_scatter = timing("reduce_scatter", lambda a, out: size(a[0]))
+    fsdp.all_reduce_grads = timing("all_reduce", lambda a, out: sum(size(g) for g in a[0]))
+    try:
+        cfg = dp_train_config(torch, case)
+        mesh = training_mesh(cfg.sp_size)
+        require(mesh is not None and (mesh.dp, mesh.sp) == (case["dp"], case["sp"]), mesh)
+        torch.cuda.reset_peak_memory_stats()
+        model_cfg, state, step_fn = small_train_state(
+            torch, cfg, seed, torch.bfloat16, case["bucket"], mesh=mesh,
+            enable_sequence_parallelism=mesh.sp > 1)
+        sharding = state.sharding
+
+        def per_step(state):
+            out = {k: dict(calls=len(v), seconds=sum(s for s, _ in v),
+                           bytes=sum(b for _, b in v)) for k, v in timed.items()}
+            for v in timed.values():
+                v.clear()
+            return {"collectives": out}
+
+        seen = no_shapes()
+        with no_tf32(torch):
+            rows, grads0 = train_steps(
+                torch, state, step_fn, train_batches(cfg, model_cfg, seed, mesh.dp_rank),
+                case["bucket"], DP_TRAIN_STEPS, mesh=mesh, seen=seen, after_step=per_step,
+                capture=untimed)
+        peak = torch.cuda.max_memory_allocated()
+        moments = sum(size(v) for st in state.optimizer.adamw.state.values()
+                      for k, v in st.items() if k in ("exp_avg", "exp_avg_sq"))
+        local = dict(params=sharding.local_bytes(state.model),
+                     ema=sharding.local_bytes(state.ema), moments=moments)
+        blocks = torch.cat([p.detach().reshape(-1) for p in state.model.parameters()]
+                           + [p.detach().reshape(-1) for p in state.ema.parameters()])
+        peer = blocks.clone()
+        if mesh.sp > 1:  # the sp ranks of a dp row hold the same blocks
+            dist.broadcast(peer, src=mesh.dp_rank * mesh.sp, group=mesh.sp_group)
+        with untimed():
+            params = {n: sharding.full(n, p).cpu() for n, p in state.model.named_parameters()}
+            ema = {n: sharding.full(n, p).cpu() for n, p in state.ema.named_parameters()}
+        out = dict(rows=rows, seen=seen, backend=dist.get_backend(),
+                   device=str(torch.cuda.current_device()), peak_memory_bytes=peak,
+                   local_bytes=local, mesh=[mesh.dp, mesh.sp], dp_row=mesh.dp_rank,
+                   blocks_equal_sp_peer=bool(torch.equal(blocks, peer)),
+                   split_parameters=len(sharding.sharded))
+        if rank == 0:
+            out.update(grads0=grads0, params=params, ema=ema)
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        fsdp._gather = originals["gather"]
+        fsdp._reduce_scatter = originals["reduce_scatter"]
+        fsdp.all_reduce_grads = originals["all_reduce"]
+        shutdown()
+    return 0
+
+
+def run_dp_train(torch, seed, encode_launches, held):
+    """Data-parallel training with the state split over dp (``parallel/fsdp.py``), on
+    ranks of one card (gloo; NCCL with a card a rank): XL/2 at full width, depth 2 /
+    control depth 1, from the stage-2 config (bf16 over fp32 masters, remat full),
+    2 steps, first on a (2, 1) mesh at the stage-2 bucket (2 rows a rank: the global
+    batch of 4), then on a (2, 2) mesh at 424x800x9 (1 row a dp row, 27 token rows
+    padded to 28 for sp=2). Each against 2 steps in one process on the global batch
+    (each row's batch as its rank draws it; the sp pad forced at sp=2): the loss
+    and grad norm within 2**-6; the first step's grads before the clip by phase
+    grads' bf16 rule (so no parameter lost its grad); the parameters and EMA after
+    the steps within two opposite AdamW steps, beyond an eighth of a step in at
+    most SP_TRAIN_FLIP_SHARE of the elements; the sp ranks of a dp row bit-equal.
+    Each rank's bytes of split parameters, EMA and moments at most 1/dp of one
+    process's plus the replicated parameters; launches and backwards per rank
+    those of one remat step; every shape the ranks handed a wrapper held against
+    its plain version. Returns rank 0's launches over the (2, 1) mesh's steps."""
+    from magicdrive_v2_tpu_torch.parallel.distributed import spawn_ranks
+    from magicdrive_v2_tpu_torch.parallel.fsdp import param_spec
+    from magicdrive_v2_tpu_torch.utils.train_utils import multistep_warmup_schedule
+    launches = None
+    for name, case in DP_TRAIN_MESHES.items():
+        t_phase = time.time()
+        cfg = dp_train_config(torch, case)
+        dp, sp = case["dp"], case["sp"]
+        pad = {"force_pad_h_for_sp_size": sp} if sp > 1 else {}
+        ref_rows, grads_ref = {}, {}
+        with no_tf32(torch):
+            for dtype, steps in ((torch.float32, 1), (torch.bfloat16, DP_TRAIN_STEPS)):
+                torch.cuda.reset_peak_memory_stats()
+                model_cfg, state, step_fn = small_train_state(torch, cfg, seed, dtype,
+                                                              case["bucket"], **pad)
+                ref_rows[dtype], grads_ref[dtype] = train_steps(
+                    torch, state, step_fn, global_batches(cfg, model_cfg, seed, dp),
+                    case["bucket"], steps)
+                if dtype == torch.bfloat16:
+                    params_ref = {n: p.detach().cpu() for n, p in state.model.named_parameters()}
+                    ema_ref = {n: p.detach().cpu() for n, p in state.ema.named_parameters()}
+                    trainable = {n: p.requires_grad for n, p in state.model.named_parameters()}
+                    ref_peak = torch.cuda.max_memory_allocated()
+                del state, step_fn
+                torch.cuda.empty_cache()
+        ref_seconds = time.time() - t_phase
+        n = dp * sp
+        backend, local_ranks = collective_backend(torch, n)
+        out_dir = tempfile.mkdtemp(prefix="chip_smoke_dp_train_")
+        try:
+            t0 = time.time()
+            spawn_ranks(n, [os.path.abspath(__file__), "--dp-train-worker", out_dir,
+                            "--seed", str(seed)], DP_TRAIN_DEADLINE_S,
+                        env={"MDV2_SP_BACKEND": backend, "MDV2_DP_CASE": name},
+                        local_ranks=local_ranks)
+            ranks_seconds = time.time() - t0
+            res = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+                   for r in range(n)]
+        finally:
+            shutil.rmtree(out_dir, ignore_errors=True)
+        bf16_model_cfg = train_model_config(torch, cfg, torch.bfloat16, depth=2,
+                                            control_depth=1)
+        per_forward = expected_launches(bf16_model_cfg, x_mask=True)
+        want = {k: 2 * per_forward[k] + encode_launches[k] for k in per_forward}
+        want_backward = {k: per_forward[k] + encode_launches[k] for k in per_forward}
+        for r in res:
+            require(r["mesh"] == [dp, sp] and r["blocks_equal_sp_peer"], (r["mesh"], name))
+            for row in r["rows"]:
+                require(row["launches"] == want and row["backwards"] == want_backward,
+                        (name, row["launches"], want, row["backwards"], want_backward))
+        rows0, ref = res[0]["rows"], ref_rows[torch.bfloat16]
+        metrics = []
+        for got, one in zip(rows0, ref):
+            for k in ("loss", "grad_norm"):
+                err = abs(got[k] - one[k])
+                require(math.isfinite(got[k]) and err <= 2.0 ** -6 * abs(one[k]),
+                        (name, k, got, one))
+            metrics.append(dict(loss=got["loss"], loss_one_process=one["loss"],
+                                grad_norm=got["grad_norm"],
+                                grad_norm_one_process=one["grad_norm"]))
+        worst, with_grad, roundings = compare_grads(torch, res[0]["grads0"],
+                                                    grads_ref[torch.bfloat16],
+                                                    grads_ref[torch.float32])
+        require(worst[0] <= 1.0 and with_grad > 0, (name, worst))
+        lrs = [multistep_warmup_schedule(cfg.lr)(i) for i in range(DP_TRAIN_STEPS)]
+        flip = 2 * sum(lrs) * (1 + cfg.weight_decay)
+        agreement = {}
+        for key, got, one, scale in (("params", res[0]["params"], params_ref, 1.0),
+                                     ("ema", res[0]["ema"], ema_ref, 1 - cfg.ema_decay ** 2)):
+            worst_abs, beyond, total = 0.0, 0, 0
+            for pname, p in one.items():
+                err = (got[pname] - p).abs()
+                worst_abs = max(worst_abs, float(err.max()))
+                beyond += int((err > scale * sum(lrs) / 8).sum())
+                total += err.numel()
+            agreement[key] = dict(max_abs_err=worst_abs, limit=scale * flip,
+                                  share_beyond_eighth_step=beyond / total)
+            require(worst_abs <= scale * flip and beyond / total <= SP_TRAIN_FLIP_SHARE,
+                    (name, key, agreement[key]))
+        # one process's state against each rank's blocks
+        split = {k: param_spec(tuple(p.shape), dp) is not None for k, p in params_ref.items()}
+        one_params = sum(p.numel() * 4 for p in params_ref.values())
+        one_moments = 2 * sum(p.numel() * 4 for k, p in params_ref.items() if trainable[k])
+        repl = sum(p.numel() * 4 for k, p in params_ref.items() if not split[k])
+        shards = []
+        for r in res:
+            lb = r["local_bytes"]
+            local_params = sum(lb["params"])
+            require(lb["params"][1] == repl and lb["ema"] == lb["params"]
+                    and local_params <= (one_params - repl) / dp + repl
+                    and lb["moments"] <= (one_moments - 2 * repl) / dp + 2 * repl,
+                    (name, lb, one_params, one_moments, repl))
+            shards.append(dict(dp_row=r["dp_row"], params_split=lb["params"][0],
+                               params_replicated=lb["params"][1], ema=sum(lb["ema"]),
+                               moments=lb["moments"], peak_memory_bytes=r["peak_memory_bytes"]))
+        seen = no_shapes()
+        for r in res:
+            for k, perm in r["seen"]["fused_qkv_attention"].items():
+                seen["fused_qkv_attention"].setdefault(k, perm)
+            seen["adaln_modulate"] |= r["seen"]["adaln_modulate"]
+            seen["flash_attention"] |= r["seen"]["flash_attention"]
+        nf, h, w = case["bucket"]
+        emit("dp_train", mesh=[dp, sp], config=TRAIN_CONFIG, bucket=f"{h}-{w}-12-{nf}",
+             rows_per_dp_row=case["rows"], global_batch=dp * case["rows"], depth=2,
+             control_depth=1, dtype="bfloat16 compute, float32 masters", remat="full",
+             backend=res[0]["backend"], card_of_each_rank=[r["device"] for r in res],
+             split_parameters=res[0]["split_parameters"], metrics=metrics,
+             grads_worst_ratio_to_limit=worst[0], grads_worst_tensor=worst[1],
+             tensors_with_grad=with_grad,
+             bf16_rounding_rms_ratio_max=max(roundings) if roundings else None,
+             after_steps=agreement,
+             one_process_bytes=dict(params=one_params, moments=one_moments, ema=one_params,
+                                    replicated_params=repl),
+             each_rank=shards, one_process_peak_memory_bytes=ref_peak,
+             seconds_per_step_rank0=[row["seconds"] for row in rows0],
+             seconds_per_step_one_process=[row["seconds"] for row in ref],
+             collectives_per_step_rank0=[row["collectives"] for row in rows0],
+             launches_per_step_rank0=rows0[-1]["launches"], backwards_per_step=want_backward,
+             reference_seconds=ref_seconds, ranks_seconds=ranks_seconds,
+             kernel_cases=held.hold(seen, f"dp_train_{name}"), seconds=time.time() - t_phase)
+        if launches is None:
+            launches = {k: sum(row["launches"][k] for row in rows0) for k in per_forward}
+        torch.cuda.empty_cache()
+    return launches
+
+
+def dp_app_worker(torch, out_dir):
+    """One rank of phase dp_app (``chip_smoke.py --dp-app-worker DIR``): joins the
+    group (backend in MDV2_SP_BACKEND) and runs the train app's ``main`` on each
+    argv of MDV2_DP_APP_ARGVS (JSON), one after the other; writes, for each run,
+    its metrics lines, launches and peak memory, and, where the app writes a
+    checkpoint, its own blocks of the model and EMA as the app held them then
+    (with the split dims)."""
+    import torch.distributed as dist
+    from magicdrive_v2_tpu_torch.parallel.distributed import maybe_initialize, shutdown
+    from magicdrive_v2_tpu_torch.scripts import train_magicdrive
+    from magicdrive_v2_tpu_torch.utils import ckpt
+    maybe_initialize("cuda", backend=os.environ["MDV2_SP_BACKEND"],
+                     timeout_s=DP_APP_DEADLINE_S)
+    rank = dist.get_rank()
+    save = ckpt.save_checkpoint
+    blocks = {}
+
+    def save_keeping_blocks(*args, model, ema=None, sharding=None, **kw):
+        if kw.get("optimizer") is not None:  # a training checkpoint
+            blocks.update(
+                dims=dict(sharding.dims), dp_row=sharding.rank,
+                model={n: p.detach().cpu() for n, p in model.named_parameters()},
+                ema={n: p.detach().cpu() for n, p in ema.named_parameters()})
+        return save(*args, model=model, ema=ema, sharding=sharding, **kw)
+
+    ckpt.save_checkpoint = save_keeping_blocks
+    try:
+        runs = []
+        for argv in json.loads(os.environ["MDV2_DP_APP_ARGVS"]):
+            blocks.clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counters()
+            t0 = time.time()
+            lines = train_magicdrive.main(argv)
+            runs.append(dict(lines=lines, seconds=time.time() - t0, launches=read_counters(),
+                             peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                             blocks=dict(blocks)))
+        torch.save(runs, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        ckpt.save_checkpoint = save
+        shutdown()
+    return 0
+
+
+def spawn_dp_app(torch, argvs):
+    """The train app on DP_APP_RANKS ranks of this script's dp_app worker, once for
+    each argv of ``argvs``: for each run, each rank's results; the backend."""
+    from magicdrive_v2_tpu_torch.parallel.distributed import spawn_ranks
+    backend, local_ranks = collective_backend(torch, DP_APP_RANKS)
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dp_app_")
+    try:
+        spawn_ranks(DP_APP_RANKS, [os.path.abspath(__file__), "--dp-app-worker", out_dir],
+                    DP_APP_DEADLINE_S, local_ranks=local_ranks,
+                    env={"MDV2_SP_BACKEND": backend, "MDV2_DP_APP_ARGVS": json.dumps(argvs)})
+        by_rank = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+                   for r in range(DP_APP_RANKS)]
+        return [list(run) for run in zip(*by_rank)], backend
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def run_dp_app(torch, encode_launches):
+    """The train app on 2 ranks of the card at sp_size 1, so dp=2, on the stage-2
+    config (2 rows a rank: its global batch of 4), synthetic: first XL/2 at full
+    width and depth, 2 steps (the second with the AdamW moments in place), no
+    checkpoint (an XL/2 one is 33 GB): each rank's peak memory (phase train's at b=4
+    is one process's; two ranks with unsplit state would need about twice that, more
+    than the card), s/step, launches; then at depth 2 / control depth 1, 2 steps
+    with a checkpoint at step 2: rank 0 alone writes
+    ``metrics.jsonl`` (one line a step) and ``global_step2``, and one process loads
+    that checkpoint (model, EMA, AdamW moments) exactly into an unsplit state: the
+    whole of the ranks' blocks. Returns the launches of a rank over the full-depth
+    steps."""
+    from magicdrive_v2_tpu_torch.models.magicdrive.stdit3 import MagicDriveSTDiT3
+    from magicdrive_v2_tpu_torch.schedulers.rf import build_scheduler
+    from magicdrive_v2_tpu_torch.training.trainer import build_training_multibucket
+    from magicdrive_v2_tpu_torch.utils.ckpt import load_checkpoint
+    t_phase = time.time()
+    cfg = train_config(torch)
+    out_root = os.path.join("outputs", "chip_smoke_dp_app")
+    shutil.rmtree(out_root, ignore_errors=True)
+    base = ["--synthetic", "--cfg-options", "sp_size=1", f"batch_size={DP_APP_ROWS}",
+            "log_every=1", "record_time=True",
+            f"synthetic_buckets=[({TRAIN_FRAMES},{TRAIN_HEIGHT},{TRAIN_WIDTH})]"]
+    runs = {}
+    try:
+        full_dir, small_dir = os.path.join(out_root, "full"), os.path.join(out_root, "small")
+        (full, small), backend = spawn_dp_app(torch, [
+            [TRAIN_CONFIG, "--max-steps", "2"] + base + [f"outputs={full_dir}", "ckpt_every=0"],
+            [TRAIN_CONFIG, "--max-steps", "2"] + base + [f"outputs={small_dir}", "ckpt_every=2",
+                                                         "model.depth=2",
+                                                         "model.control_depth=1"]])
+        for key, res, d, steps in (("full_depth", full, full_dir, 2),
+                                   ("depth2", small, small_dir, 2)):
+            with open(os.path.join(d, "metrics.jsonl")) as f:
+                read_back = [json.loads(line) for line in f]
+            require([x["step"] for x in read_back] == list(range(1, steps + 1)), read_back)
+            for r in res:  # every rank logged the global batch's numbers; rank 0 wrote
+                require([(x["loss"], x["grad_norm"]) for x in r["lines"]]
+                        == [(x["loss"], x["grad_norm"]) for x in read_back], (key, r["lines"]))
+            require(all(math.isfinite(x["loss"]) for x in read_back), read_back)
+            runs[key] = dict(metrics=read_back, seconds=[r["seconds"] for r in res],
+                             peak_memory_bytes=[r["peak_memory_bytes"] for r in res],
+                             launches_rank0=res[0]["launches"])
+        model_cfg = train_model_config(torch, cfg, torch.bfloat16)
+        per_forward = expected_launches(model_cfg, x_mask=True)
+        want = {k: 2 * (2 * per_forward[k] + encode_launches[k]) for k in per_forward}
+        require(all(r["launches"] == want for r in full), ([r["launches"] for r in full], want))
+        ckpt = os.path.join(small_dir, "global_step2")
+        require(sorted(os.listdir(ckpt)) == ["ema.pt", "model.pt", "optimizer.pt",
+                                             "rng_state.json", "running_states.json"],
+                os.listdir(ckpt))
+        # the ranks' blocks, joined along their split dims
+        blocks = [r["blocks"] for r in small]
+        dims = blocks[0]["dims"]
+        require([b["dp_row"] for b in blocks] == list(range(DP_APP_RANKS)), "dp rows")
+        whole = {key: {n: blocks[0][key][n] if dims[n] is None
+                       else torch.cat([b[key][n] for b in blocks], dim=dims[n])
+                       for n in dims} for key in ("model", "ema")}
+        small_cfg = train_model_config(torch, cfg, torch.float32, depth=2, control_depth=1)
+        with torch.device("cuda"):
+            model = MagicDriveSTDiT3(small_cfg)
+        state, _ = build_training_multibucket(model, build_scheduler(cfg.scheduler), cfg)
+        running = load_checkpoint(ckpt, model=state.model, ema=state.ema,
+                                  optimizer=state.optimizer)
+        require(running["step"] == 2 and state.optimizer.count == 2, running)
+        for key, module in (("model", state.model), ("ema", state.ema)):
+            for n, p in module.named_parameters():
+                require(torch.equal(p.detach().cpu(), whole[key][n]), (key, n))
+        moments = [st for st in state.optimizer.adamw.state.values()]
+        require(len(moments) == len(state.optimizer.params)
+                and all(st["exp_avg"].shape == p.shape
+                        for st, p in zip(moments, state.optimizer.params)), "moments")
+        del state, model
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(out_root, ignore_errors=True)
+    peaks = runs["full_depth"]["peak_memory_bytes"]
+    emit("dp_app", config=TRAIN_CONFIG, ranks=DP_APP_RANKS, mesh=[DP_APP_RANKS, 1],
+         backend=backend, rows_per_rank=DP_APP_ROWS, global_batch=DP_APP_RANKS * DP_APP_ROWS,
+         runs=runs, peak_memory_gb_each_rank=[p / 1e9 for p in peaks],
+         peak_memory_gb_both_ranks=sum(peaks) / 1e9,
+         checkpoint_loaded_in_one_process="global_step2 (depth 2): params and EMA equal the "
+         "ranks' blocks joined, moments and step loaded", seconds=time.time() - t_phase)
+    return runs["full_depth"]["launches_rank0"]
 
 
 DECODE_FP32_LIMIT = 1e-4  # absolute, frames of order 1: fp32 in another summation order
@@ -2871,8 +3355,9 @@ def run_brushnet_apps(torch, sde_per_forward, base_per_forward, encode_launches)
 
 BRUSH_TRAIN_APP_CONFIG = "configs/magicdrive/train/brushnet_smoke.py"
 BRUSHNET_STEPS_TRAIN, PLAIN_BRUSHNET_STEPS_TRAIN = 2, 2
-# depth / control depth of the plain BrushNet type's steps (cut from 28 / 13 in PR 11
-# to keep the script inside its time: the SDE type trains at full depth before it)
+# depth / control depth of the SDE and the plain BrushNet types' steps, cut from 28 /
+# 13 to keep the script inside its time (PERF.md keeps the full-depth numbers)
+SDE_BRUSHNET_TRAIN_DEPTH = (14, 7)
 PLAIN_BRUSHNET_TRAIN_DEPTH = (7, 4)
 
 
@@ -3006,7 +3491,7 @@ def run_brushnet_grads(torch, seed, encode_launches):
 def run_brushnet_train(torch, seed, encode_launches):
     """The BrushNet trainer at full width in the stage-2 bucket and settings (b=4,
     remat, bf16 over fp32 masters, AdamW, EMA 0.99, logit-normal t), only the
-    branch trainable: XL/2-SDEBrushNet at full depth (the SDE loss, the cutoff
+    branch trainable: XL/2-SDEBrushNet at SDE_BRUSHNET_TRAIN_DEPTH (the SDE loss, the cutoff
     jitter) for BRUSHNET_STEPS_TRAIN steps, then the plain BrushNet type at
     PLAIN_BRUSHNET_TRAIN_DEPTH for PLAIN_BRUSHNET_STEPS_TRAIN, the first step of
     each untimed. The frozen base and
@@ -3019,7 +3504,7 @@ def run_brushnet_train(torch, seed, encode_launches):
 
     sde_launches = None
     for sde, steps in ((True, BRUSHNET_STEPS_TRAIN), (False, PLAIN_BRUSHNET_STEPS_TRAIN)):
-        depth = (28, 13) if sde else PLAIN_BRUSHNET_TRAIN_DEPTH
+        depth = SDE_BRUSHNET_TRAIN_DEPTH if sde else PLAIN_BRUSHNET_TRAIN_DEPTH
         cfg, base_cfg, model_cfg, sched = brushnet_train_setup(
             torch, torch.bfloat16, sde=sde, depth=depth[0], control_depth=depth[1])
         require((model_cfg.depth, model_cfg.control_depth, model_cfg.hidden_size,
@@ -3111,7 +3596,7 @@ def run_brushnet_train(torch, seed, encode_launches):
 
 
 def run_remat(torch, seed, encode_launches):
-    """Base XL/2 at full width and depth in the stage-2 bucket at b=1: a training
+    """Base XL/2 at full width, depth REMAT_DEPTH, in the stage-2 bucket at b=1: a training
     loss forward and backward under each remat policy, one untimed, then
     ``REMAT_REPS`` timed (median and spread); loss and grads against "full"'s,
     seconds, peak memory, and what "offload_carry" sends to the host. Every policy
@@ -3127,8 +3612,9 @@ def run_remat(torch, seed, encode_launches):
 
     cfg = train_config(torch)
     cfg.batch_size = 1
-    model_cfg = train_model_config(torch, cfg, torch.bfloat16)
-    require((model_cfg.depth, model_cfg.grad_checkpoint) == (28, True), model_cfg)
+    model_cfg = train_model_config(torch, cfg, torch.bfloat16, depth=REMAT_DEPTH[0],
+                                   control_depth=REMAT_DEPTH[1])
+    require((model_cfg.depth, model_cfg.grad_checkpoint) == (REMAT_DEPTH[0], True), model_cfg)
     with torch.device("cuda"):
         model = MagicDriveSTDiT3(model_cfg)
     init_weights(model, seed=seed)
@@ -3204,6 +3690,7 @@ def run_remat(torch, seed, encode_launches):
             require(offload.tensors_to_host == n
                     and offload.bytes_to_host == n * carry_numel * 2, rows[policy])
     emit("remat", model="MagicDriveSTDiT3-XL/2", config=TRAIN_CONFIG, batch=1,
+         depth=list(REMAT_DEPTH),
          frames=nf, height=h, width=w, dtype="bfloat16 compute, float32 masters",
          policies=rows, grads_limit=f"per tensor rms(g - g_full) <= "
          f"2**{math.log2(GRAD_BF16_RMS_LIMIT):g} * rms(g_full)")
@@ -3264,6 +3751,8 @@ def main():
                          "step with torch.profiler")
     ap.add_argument("--sp-rank-worker", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--sp-train-worker", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--dp-train-worker", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--dp-app-worker", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
@@ -3275,6 +3764,10 @@ def main():
         return sp_rank_worker(torch, args.sp_rank_worker, args.seed)
     if args.sp_train_worker:  # one rank of phase sp_train, started by that phase
         return sp_train_worker(torch, args.sp_train_worker, args.seed)
+    if args.dp_train_worker:  # one rank of phase dp_train
+        return dp_train_worker(torch, args.dp_train_worker, args.seed)
+    if args.dp_app_worker:  # one rank of phase dp_app
+        return dp_app_worker(torch, args.dp_app_worker)
     t_start = time.time()
     from magicdrive_v2_tpu_torch.ops import _cuda_build
 
@@ -3321,6 +3814,9 @@ def main():
     torch.cuda.empty_cache()
     sp_train_launches = run_sp_train(torch, args.seed, encode_launches, held)
     stage3_launches = run_stage3_app(torch, encode_launches)
+    torch.cuda.empty_cache()
+    dp_train_launches = run_dp_train(torch, args.seed, encode_launches, held)
+    dp_app_launches = run_dp_app(torch, encode_launches)
     torch.cuda.empty_cache()
     run_decode_vs_cpu(torch, args.seed)
     torch.cuda.empty_cache()
@@ -3396,6 +3892,8 @@ def main():
                                       "sp_ranks_rank0": sp_ranks_launches[name],
                                       "sp_train_rank0": sp_train_launches[name],
                                       "stage3_app": stage3_launches[name],
+                                      "dp_train_rank0": dp_train_launches[name],
+                                      "dp_app_rank0": dp_app_launches[name],
                                       "app848": app848_launches[name]},
                     **meta[name], **kernel_numbers[name], backward=backward[name])
                for name in meta]

@@ -42,6 +42,7 @@ from ...ops.resize import resize_linear_antialiased
 from ...ops.structured_noise import generate_structured_noise, sample_cutoff_radius
 from ...parallel.comm import split_seq_share
 from ...registry import MODELS
+from ...utils.misc import randn_rows
 from ..layers.blocks import PatchEmbed3D, pos_embedding_2d
 from .stdit3 import MagicDriveSTDiT3, MagicDriveSTDiT3Config, MVSTDiTBlock
 
@@ -169,7 +170,7 @@ class MagicDriveSTDiT3BrushNet(MagicDriveSTDiT3):
                 num_timesteps: float = 1000.0, inpaint_input_noise=None,
                 generator: Optional[torch.Generator] = None, cond_cache=None,
                 frame_valid=None, train: bool = False, cutoff_radius=None,
-                simulate_sp: Optional[int] = None):
+                simulate_sp: Optional[int] = None, dp_rows=(1, 0)):
         """As ``MagicDriveSTDiT3.forward`` plus the inpaint inputs: x_inpaint
         (b, 3*NC, T_img, H, W) pixels, mask_inpaint (b, NC, T_img, H, W) in
         [0, 1]; with ``frame_valid`` their pad frames must be zero (the temporal
@@ -180,8 +181,10 @@ class MagicDriveSTDiT3BrushNet(MagicDriveSTDiT3):
         FFT cutoff is ``structured_noise_r0``; with ``train`` it is jittered to
         r0 + Exp(rate 0.1): ``cutoff_radius`` if given, else drawn from
         ``generator`` before the normal draw (the JAX model splits its key into
-        the cutoff's and the noise's). ``simulate_sp``: the H pad of that sp size,
-        as in the base model."""
+        the cutoff's and the noise's); the normal draw is data-parallel rank
+        ``dp_rows`` (dp, rank)'s part of one made for the global batch
+        (``randn_rows``). ``simulate_sp``: the H pad of that sp size, as in the
+        base model."""
         cfg = self.cfg
         NC, dt = cfg.nc, self.dtype
         b = x.shape[0]
@@ -212,6 +215,8 @@ class MagicDriveSTDiT3BrushNet(MagicDriveSTDiT3):
                 cutoff = float(cutoff_radius if cutoff_radius is not None
                                else sample_cutoff_radius(generator, cfg.structured_noise_r0))
             flat = xi_enc.reshape(B * xi_enc.shape[1] * Tx, Hx, Wx)
+            if inpaint_input_noise is None and generator is not None:
+                inpaint_input_noise = randn_rows(flat.shape, generator, dp_rows)
             noise_inpaint = generate_structured_noise(
                 flat, generator, cutoff_radius=cutoff,
                 transition_width=cfg.structured_noise_transition,

@@ -172,12 +172,11 @@ def share_grad(x: torch.Tensor, group) -> torch.Tensor:
     return _ShareGrad.apply(x, group)
 
 
-def reduce_sp_grads(params, group, bucket_bytes: int = 1 << 28) -> int:
-    """Sum the grads of ``params`` (those that have one) over the group, in place:
-    the grads in flat buckets of at most ``bucket_bytes`` (one dtype and device
-    each), one all-reduce a bucket, in the order given (the same on every rank).
-    Returns the number of all-reduces."""
-    grads = [p.grad for p in params if p.grad is not None]
+def all_reduce_grads(grads, group, bucket_bytes: int = 1 << 28) -> int:
+    """Sum the tensors ``grads`` over the group, in place: in flat buckets of at
+    most ``bucket_bytes`` (one dtype and device each), one all-reduce a bucket, in
+    the order given (the same on every rank). Returns the number of all-reduces."""
+    grads = list(grads)
     if dist.get_world_size(group) == 1 or not grads:
         return 0
     calls = 0
@@ -202,3 +201,10 @@ def reduce_sp_grads(params, group, bucket_bytes: int = 1 << 28) -> int:
         size += nbytes
     flush()
     return calls + 1
+
+
+def reduce_sp_grads(params, group, bucket_bytes: int = 1 << 28) -> int:
+    """Sum the grads of ``params`` (those that have one) over the sp group, in
+    place (``all_reduce_grads``). Returns the number of all-reduces."""
+    return all_reduce_grads([p.grad for p in params if p.grad is not None], group,
+                            bucket_bytes)

@@ -1,8 +1,14 @@
 """Multi-process runs of the port: one process per GPU, under ``torchrun`` or any
 launcher that sets ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
 ``MASTER_PORT`` (the JAX package's parallel/distributed.py, whose cluster is
-``jax.distributed``, without its data-parallel rows: serving, and the training
-mesh rule of ``training_sp_size``).
+``jax.distributed``): the process group, the training mesh rule of
+``training_mesh_shape``, and a launcher for tests and the smoke script.
+
+One rank is one GPU, so a rank holds one data-parallel row: the JAX package's
+``local_dp_info`` is ``(1, Mesh.dp_rank)`` here, and its ``make_global_batch`` /
+``local_rows`` (which stitch each process's rows into global arrays and back)
+have no counterpart: each rank keeps its own rows, and the trainer reduces the
+grads over dp (``parallel/fsdp.py``).
 
 Everything here is a no-op in a single-process run, so the apps behave as before
 on one process.
@@ -18,7 +24,7 @@ import subprocess
 import sys
 import tempfile
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -119,30 +125,30 @@ def app_process_group(device="cuda", timeout_s: Optional[float] = None):
             shutdown()
 
 
-def training_sp_size(sp_size: int, world: int) -> int:
-    """The sp size of a training run in a world of ``world`` processes: the JAX
-    train apps' ``min(sp_size, devices)``, so a config's sp_size 4 trains
-    sharded over 2 ranks, and unsharded in one process (where its
-    ``simulate_sp_size`` alone picks the pad). Serving differs: there fewer
-    ranks than ``sp_size`` run unsharded (``pipelines.sequence_parallel_mesh``).
-    Ranks beyond sp would be data-parallel rows, which the port does not train
-    yet: NotImplementedError."""
+def training_mesh_shape(sp_size: int, world: int) -> Tuple[int, int]:
+    """(dp, sp) of a training run in a world of ``world`` processes: the JAX train
+    apps' ``sp = min(sp_size, devices)`` and ``dp = devices // sp``, dp outer. So a
+    config's sp_size 4 trains sharded over 2 ranks and unsharded in one process
+    (where its ``simulate_sp_size`` alone picks the pad), and the ranks beyond an
+    sp group are data-parallel rows. Serving differs: there fewer ranks than
+    ``sp_size`` run unsharded (``pipelines.sequence_parallel_mesh``). A world that
+    sp does not divide raises ValueError (the JAX apps leave the extra devices
+    idle)."""
     sp = max(1, min(int(sp_size or 1), world))
-    if world > sp:
-        raise NotImplementedError(
-            f"{world} processes train sp={sp} (sp_size {sp_size}): the other ranks would "
-            f"be data-parallel (dp={world // sp}), which is not ported yet (ROADMAP.md "
-            f"queue A item 2, FSDP and dp data); run {sp} processes")
-    return sp
+    if world % sp:
+        raise ValueError(f"{world} processes do not split into data-parallel rows of "
+                         f"sp={sp} (sp_size {sp_size}): run a multiple of {sp}")
+    return world // sp, sp
 
 
 def training_mesh(sp_size: int):
-    """The (1, sp) mesh of a training run by ``training_sp_size`` over this
-    process group, or None in a single-process run (sp 1)."""
+    """The (dp, sp) mesh of a training run by ``training_mesh_shape`` over this
+    process group, or None in a single-process run. This rank's dp row is
+    ``rank // sp`` (``Mesh.dp_rank``)."""
     from .sharding import make_mesh
     world = dist.get_world_size() if dist.is_initialized() else 1
-    sp = training_sp_size(sp_size, world)
-    return make_mesh(dp=1, sp=sp) if world > 1 else None
+    dp, sp = training_mesh_shape(sp_size, world)
+    return make_mesh(dp=dp, sp=sp) if world > 1 else None
 
 
 def free_port() -> int:

@@ -102,25 +102,30 @@ def _pad_rows(x: torch.Tensor, pad: int) -> torch.Tensor:
 
 
 def sp_vae(x: torch.Tensor, vae_fn: Callable, mesh: Optional[Mesh] = None,
-           noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """A VAE decode or encode batch-scattered over every rank of the mesh: the
-    rows of x (the b*NC views, the same on every rank) are padded with cycled rows
-    to a multiple of the mesh size, each rank runs ``vae_fn`` on its contiguous
-    block of rows, and the results are all-gathered and trimmed (the JAX
-    package's ``sp_vae``). ``noise``: the encode's posterior noise for all b rows,
-    drawn once as one process draws it (the JAX package's one key for the whole
-    batch); it is padded as x is and each rank hands its block to
-    ``vae_fn(rows, noise=block)``, so the latents equal one process's. Without a
-    mesh, or on a mesh of one rank, it is ``vae_fn(x)`` (with ``noise=noise``)."""
+           noise: Optional[torch.Tensor] = None, group=None) -> torch.Tensor:
+    """A VAE decode or encode batch-scattered over the ranks of ``group`` (default:
+    every rank of the mesh): the rows of x (the b*NC views, the same on every rank
+    of the group) are padded with cycled rows to a multiple of the group's size,
+    each rank runs ``vae_fn`` on its contiguous block of rows, and the results are
+    all-gathered and trimmed (the JAX package's ``sp_vae``). ``noise``: the
+    encode's posterior noise for all b rows, drawn once as one process draws it
+    (the JAX package's one key for the whole batch); it is padded as x is and each
+    rank hands its block to ``vae_fn(rows, noise=block)``, so the latents equal
+    one process's. Without a mesh, or over one rank, it is ``vae_fn(x)`` (with
+    ``noise=noise``)."""
     mesh = mesh or get_current_mesh()
     kw = {} if noise is None else {"noise": noise}
-    if mesh is None or mesh.size == 1:
+    if mesh is None:
         return vae_fn(x, **kw)
-    n, b = mesh.size, x.shape[0]
+    group = mesh.group if group is None else group
+    n, b = dist.get_world_size(group), x.shape[0]
+    if n == 1:
+        return vae_fn(x, **kw)
     x = _pad_rows(x, (-b) % n)
     per = x.shape[0] // n
-    rows = slice(mesh.rank * per, (mesh.rank + 1) * per)
+    r = dist.get_rank(group)
+    rows = slice(r * per, (r + 1) * per)
     if noise is not None:
         kw["noise"] = _pad_rows(noise, (-b) % n)[rows]
     out = vae_fn(x[rows], **kw)
-    return gather_seq(out, 0, mesh.group)[:b]
+    return gather_seq(out, 0, group)[:b]

@@ -13,7 +13,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from ..utils.misc import resolve_device
+from ..utils.misc import randn_rows, resolve_device
 
 
 def mean_flat(tensor: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -144,21 +144,26 @@ class RFLOW:
     # ---------------- training ----------------
 
     def sample_t(self, generator: Optional[torch.Generator], batch: int, *, height=None,
-                 width=None, num_frames=None, device=None) -> torch.Tensor:
+                 width=None, num_frames=None, device=None,
+                 rows: Tuple[int, int] = (1, 0)) -> torch.Tensor:
         """Training timesteps (b,), fp32, drawn from ``generator`` (on its device)
         and moved to ``device``: discrete, uniform or logit-normal, then the
-        resolution/duration shift when ``use_timestep_transform``."""
+        resolution/duration shift when ``use_timestep_transform``. ``rows`` (dp,
+        rank): drawn for dp * ``batch`` samples, and data-parallel rank ``rank``'s
+        ``batch`` of them kept (before the shift, which reads this rank's sizes)."""
         gdev = generator.device if generator is not None else "cpu"
+        n = batch * rows[0]
         if self.use_discrete_timesteps:
-            t = torch.randint(0, self.num_timesteps, (batch,), generator=generator,
+            t = torch.randint(0, self.num_timesteps, (n,), generator=generator,
                               device=gdev).float()
         elif self.sample_method == "uniform":
-            t = torch.rand((batch,), generator=generator, device=gdev) * self.num_timesteps
+            t = torch.rand((n,), generator=generator, device=gdev) * self.num_timesteps
         elif self.sample_method == "logit-normal":
-            t = torch.sigmoid(torch.randn((batch,), generator=generator, device=gdev)
+            t = torch.sigmoid(torch.randn((n,), generator=generator, device=gdev)
                               * self.scale + self.loc) * self.num_timesteps
         else:
             raise ValueError(self.sample_method)
+        t = t[rows[1] * batch:(rows[1] + 1) * batch]
         t = t.to(device if device is not None else gdev)
         if self.use_timestep_transform:
             t = timestep_transform(t, height=height, width=width, num_frames=num_frames,
@@ -171,19 +176,20 @@ class RFLOW:
                         width, num_frames, mask: Optional[torch.Tensor] = None,
                         noise: Optional[torch.Tensor] = None,
                         t: Optional[torch.Tensor] = None,
-                        generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+                        generator: Optional[torch.Generator] = None,
+                        rows: Tuple[int, int] = (1, 0)) -> Dict[str, torch.Tensor]:
         """Velocity-matching MSE per sample. ``t`` and ``noise`` are drawn from
-        ``generator`` when not given, t first (as JAX splits t's key first).
-        With a (b, T') frame mask, unmasked frames enter the model at t = 0
-        (the clean latents) and leave the loss."""
+        ``generator`` when not given, t first (as JAX splits t's key first), as
+        data-parallel rank ``rows`` (dp, rank) draws them (``sample_t``,
+        ``randn_rows``). With a (b, T') frame mask, unmasked frames enter the model
+        at t = 0 (the clean latents) and leave the loss."""
         if t is None:
             t = self.sample_t(generator, x_start.shape[0], height=height, width=width,
-                              num_frames=num_frames, device=x_start.device)
+                              num_frames=num_frames, device=x_start.device, rows=rows)
         t = t.to(x_start.device)
         if noise is None:
-            noise = torch.randn(x_start.shape, generator=generator, dtype=x_start.dtype,
-                                device=generator.device if generator is not None
-                                else x_start.device)
+            noise = randn_rows(x_start.shape, generator, rows, dtype=x_start.dtype,
+                               device=x_start.device)
         noise = noise.to(x_start.device, x_start.dtype)
         x_t = add_noise(x_start, noise, t, self.num_timesteps)
         if mask is not None:
@@ -220,21 +226,22 @@ class RFLOW_SDEBRUSHNET(RFLOW_BRUSHNET):
                         noise: Optional[torch.Tensor] = None,
                         t: Optional[torch.Tensor] = None,
                         t_inpaint: Optional[torch.Tensor] = None,
-                        generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+                        generator: Optional[torch.Generator] = None,
+                        rows: Tuple[int, int] = (1, 0)) -> Dict[str, torch.Tensor]:
         """As ``RFLOW.training_losses`` with ``model_fn(x_t, t, x_mask, t_inpaint)``;
         what is not given is drawn from ``generator`` in the order t, t_inpaint,
         noise (the order of the JAX package's key split)."""
         b = x_start.shape[0]
-        hw = dict(height=height, width=width, num_frames=num_frames, device=x_start.device)
+        hw = dict(height=height, width=width, num_frames=num_frames, device=x_start.device,
+                  rows=rows)
         if t is None:
             t = self.sample_t(generator, b, **hw)
         if t_inpaint is None:
             t_inpaint = self.sample_t(generator, b, **hw)
         t, t_inpaint = t.to(x_start.device), t_inpaint.to(x_start.device)
         if noise is None:
-            noise = torch.randn(x_start.shape, generator=generator, dtype=x_start.dtype,
-                                device=generator.device if generator is not None
-                                else x_start.device)
+            noise = randn_rows(x_start.shape, generator, rows, dtype=x_start.dtype,
+                               device=x_start.device)
         noise = noise.to(x_start.device, x_start.dtype)
         x_t = add_noise(x_start, noise, t, self.num_timesteps)
         if mask is not None:

@@ -12,18 +12,19 @@ Usage (from the repository root):
   torchrun --nproc-per-node N -m magicdrive_v2_tpu_torch.scripts.train_brushnet ...
 
 As in the JAX app the data is synthetic only (``--synthetic`` is accepted for the
-same command line): the batch of step s comes from ``np.random.default_rng((seed,
-s))``, the conditioning of ``synthetic_batch`` (32 caption tokens, 8x80x80 maps)
+same command line): the ``batch_size`` rows of dp row d at step s come from
+``np.random.default_rng((seed + d, s))`` (the JAX app's ``seed + dp_offset``), the
+conditioning of ``synthetic_batch`` (32 caption tokens, 8x80x80 maps)
 from a seed drawn first, then standard-normal pixels ``x_inpaint`` and 0/1 masks
 ``mask_inpaint`` at the config's image size. ``--sde`` (or the config's
 ``sde_inpaint``) trains the SDE variant with ``RFLOW_SDEBRUSHNET``'s loss. The
 steps draw t, t_inpaint and noise from (seed + 1, step), the SDE model's cutoff
-and noise from a second stream of (seed + 1, step). One JSON line a step; a loss
-that is not finite stops the run. No resume, as in the JAX app. Under a
-launcher the run is sequence-parallel over sp = min(sp_size, N) ranks, as in
-``train_magicdrive`` (the same batch and draws on every rank, the grads summed
-over the sp group, rank 0 writes the checkpoint); a world larger than sp is
-refused.
+and noise from a second stream of (seed + 1, step), for the global batch. One
+JSON line a step; a loss that is not finite stops the run. No resume, as in the
+JAX app. Under a launcher the N ranks form the (dp, sp) mesh of
+``train_magicdrive`` (sp = min(sp_size, N), dp = N // sp; the state, the frozen
+base included, split over dp; the grads averaged over dp and summed over sp;
+rank 0 writes the checkpoint, gathered into the one-process format).
 """
 from __future__ import annotations
 
@@ -51,13 +52,13 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def make_batch(model_cfg, cfg, step: int) -> dict:
-    """The synthetic batch of ``step`` as numpy arrays, drawn as the JAX app draws
-    it."""
+def make_batch(model_cfg, cfg, step: int, dp_row: int = 0) -> dict:
+    """The synthetic rows of dp row ``dp_row`` at ``step`` as numpy arrays, drawn as
+    the JAX app draws them."""
     from ..pipelines.magicdrive import synthetic_batch
     t_img, (height, width) = cfg.get("num_frames", 9), cfg.get("image_size", (64, 80))
     b, nc = cfg.get("batch_size", 1), model_cfg.nc
-    rng = np.random.default_rng((cfg.get("seed", 0), step))
+    rng = np.random.default_rng((cfg.get("seed", 0) + dp_row, step))
     batch = synthetic_batch(model_cfg, num_frames=t_img, height=height, width=width,
                             l_txt=32, b=b, map_size=(8, 80, 80),
                             seed=int(rng.integers(1 << 31)))
@@ -96,6 +97,7 @@ def _main(args, device) -> List[dict]:
     from ..models.magicdrive.brushnet import BrushNetConfig, MagicDriveSTDiT3BrushNet
     from ..models.magicdrive.stdit3 import build_model_config
     from ..parallel.distributed import startup_barrier, training_mesh
+    from ..parallel.fsdp import shard_for_training
     from ..parallel.sharding import use_mesh
     from ..training.trainer import build_brushnet_training
     from ..utils.ckpt import init_weights, save_checkpoint
@@ -105,7 +107,9 @@ def _main(args, device) -> List[dict]:
     merge_dot_options(cfg, args.cfg_options)
     device = resolve_device(device)
     mesh = training_mesh(cfg.get("sp_size", 1))
-    sp = 1 if mesh is None else mesh.sp
+    dp, sp, dp_row = (1, 1, 0) if mesh is None else (mesh.dp, mesh.sp, mesh.dp_rank)
+    logger.info("mesh: dp=%d sp=%d (rank %d: dp row %d)", dp, sp,
+                mesh.rank if mesh is not None else 0, dp_row)
     startup_barrier(mesh)
     sde = args.sde or cfg.get("sde_inpaint", False)
     seed = cfg.get("seed", 0)
@@ -127,7 +131,8 @@ def _main(args, device) -> List[dict]:
     t_img, (height, width) = cfg.get("num_frames", 9), cfg.get("image_size", (64, 80))
     state, step_fn = build_brushnet_training(model, scheduler, cfg, height=float(height),
                                              width=float(width), num_frames=t_img,
-                                             seed=seed + 1)
+                                             seed=seed + 1,
+                                             sharding=shard_for_training(model, mesh))
 
     exp_dir = cfg.get("outputs", "outputs/train_brushnet")
     os.makedirs(exp_dir, exist_ok=True)
@@ -135,7 +140,7 @@ def _main(args, device) -> List[dict]:
     logged = []
     t0 = time.time()
     for step in range(1, steps + 1):
-        batch = to_device(make_batch(model_cfg, cfg, step), device)
+        batch = to_device(make_batch(model_cfg, cfg, step, dp_row), device)
         with use_mesh(mesh):
             state, metrics = step_fn(state, batch)
         loss = float(metrics["loss"])
@@ -145,7 +150,8 @@ def _main(args, device) -> List[dict]:
         logged.append(line)
         if not np.isfinite(loss):
             raise FloatingPointError(f"NaN loss at step {step}")
-    save_checkpoint(exp_dir, steps, model=state.model, ema=state.ema)
+    save_checkpoint(exp_dir, steps, model=state.model, ema=state.ema,
+                    sharding=state.sharding)
     logger.info("done")
     return logged
 

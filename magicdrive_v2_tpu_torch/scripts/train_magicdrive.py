@@ -21,16 +21,23 @@ Usage (from the repository root):
       [--cfg-options key=value ...]
   torchrun --nproc-per-node N -m magicdrive_v2_tpu_torch.scripts.train_magicdrive ...
 
-One process, or N under a launcher: the run trains sequence-parallel over
-sp = min(sp_size, N) ranks, as the JAX app does on its devices
-(``parallel.distributed.training_sp_size``; a world larger than sp would be
-data-parallel, which is refused). Every rank draws the same batch and the same
-randomness, the model splits its tokens over the sp group, and the grads are
-summed over it (``training/trainer.py``), so the parameters stay equal on every
-rank. Rank 0 alone writes ``metrics.jsonl``, the checkpoints (the one-process
+One process, or N under a launcher: the N ranks form a (dp, sp) mesh as the JAX
+app does on its devices, sp = min(sp_size, N) and dp = N // sp
+(``parallel.distributed.training_mesh_shape``; N that sp does not divide is
+refused). Rank r sits in dp row r // sp. The ranks of a dp row draw the same
+rows (``batch_size`` of them: dp * batch_size make the global batch) and the
+same randomness, the model splits its tokens over their sp group; the fp32
+state is split over dp (``parallel/fsdp.py``) and the grads are averaged over
+dp and summed over sp (``training/trainer.py``). Rank 0 alone writes
+``metrics.jsonl``, the checkpoints (gathered into the one-process
 ``global_step{N}`` format, so a run resumes at another world size) and the
-validation frames; the other ranks wait at a barrier meanwhile. The VAE encode
-is scattered over the ranks (``sp_vae``) with the posterior noise drawn whole.
+validation frames; the other ranks wait at a barrier meanwhile. Validation
+renders the EMA gathered to rank 0, every rank joining the gather. The JAX app's
+``val_gather_mode`` "checkpoint" (a round trip through a checkpoint, which spares
+its hosts' memory) is read and gathers alike: a rank's device holds the gathered
+EMA as it would the loaded one. The VAE encode is scattered over
+the dp row's sp group (``sp_vae``) with the posterior noise drawn for the global
+batch and sliced by dp rows.
 
 ``simulate_sp_size`` (in ``model`` or at the top level): each step pads H as if
 at one of these sp sizes, picked from (seed, salt 2, step) on every rank alike;
@@ -39,9 +46,11 @@ under sp > 1 only the sizes at or above sp stay eligible (the JAX app's rule).
 Every random stream of a step is derived from (seed, salt, step) and never
 advanced across steps, so a run resumed from ``global_step{N}`` (found under
 ``outputs`` with ``find_latest``) draws what an uninterrupted run would: the
-synthetic batch from (seed, step), the simulate pick from salt 2, the frame masks
-from salt 3, the condition dropout from salt 4, t and noise from (seed + 1, step);
-each dataset item from (seed, epoch, index).
+synthetic rows of dp row d from (seed + d, step), the simulate pick from salt 2
+(common to all ranks), the frame masks from salt 3 and the condition dropout
+from salt 4 (each offset by d * 7919, as the JAX app offsets its per-rank draws),
+t and noise from (seed + 1, step) for the global batch; each dataset item from
+(seed, epoch, index), the dp rows splitting the sampler's batches.
 
 Not ported: TensorBoard scalars (the JAX app only tries them; ``metrics.jsonl``
 holds the same numbers). With ``record_time`` each metrics line also has the
@@ -80,17 +89,20 @@ def parse_args(argv=None):
 
 class SyntheticLoader:
     """Stands in for the dataset loader: the same batch contract, random content.
-    The batch of global step ``gi`` (read from ``step_holder`` when it is drawn)
-    comes from a seed derived from (seed, gi). Captions are ``l_txt`` tokens long
-    (64, as the JAX app draws them)."""
+    The ``batch_size`` rows of dp row ``dp_row`` at global step ``gi`` (read from
+    ``step_holder`` when they are drawn) come from a seed derived from (seed +
+    dp_row, gi), the JAX app's ``seed_offset``; the bucket sequence is the same on
+    every row. Captions are ``l_txt`` tokens long (64, as the JAX app draws
+    them)."""
 
-    def __init__(self, model_cfg, cfg, step_holder: Dict[str, int], l_txt: int = 64):
+    def __init__(self, model_cfg, cfg, step_holder: Dict[str, int], l_txt: int = 64,
+                 dp_row: int = 0):
         self.model_cfg = model_cfg
         self.l_txt = l_txt
         self.buckets = [tuple(b) for b in cfg.get("synthetic_buckets", [(9, 224, 400)])]
         self.b = cfg.get("batch_size", 1)
         self.steps = cfg.get("synthetic_steps", 50)
-        self.seed = cfg.get("seed", 42)
+        self.seed = cfg.get("seed", 42) + dp_row
         self.step_holder = step_holder
 
     def __len__(self):
@@ -109,9 +121,10 @@ class SyntheticLoader:
             yield batch
 
 
-def build_dataloader(cfg, seed: int):
-    """(loader, sampler, dataset) over the config's ``dataset.data.train`` split.
-    The config's ``num_frames`` and ``img_collate_param_train`` reach the dataset
+def build_dataloader(cfg, seed: int, dp: int = 1, dp_row: int = 0):
+    """(loader, sampler, dataset) over the config's ``dataset.data.train`` split,
+    dp row ``dp_row``'s share of a dp-way split (``batch_size`` rows a step). The
+    config's ``num_frames`` and ``img_collate_param_train`` reach the dataset
     unless the split sets its own."""
     from ..datasets import max_full_clip_len, prepare_multirank_dataloader
     from ..registry import DATASETS, build_module
@@ -132,41 +145,55 @@ def build_dataloader(cfg, seed: int):
         except ValueError:  # no "full" clips in this dataset
             full_bucket_t = None
     loader, sampler = prepare_multirank_dataloader(
-        dataset, dp_total=1, dp_local=1, bucket_config=dict(cfg.get("bucket_config", {}))
-        or None, batch_size=cfg.get("batch_size", 1), full_bucket_t=full_bucket_t,
+        dataset, dp_total=dp, dp_local=1, dp_offset=dp_row,
+        bucket_config=dict(cfg.get("bucket_config", {})) or None,
+        batch_size=cfg.get("batch_size", 1), full_bucket_t=full_bucket_t,
         shuffle=True, seed=seed, num_workers=cfg.get("num_workers", 4))
     return loader, sampler, dataset
 
 
-def posterior_noise(vae, x_px, generator):
+def posterior_noise(vae, x_px, generator, batch: Optional[int] = None):
     """The encode's posterior noise for pixel clips ``x_px`` (B, 3, T, H, W), as
     ``vae.encode(x_px, generator)`` draws it: standard normal of the latent shape
-    in the VAE's dtype, on the generator's device."""
+    in the VAE's dtype, on the generator's device; for ``batch`` clips of that
+    shape when given (a global batch of which x_px is one dp row's)."""
     import torch
-    shape = (x_px.shape[0], vae.out_channels, *vae.get_latent_size(list(x_px.shape[2:])))
+    shape = (x_px.shape[0] if batch is None else batch, vae.out_channels,
+             *vae.get_latent_size(list(x_px.shape[2:])))
     return torch.randn(shape, generator=generator, device=generator.device,
                        dtype=vae.dtype)
 
 
+def encode_latents(vae, x_px, seed: int, step: int, mesh=None):
+    """The VAE latents of this dp row's pixel clips ``x_px`` (B, 3, T, H, W) at global
+    step ``step``: the posterior noise from (seed + 7, step), drawn for the global
+    batch of ``mesh``'s dp rows and sliced to this row's (so dp rows equal one
+    process on the global batch), the encode scattered over the row's sp group
+    (``sp_vae``)."""
+    from ..parallel.sharding import sp_vae
+    from ..training.trainer import step_generator
+    dp, row = (1, 0) if mesh is None else (mesh.dp, mesh.dp_rank)
+    n = x_px.shape[0]
+    noise = posterior_noise(vae, x_px, step_generator(seed + 7, step), batch=dp * n)
+    return sp_vae(x_px, vae.encode, mesh, noise=noise[row * n:(row + 1) * n],
+                  group=None if mesh is None else mesh.sp_group)
+
+
 def encode_batch(raw: dict, vae, text_encoder, *, box_latent_dim: Optional[int], seed: int,
                  step: int, device, timing: Optional[dict] = None, mesh=None) -> dict:
-    """One collated batch of clips -> the train step's batch for global step
-    ``step``: the model batch with box latents from (seed + 13, step), the VAE
-    latents of its pixel clips (posterior noise from (seed + 7, step), drawn whole;
-    the encode scattered over ``mesh``'s ranks, ``sp_vae``) in the model layout
-    (B, C*NC, T', H', W') fp32 on ``device``, the captions' text embeddings.
+    """One collated batch of clips (this dp row's) -> the train step's batch for
+    global step ``step``: the model batch with box latents from (seed + 13, step),
+    the VAE latents of its pixel clips (``encode_latents``) in the model layout (B,
+    C*NC, T', H', W') fp32 on ``device``, the captions' text embeddings.
     ``timing`` (a dict) gets the encode's seconds, synchronised."""
     import torch
 
     from ..datasets import clip_to_model_batch
-    from ..parallel.sharding import sp_vae
-    from ..training.trainer import step_generator
     mb = clip_to_model_batch(raw, box_latent_dim=box_latent_dim,
                              rng=np.random.default_rng((seed + 13, step)))
     t0 = time.time()
     x_px = torch.from_numpy(mb.pop("x")).to(device=device, dtype=vae.dtype)
-    noise = posterior_noise(vae, x_px, step_generator(seed + 7, step))
-    lat = sp_vae(x_px, vae.encode, mesh, noise=noise)
+    lat = encode_latents(vae, x_px, seed, step, mesh)
     del x_px
     bb = raw["pixel_values"].shape[0]
     C = lat.shape[1]
@@ -218,15 +245,17 @@ class EncodedLoader:
                                mesh=self.mesh)
 
 
-def step_rng(seed: int, salt: int, step: int) -> pyrandom.Random:
+def step_rng(seed: int, salt: int, step: int, dp_row: int = 0) -> pyrandom.Random:
     """The python generator of one host-side stream at ``step``: derived, never
-    advanced."""
-    return pyrandom.Random((seed + salt) * 1_000_003 + step)
+    advanced; a per-rank stream of dp row ``dp_row`` is offset as the JAX app's
+    ``step_rng(..., per_rank=True)`` (``dp_offset * 7919``)."""
+    return pyrandom.Random((seed + salt + dp_row * 7919) * 1_000_003 + step)
 
 
-def step_inputs(batch: dict, cfg, mask_gen, seed: int, step: int):
+def step_inputs(batch: dict, cfg, mask_gen, seed: int, step: int, dp_row: int = 0):
     """A loader's batch -> (the step's batch with its frame masks and condition
-    dropout, (num_frames, height, width) of its bucket), drawn for ``step``."""
+    dropout, (num_frames, height, width) of its bucket), drawn for ``step`` on dp
+    row ``dp_row``."""
     from ..utils.train_utils import sample_condition_dropout
     batch = dict(batch)
     t_img = batch.pop("num_frames")
@@ -236,10 +265,10 @@ def step_inputs(batch: dict, cfg, mask_gen, seed: int, step: int):
     # a padded full-length bucket anchors each sample's mask to its own latent length
     nfv = batch.get("num_frames_valid")
     lat_valid = None if nfv is None else (np.asarray(nfv).astype(int) - 1) // 4 + 1
-    mask_gen.rng = step_rng(seed, 3, step)
+    mask_gen.rng = step_rng(seed, 3, step, dp_row)
     batch["mask"] = mask_gen.get_masks(b, lat_t, valid=lat_valid).astype(np.float32)
     if cfg.get("drop_cond_ratio", 0.0) > 0:
-        dc, df = sample_condition_dropout(step_rng(seed, 4, step), b, t_img,
+        dc, df = sample_condition_dropout(step_rng(seed, 4, step, dp_row), b, t_img,
                                           cfg.get("drop_cond_ratio", 0.0),
                                           cfg.get("drop_cond_ratio_t", 0.0))
         batch["drop_cond_mask"], batch["drop_frame_mask"] = dc, df
@@ -272,6 +301,7 @@ def _main(args, device) -> List[dict]:
     from ..config.config import Config, merge_dot_options
     from ..models.magicdrive.stdit3 import MagicDriveSTDiT3, build_model_config
     from ..parallel.distributed import is_main_process, startup_barrier, training_mesh
+    from ..parallel.fsdp import shard_for_training
     from ..parallel.sharding import use_mesh
     from ..pipelines.magicdrive import build_text_encoder, build_vae
     from ..schedulers.rf import build_scheduler
@@ -285,9 +315,10 @@ def _main(args, device) -> List[dict]:
     device = resolve_device(device)
     synthetic = args.synthetic or "dataset" not in cfg
     mesh = training_mesh(cfg.get("sp_size", 1))
-    sp = 1 if mesh is None else mesh.sp
+    dp, sp, dp_row = (1, 1, 0) if mesh is None else (mesh.dp, mesh.sp, mesh.dp_rank)
     simu_sp_list = simulate_sp_choices(cfg, sp)
-    logger.info("sequence parallel: sp=%d (sp_size %s), simulate_sp from %s", sp,
+    logger.info("mesh: dp=%d sp=%d (rank %d: dp row %d; sp_size %s), simulate_sp from %s",
+                dp, sp, dist.get_rank() if dist.is_initialized() else 0, dp_row,
                 cfg.get("sp_size", 1), simu_sp_list)
     startup_barrier(mesh)
 
@@ -304,15 +335,21 @@ def _main(args, device) -> List[dict]:
         model = MagicDriveSTDiT3(model_cfg)
     init_weights(model, seed=seed0)
     logger.info("model params: %d", sum(p.numel() for p in model.parameters()))
+    sharding = shard_for_training(model, mesh)  # split over dp, in place
+    gather_mode = cfg.get("val_gather_mode", "allgather")
+    if gather_mode not in ("allgather", "checkpoint"):
+        raise ValueError(f"val_gather_mode {gather_mode!r}: 'allgather' or 'checkpoint'")
+    if gather_mode == "checkpoint":
+        logger.info("val_gather_mode 'checkpoint' gathers the EMA as 'allgather' does")
     scheduler = build_scheduler(cfg.scheduler)
 
     step_holder = {"step": 0}
     record_time = cfg.get("record_time", False)
     vae = text_encoder = sampler = dataset = None
     if synthetic:
-        loader = SyntheticLoader(model_cfg, cfg, step_holder)
+        loader = SyntheticLoader(model_cfg, cfg, step_holder, dp_row=dp_row)
     else:
-        raw_loader, sampler, dataset = build_dataloader(cfg, seed0)
+        raw_loader, sampler, dataset = build_dataloader(cfg, seed0, dp, dp_row)
         vae = build_vae(cfg, dtype, device, seed0 + 1)
         text_encoder = build_text_encoder(cfg, device)
         bbox_param = dict(model_cfg.bbox_embedder_param)
@@ -322,7 +359,7 @@ def _main(args, device) -> List[dict]:
                                seed0, step_holder, device, record_time, mesh)
     state, get_step = build_training_multibucket(
         model, scheduler, cfg, freeze_patterns=tuple(cfg.get("freeze_patterns", ())),
-        seed=seed0 + 1)
+        seed=seed0 + 1, sharding=sharding)
 
     exp_dir = cfg.get("outputs", "outputs/train")
     os.makedirs(exp_dir, exist_ok=True)
@@ -332,7 +369,7 @@ def _main(args, device) -> List[dict]:
     latest = find_latest(exp_dir)
     if latest and cfg.get("resume", True):
         running = load_checkpoint(latest, model=state.model, ema=state.ema,
-                                  optimizer=state.optimizer)
+                                  optimizer=state.optimizer, sharding=sharding)
         start_step = state.step = int(running.get("step", 0))
         pos.update(epoch=int(running.get("epoch", 0)),
                    epoch_step=int(running.get("epoch_step", 0)))
@@ -352,6 +389,7 @@ def _main(args, device) -> List[dict]:
     def maybe_validate(cur_step, bucket):
         if not report_every or cur_step % report_every != 0:
             return
+        weights = gathered_weights()
         if not is_main_process():  # rank 0 renders, outside the mesh
             dist.barrier()
             return
@@ -364,17 +402,26 @@ def _main(args, device) -> List[dict]:
                                width=vw, out_dir=os.path.join(exp_dir, "validation"),
                                step=cur_step,
                                guidance_scale=cfg.get("val_guidance_scale", 2.0),
-                               weights=state.ema if state.ema is not None else state.model)
+                               weights=weights)
         logger.info("validation at step %d: %s", cur_step, paths)
         if dist.is_initialized():
             dist.barrier()
+
+    def gathered_weights():
+        """The EMA (else the model) as one process holds it, on rank 0 (None
+        elsewhere): the module itself when unsplit, else gathered."""
+        src = state.ema if state.ema is not None else state.model
+        if sharding is None:
+            return src
+        return sharding.full_state_dict(src, keep=is_main_process()) \
+            if sharding.sp_rank == 0 else None
 
     def checkpoint(step):
         running = dict(pos)
         if sampler is not None:
             running["sampler"] = sampler.state_dict(pos["epoch_step"])
         save_checkpoint(exp_dir, step, model=state.model, optimizer=state.optimizer,
-                        ema=state.ema, running_states=running)
+                        ema=state.ema, running_states=running, sharding=sharding)
 
     step = start_step
     step_holder["step"] = step
@@ -392,7 +439,7 @@ def _main(args, device) -> List[dict]:
         for batch in loader:
             if done():
                 break
-            batch, (t_img, h, w) = step_inputs(batch, cfg, mask_gen, seed0, step)
+            batch, (t_img, h, w) = step_inputs(batch, cfg, mask_gen, seed0, step, dp_row)
             simu_sp = (step_rng(seed0, 2, step).choice(simu_sp_list)
                        if simu_sp_list else None)
             step_fn = get_step(h, w, t_img, simulate_sp=simu_sp)

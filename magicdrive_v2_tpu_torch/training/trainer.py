@@ -1,12 +1,21 @@
 """Training step of the port (counterpart of the JAX package's training/trainer.py):
 the rectified-flow loss through the model in its compute dtype, the backward,
-global-norm clipping, AdamW and the EMA update, on one device or on the (1, sp)
-mesh of a ``parallel.use_mesh`` context. There every rank runs the step on the
-same batch and the same draws; the model leaves each rank its share of the
-grads (``parallel.comm``), and one all-reduce sum over the sp group
-(``reduce_sp_grads``) between the backward and the clip gives every rank one
-process's grads, so the clip's norm, AdamW and the EMA see the same grads and
-the parameters stay equal on every rank.
+global-norm clipping, AdamW and the EMA update, on one device or on the (dp, sp)
+mesh of a ``parallel.use_mesh`` context.
+
+On the mesh each dp row (the sp ranks of one sp group) trains on its own rows
+of the global batch, and the fp32 state is split over dp (``parallel/fsdp.py``,
+``TrainState.sharding``). The ranks of an sp group run the step on the same rows
+and the same draws; the model leaves each its share of the grads
+(``parallel.comm``). After the backward, in this order: the grads are averaged
+over dp (the split ones reduce-scattered inside the backward, the replicated
+ones all-reduced after it), summed over the sp group (``reduce_sp_grads``; rank
+(d, s) and rank (d, s') hold the same block d, so the two linear reductions
+commute), and clipped by the global norm. Every rank then holds its block of one
+process's grads on the global batch, and AdamW and the EMA update the blocks.
+The step's draws are made for the global batch from (seed, step) on every rank,
+and each dp row takes its rows, so no two rows share noise and dp ranks equal
+one process on the global batch.
 
 Mixed precision as flax does it: the model holds fp32 master parameters; each
 forward reads bf16 casts of them (``compute_params``) through
@@ -21,14 +30,16 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.func import functional_call
 
 from ..models.magicdrive.stdit3 import MagicDriveSTDiT3, compute_params
 from ..parallel.comm import reduce_sp_grads
+from ..parallel.fsdp import ParamSharding
 from ..parallel.sharding import get_current_mesh
 from ..schedulers.rf import RFLOW, RFLOW_SDEBRUSHNET
 from ..utils.train_utils import ClippedAdamW, make_optimizer, trainable_mask, update_ema
@@ -43,9 +54,16 @@ _COND_KEYS = ("y", "maps", "bbox", "cams", "rel_pos", "fps", "drop_cond_mask",
 @dataclasses.dataclass
 class TrainState:
     step: int
-    model: MagicDriveSTDiT3        # fp32 master parameters
+    model: MagicDriveSTDiT3        # fp32 master parameters (this rank's blocks under dp)
     optimizer: ClippedAdamW
     ema: Optional[MagicDriveSTDiT3]  # fp32, or None without EMA
+    sharding: Optional[ParamSharding] = None  # the dp split of model and EMA
+
+
+def _rows(x: torch.Tensor, dp: int, rank: int) -> torch.Tensor:
+    """Data-parallel rank ``rank``'s rows of a draw made for the global batch."""
+    n = x.shape[0] // dp
+    return x[rank * n:(rank + 1) * n]
 
 
 def combine_frame_mask(mask, frame_valid):
@@ -79,15 +97,21 @@ def training_loss(model: MagicDriveSTDiT3, scheduler: RFLOW, batch: Dict, *,
                   noise: Optional[torch.Tensor] = None,
                   t_inpaint: Optional[torch.Tensor] = None,
                   model_kwargs: Optional[Dict] = None,
-                  simulate_sp: Optional[int] = None):
+                  simulate_sp: Optional[int] = None,
+                  sharding: Optional[ParamSharding] = None,
+                  dp_rows: Tuple[int, int] = (1, 0)):
     """(mean loss, t) of one batch (already on the model's device) through the
-    model in ``dtype``; autograd records down to the fp32 masters. A BrushNet
+    model in ``dtype``; autograd records down to the fp32 masters (this rank's
+    blocks of them, gathered over dp, with a ``sharding``). A BrushNet
     batch carries ``x_inpaint`` and ``mask_inpaint`` too. For the SDE-BrushNet
     model (``cfg.sde_inpaint``) the scheduler must be an ``RFLOW_SDEBRUSHNET``:
     its loss draws an independent ``t_inpaint``, and the model runs with
     ``train=True`` and ``model_kwargs``, its randomness (a ``generator``, or
     ``cutoff_radius`` and ``inpaint_input_noise``). ``simulate_sp``: the model's
-    training-time H pad (``MagicDriveSTDiT3._h_pad_size``)."""
+    training-time H pad (``MagicDriveSTDiT3._h_pad_size``). ``dp_rows`` (dp,
+    rank): the batch is data-parallel rank ``rank``'s rows of a global batch of dp
+    such; the scheduler and the SDE model draw for the global batch, in one
+    process's order, and keep this rank's rows."""
     sde = getattr(model.cfg, "sde_inpaint", False)
     if sde != isinstance(scheduler, RFLOW_SDEBRUSHNET):
         raise ValueError(f"{type(scheduler).__name__} does not train a model with "
@@ -101,19 +125,20 @@ def training_loss(model: MagicDriveSTDiT3, scheduler: RFLOW, batch: Dict, *,
     hw = dict(height=torch.full((b,), float(height)), width=torch.full((b,), float(width)),
               num_frames=torch.full((b,), float(num_frames)) if nf_valid is None
               else torch.as_tensor(nf_valid, dtype=torch.float32))
-    params = compute_params(model, dtype)
+    params = (compute_params(model, dtype) if sharding is None
+              else sharding.compute_params(model, dtype))
 
     def model_fn(x_t, tt, x_mask, *sde_t_inpaint):
         kw = dict(**cond, height=float(height), width=float(width), x_mask=x_mask,
                   frame_valid=frame_valid, simulate_sp=simulate_sp)
         if sde:
             kw.update(t_inpaint=sde_t_inpaint[0], num_timesteps=float(scheduler.num_timesteps),
-                      train=True, **(model_kwargs or {}))
+                      train=True, dp_rows=dp_rows, **(model_kwargs or {}))
         return functional_call(model, params, (x_t, tt), kw)
 
     extra = dict(t_inpaint=t_inpaint) if sde else {}
     out = scheduler.training_losses(model_fn, x, mask=mask, t=t, noise=noise,
-                                    generator=generator, **extra, **hw)
+                                    generator=generator, rows=dp_rows, **extra, **hw)
     return out["loss"].mean(), out["t"]
 
 
@@ -134,12 +159,15 @@ def make_train_step(scheduler: RFLOW, *, height: float, width: float, num_frames
     order t, t_inpaint, noise; the SDE model's ``cutoff_radius`` and
     ``inpaint_input_noise`` from ``step_generator(seed, step, 1)``, cutoff first
     (the JAX step splits its key into the loss's and the model's). All of them
-    are drawn whole, before the model splits anything, so they are the same on
-    every rank of a mesh. ``simulate_sp``: the training-time H pad of that sp
-    size (the JAX step's; each value is a step of its own).
+    are drawn for the global batch, before the model splits anything, so they are
+    the same on every rank of an sp group, and each dp row keeps its rows (draws
+    handed in are the global batch's too). ``simulate_sp``: the training-time H
+    pad of that sp size (the JAX step's; each value is a step of its own).
 
-    Under a mesh of sp > 1 (``parallel.use_mesh``) the grads of the parameters
-    that require grad are summed over the sp group before the clip."""
+    Under a mesh (``parallel.use_mesh``) the grads of the parameters that require
+    grad are averaged over dp (the state must be split over the mesh's dp:
+    ``TrainState.sharding``), then summed over the sp group, before the clip; the
+    loss and t_mean are the global batch's (averaged over dp)."""
 
     def train_step(state: TrainState, batch: Dict, **draws):
         sde = getattr(state.model.cfg, "sde_inpaint", False)
@@ -148,6 +176,14 @@ def make_train_step(scheduler: RFLOW, *, height: float, width: float, num_frames
         unknown = set(draws) - set(loss_draws + model_draws)
         if unknown:
             raise TypeError(f"train_step got draws it does not make: {sorted(unknown)}")
+        mesh = get_current_mesh()
+        dp_rows = (1, 0) if mesh is None else (mesh.dp, mesh.dp_rank)
+        if dp_rows[0] > 1:
+            if state.sharding is None or state.sharding.group is not mesh.dp_group:
+                raise ValueError(f"a step at dp={mesh.dp} needs the state split over that "
+                                 f"mesh's dp group (parallel.fsdp.shard_for_training)")
+            draws = {k: v if v is None or k == "cutoff_radius" else _rows(v, *dp_rows)
+                     for k, v in draws.items()}
         gen = None if all(draws.get(k) is not None for k in loss_draws) \
             else step_generator(seed, state.step)
         model_kwargs = None
@@ -159,27 +195,35 @@ def make_train_step(scheduler: RFLOW, *, height: float, width: float, num_frames
         loss, t_used = training_loss(
             state.model, scheduler, batch, height=height, width=width,
             num_frames=num_frames, dtype=dtype, generator=gen, model_kwargs=model_kwargs,
-            simulate_sp=simulate_sp, **{k: draws.get(k) for k in loss_draws})
-        loss.backward()
-        mesh = get_current_mesh()
+            simulate_sp=simulate_sp, sharding=state.sharding, dp_rows=dp_rows,
+            **{k: draws.get(k) for k in loss_draws})
+        loss.backward()  # the split parameters' grads: reduce-scattered over dp in here
+        trainable = [(n, p) for n, p in state.model.named_parameters() if p.requires_grad]
+        metrics = {"loss": loss.detach(), "t_mean": t_used.mean()}
+        if dp_rows[0] > 1:
+            state.sharding.reduce_replicated_grads(trainable)
+            for v in metrics.values():
+                dist.all_reduce(v, group=mesh.dp_group)
+                v.div_(mesh.dp)
         if mesh is not None and mesh.sp > 1:
-            reduce_sp_grads([p for p in state.model.parameters() if p.requires_grad],
-                            mesh.sp_group)
-        grad_norm = state.optimizer.step()
+            reduce_sp_grads([p for _, p in trainable], mesh.sp_group)
+        metrics["grad_norm"] = state.optimizer.step().detach()
         if state.ema is not None:
             update_ema(state.ema, state.model, ema_decay, ema_mask)
         state.step += 1
-        return state, {"loss": loss.detach(), "grad_norm": grad_norm.detach(),
-                       "t_mean": t_used.mean()}
+        return state, metrics
 
     return train_step
 
 
 def build_training_multibucket(model: MagicDriveSTDiT3, scheduler: RFLOW, cfg, *,
-                               freeze_patterns=(), seed: int = 0):
+                               freeze_patterns=(), seed: int = 0,
+                               sharding: Optional[ParamSharding] = None):
     """Optimizer, state and a per-bucket step factory over ``model`` (fp32 masters
     on their device). Each (height, width, num_frames) bucket gets its own step,
     built once and cached: the bucket's statics feed ``timestep_transform``.
+    ``sharding``: the model's split over dp (``parallel.fsdp.shard_for_training``,
+    called on it first), which the moments and the EMA then share.
 
     Returns (state, get_step) with ``get_step(height, width, num_frames,
     simulate_sp=None)``, keyed on all four as the JAX package's."""
@@ -190,9 +234,9 @@ def build_training_multibucket(model: MagicDriveSTDiT3, scheduler: RFLOW, cfg, *
         weight_decay=cfg.get("weight_decay", 1e-2), adam_eps=cfg.get("adam_eps", 1e-15),
         grad_clip=cfg.get("grad_clip", 1.0), warmup_steps=cfg.get("warmup_steps", 0),
         milestones=cfg.get("lr_milestones", ()), gamma=cfg.get("lr_gamma", 0.1),
-        trainable=mask)
+        trainable=mask, sharding=sharding)
     ema = copy.deepcopy(model).requires_grad_(False) if cfg.get("ema", True) else None
-    state = TrainState(step=0, model=model, optimizer=opt, ema=ema)
+    state = TrainState(step=0, model=model, optimizer=opt, ema=ema, sharding=sharding)
     ema_decay = cfg.get("ema_decay", 0.99)
     cache: Dict[tuple, Callable] = {}
 
@@ -218,23 +262,25 @@ def build_training(model, scheduler, cfg, *, height, width, num_frames,
 
 
 def build_brushnet_training(model, scheduler: RFLOW, cfg, *, height, width, num_frames,
-                            seed: int = 0, simulate_sp: Optional[int] = None):
+                            seed: int = 0, simulate_sp: Optional[int] = None,
+                            sharding: Optional[ParamSharding] = None):
     """State and step of the BrushNet apps' training over ``model`` (a
     ``MagicDriveSTDiT3BrushNet``, fp32 masters on their device): only the branch
     trains (``lora_trainable_mask`` of ``BRUSHNET_EXTRA_TRAINABLE``; the frozen
     base stops requiring grad), AdamW (lr 5e-5 by default) with the clip, an EMA
     of every parameter (the frozen ones stay as they are), the SDE loss when the
-    model is the SDE variant; ``simulate_sp`` as in ``make_train_step``. Returns
-    (state, step)."""
+    model is the SDE variant; ``simulate_sp`` as in ``make_train_step``,
+    ``sharding`` (the frozen parameters split too) as in
+    ``build_training_multibucket``. Returns (state, step)."""
     dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[cfg.get("dtype", "bf16")]
     mask = lora_trainable_mask(model.named_parameters(), BRUSHNET_EXTRA_TRAINABLE)
     opt = make_optimizer(
         model.named_parameters(), lr=cfg.get("lr", 5e-5),
         weight_decay=cfg.get("weight_decay", 1e-2), adam_eps=cfg.get("adam_eps", 1e-15),
         grad_clip=cfg.get("grad_clip", 1.0), warmup_steps=cfg.get("warmup_steps", 0),
-        trainable=mask)
+        trainable=mask, sharding=sharding)
     state = TrainState(step=0, model=model, optimizer=opt,
-                       ema=copy.deepcopy(model).requires_grad_(False))
+                       ema=copy.deepcopy(model).requires_grad_(False), sharding=sharding)
     step = make_train_step(
         scheduler, height=height, width=width, num_frames=num_frames, dtype=dtype,
         ema_decay=cfg.get("ema_decay", 0.99), ema_mask=mask, seed=seed,

@@ -369,53 +369,97 @@ def load_rng_state(path: str) -> dict:
 
 def save_checkpoint(ckpt_dir: str, step: int, *, model: torch.nn.Module,
                     optimizer=None, ema: Optional[torch.nn.Module] = None,
-                    running_states: Optional[dict] = None) -> str:
-    """Write one resumable checkpoint directory; returns its path. In a
-    ``torch.distributed`` group every rank calls it: rank 0 writes (the ranks hold
-    the same state) and every rank leaves only once the directory is whole, so
-    none resumes from a half-written one."""
+                    running_states: Optional[dict] = None, sharding=None) -> str:
+    """Write one resumable checkpoint directory in the one-process format; returns
+    its path. In a ``torch.distributed`` group every rank calls it, and rank 0
+    writes. With a ``sharding`` (``parallel.fsdp.ParamSharding``: model, EMA and
+    moments are this rank's blocks) each file's split entries are first gathered
+    over dp to rank 0, one file at a time, so the checkpoint is the one a single
+    process writes and resumes at any world size. Every rank leaves only once the
+    directory is whole, so none resumes from a half-written one."""
     import torch.distributed as dist
     path = os.path.abspath(os.path.join(ckpt_dir, _ckpt_name(step)))
+    writer = not dist.is_initialized() or dist.get_rank() == 0
+    if writer:
+        os.makedirs(path, exist_ok=True)
+    for name, state in (("model.pt", model), ("ema.pt", ema), ("optimizer.pt", optimizer)):
+        if state is None:
+            continue
+        if sharding is None:
+            sd = state.state_dict() if writer else None
+        elif name == "optimizer.pt":
+            sd = full_optimizer_state(state, sharding, keep=writer)
+        else:  # the dp group of rank 0 (sp column 0) gathers
+            sd = sharding.full_state_dict(state, keep=writer) if sharding.sp_rank == 0 \
+                else None
+        if writer:
+            torch.save(sd, os.path.join(path, name))
+        del sd
+    if writer:
+        running = dict(running_states or {})
+        running["step"] = step
+        with open(os.path.join(path, "running_states.json"), "w") as f:
+            json.dump(running, f, indent=2, default=str)
+        save_rng_state(os.path.join(path, "rng_state.json"))
+        logger.info("saved checkpoint: %s", path)
     if dist.is_initialized():
-        if dist.get_rank() == 0:
-            _write_checkpoint(path, model, optimizer, ema, running_states, step)
         dist.barrier()
-        return path
-    _write_checkpoint(path, model, optimizer, ema, running_states, step)
     return path
 
 
-def _write_checkpoint(path, model, optimizer, ema, running_states, step):
-    os.makedirs(path, exist_ok=True)
-    torch.save(model.state_dict(), os.path.join(path, "model.pt"))
-    if ema is not None:
-        torch.save(ema.state_dict(), os.path.join(path, "ema.pt"))
-    if optimizer is not None:
-        torch.save(optimizer.state_dict(), os.path.join(path, "optimizer.pt"))
-    running = dict(running_states or {})
-    running["step"] = step
-    with open(os.path.join(path, "running_states.json"), "w") as f:
-        json.dump(running, f, indent=2, default=str)
-    save_rng_state(os.path.join(path, "rng_state.json"))
-    logger.info("saved checkpoint: %s", path)
+def full_optimizer_state(optimizer, sharding, keep: bool) -> Optional[dict]:
+    """``ClippedAdamW.state_dict()`` as one process holds it: the moments of split
+    parameters gathered over dp (a collective of the dp groups of sp column 0;
+    other ranks return None), on the host where ``keep``."""
+    sd = optimizer.state_dict()
+    if sharding.sp_rank != 0:
+        return None
+    out = {} if keep else None
+    for i, entry in sd["adamw"]["state"].items():
+        name = optimizer.names[i]
+        full = {k: sharding.full(name, v) if k in ("exp_avg", "exp_avg_sq") else v
+                for k, v in entry.items()}
+        if keep:
+            out[i] = {k: v.cpu() for k, v in full.items()}
+        del full
+    if not keep:
+        return None
+    return {"count": sd["count"], "adamw": {"state": out,
+                                             "param_groups": sd["adamw"]["param_groups"]}}
+
+
+def local_optimizer_state(state: dict, optimizer, sharding) -> dict:
+    """A one-process ``ClippedAdamW`` state dict cut to this rank's blocks."""
+    adamw = state["adamw"]
+    local = {i: {k: sharding.local(optimizer.names[int(i)], v)
+                 if k in ("exp_avg", "exp_avg_sq") else v for k, v in entry.items()}
+             for i, entry in adamw["state"].items()}
+    return {"count": state["count"], "adamw": dict(adamw, state=local)}
 
 
 def load_checkpoint(path: str, *, model: Optional[torch.nn.Module] = None,
-                    ema: Optional[torch.nn.Module] = None, optimizer=None) -> dict:
+                    ema: Optional[torch.nn.Module] = None, optimizer=None,
+                    sharding=None) -> dict:
     """Load a directory ``save_checkpoint`` wrote into the given model, EMA and
-    optimizer (each that is given and was saved), in place, onto their devices.
+    optimizer (each that is given and was saved), in place, onto their devices;
+    with a ``sharding`` each rank takes its blocks of the one-process tensors.
     Returns the running states (``step``, ...)."""
     def read(name):
         f = os.path.join(path, name)
         return torch.load(f, map_location="cpu", weights_only=True) \
             if os.path.isfile(f) else None
 
-    if model is not None:
-        model.load_state_dict(read("model.pt"))
-    if ema is not None and (sd := read("ema.pt")) is not None:
-        ema.load_state_dict(sd)
+    for module, name in ((model, "model.pt"), (ema, "ema.pt")):
+        if module is None or (sd := read(name)) is None:
+            continue
+        if sharding is None:
+            module.load_state_dict(sd)
+        else:
+            sharding.load_full_state_dict(module, sd)
+        del sd
     if optimizer is not None and (sd := read("optimizer.pt")) is not None:
-        optimizer.load_state_dict(sd)
+        optimizer.load_state_dict(sd if sharding is None
+                                  else local_optimizer_state(sd, optimizer, sharding))
     rs = os.path.join(path, "running_states.json")
     running = {}
     if os.path.isfile(rs):

@@ -19,6 +19,19 @@ def torch_randn(shape, seed: Optional[int] = None,
     return torch.randn(*shape, generator=generator)
 
 
+def randn_rows(shape, generator: Optional[torch.Generator], rows=(1, 0), *,
+               dtype=None, device=None) -> torch.Tensor:
+    """``torch.randn(shape)`` from ``generator`` (on its device; without one, the
+    global generator on ``device``) as data-parallel rank ``rank`` of ``rows``
+    (dp, rank) draws it: dp such tensors drawn stacked along the first dim, and the
+    rank's part kept, so the ranks' parts in rank order are one process's draw."""
+    dp, rank = rows
+    n = shape[0]
+    out = torch.randn((dp * n,) + tuple(shape[1:]), generator=generator, dtype=dtype,
+                      device=generator.device if generator is not None else device)
+    return out[rank * n:(rank + 1) * n]
+
+
 def torch_randn_stream(seed: int) -> Callable:
     """The reference's seed contract for one sample: ``torch.manual_seed(s)``
     followed by several ``torch.randn`` calls (z first, then the box latents), as

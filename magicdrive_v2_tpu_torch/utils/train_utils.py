@@ -96,16 +96,27 @@ class ClippedAdamW:
     ``adamw``; its fused implementation, which holds no full-size temporaries),
     over the trainable parameters only, with the scheduled learning rate.
     ``step()`` runs after the backward and returns the pre-clip global norm of the
-    trainable grads."""
+    trainable grads.
+
+    With a ``sharding`` (``parallel.fsdp.ParamSharding``) the parameters of the
+    names it splits are this rank's blocks: the squares of their grads are summed
+    over the dp group once (the sp ranks of a dp row hold the same block, so not
+    over sp), the replicated ones' added as they are; AdamW then updates each
+    block, so its moments are blocks too."""
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]],
                  trainable: Dict[str, bool], lr, weight_decay: float = 1e-2,
                  adam_eps: float = 1e-15, grad_clip: float = 1.0,
                  warmup_steps: int = 0, milestones: Sequence[int] = (),
-                 gamma: float = 0.1):
+                 gamma: float = 0.1, sharding=None):
         self.schedule = lr if callable(lr) else multistep_warmup_schedule(
             lr, warmup_steps, milestones, gamma)
-        self.params = [p for name, p in named_params if trainable.get(name, False)]
+        named = [(name, p) for name, p in named_params if trainable.get(name, False)]
+        self.names = [name for name, _ in named]  # by index of the AdamW state
+        self.params = [p for _, p in named]
+        self.sharding = sharding
+        self.split = [sharding is not None and sharding.dims[name] is not None
+                      for name in self.names]
         self.grad_clip = grad_clip
         self.count = 0  # updates taken
         self.adamw = torch.optim.AdamW(self.params, lr=self.schedule(0), betas=(0.9, 0.999),
@@ -115,11 +126,28 @@ class ClippedAdamW:
     def zero_grad(self):
         self.adamw.zero_grad(set_to_none=True)
 
-    def step(self) -> torch.Tensor:
+    def global_norm(self) -> torch.Tensor:
+        """The norm of every trainable grad, the split ones' squares summed over dp."""
         grads = [p.grad for p in self.params if p.grad is not None]
         if not grads:
             raise RuntimeError("no trainable parameter has a grad")
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        if self.sharding is None:
+            return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        import torch.distributed as dist
+
+        def squares(split):
+            gs = [p.grad for p, s in zip(self.params, self.split)
+                  if s == split and p.grad is not None]
+            return (torch.stack(torch._foreach_norm(gs)).square().sum() if gs
+                    else torch.zeros((), device=grads[0].device))
+
+        total = squares(True)
+        dist.all_reduce(total, group=self.sharding.group)
+        return (total + squares(False)).sqrt()
+
+    def step(self) -> torch.Tensor:
+        norm = self.global_norm()
+        grads = [p.grad for p in self.params if p.grad is not None]
         scale = torch.where(norm < self.grad_clip, torch.ones_like(norm),
                             self.grad_clip / norm)
         torch._foreach_mul_(grads, scale)
@@ -130,6 +158,9 @@ class ClippedAdamW:
         return norm
 
     def state_dict(self) -> dict:
+        """``count`` and the AdamW state as ``torch.optim`` keys it (by parameter
+        index); under a sharding each moment is this rank's block
+        (``utils.ckpt`` gathers them into the one-process form)."""
         return {"count": self.count, "adamw": self.adamw.state_dict()}
 
     def load_state_dict(self, state: dict):
@@ -141,10 +172,11 @@ def make_optimizer(named_params: Iterable[Tuple[str, torch.Tensor]], lr,
                    weight_decay: float = 1e-2, adam_eps: float = 1e-15,
                    grad_clip: float = 1.0, warmup_steps: int = 0,
                    milestones: Sequence[int] = (), gamma: float = 0.1,
-                   trainable: Optional[Dict[str, bool]] = None) -> ClippedAdamW:
+                   trainable: Optional[Dict[str, bool]] = None,
+                   sharding=None) -> ClippedAdamW:
     """AdamW + warm-up (+ milestones) + clip over the parameters ``trainable``
-    marks (all when None). Frozen parameters are also set not to require grad,
-    so the backward computes none for them."""
+    marks (all when None), split by ``sharding`` when given. Frozen parameters are
+    also set not to require grad, so the backward computes none for them."""
     named_params = list(named_params)
     if trainable is None:
         trainable = {name: True for name, _ in named_params}
@@ -152,7 +184,7 @@ def make_optimizer(named_params: Iterable[Tuple[str, torch.Tensor]], lr,
         if not trainable.get(name, False):
             p.requires_grad_(False)
     return ClippedAdamW(named_params, trainable, lr, weight_decay, adam_eps, grad_clip,
-                        warmup_steps, milestones, gamma)
+                        warmup_steps, milestones, gamma, sharding)
 
 
 @torch.no_grad()
@@ -279,16 +311,18 @@ def sample_condition_dropout(rng: pyrandom.Random, b: int, t: int,
 
 def run_validation(pipe, val_batches, *, num_frames: int, height: int, width: int,
                    out_dir: str, step: int, guidance_scale: float = 2.0,
-                   weights: Optional[torch.nn.Module] = None):
+                   weights=None):
     """Render fixed samples with fixed seeds (latents from seed 1024 + index) and
     save each 2x3 grid as PNG frames under ``out_dir``. ``pipe`` is a
-    ``MagicDrivePipeline``; ``weights`` (e.g. the EMA module) is loaded into its
-    model first, each entry cast to the pipeline's dtype for it."""
+    ``MagicDrivePipeline``; ``weights`` (e.g. the EMA module, or its state dict)
+    is loaded into its model first, each entry cast to the pipeline's dtype for
+    it."""
     from .ckpt import load_state_dict_cast
     from .inference_utils import concat_6_views, save_sample
 
     if weights is not None:
-        load_state_dict_cast(pipe.model, weights.state_dict())
+        load_state_dict_cast(pipe.model, weights if isinstance(weights, dict)
+                             else weights.state_dict())
     os.makedirs(out_dir, exist_ok=True)
     paths = []
     for vi, batch in enumerate(val_batches):

@@ -253,15 +253,16 @@ def test_app_trains_the_branch_and_its_checkpoint_reloads(sde, tmp_path):
 
 def test_app_refuses_what_is_not_ported(tmp_path):
     """sp_size 2 in one process trains at sp = min(2, 1) = 1 (the JAX app's rule);
-    a world larger than sp would be data-parallel, which is refused by name; no
-    card, no silent CPU run."""
-    from magicdrive_v2_tpu_torch.parallel.distributed import training_sp_size
+    4 ranks at sp_size 2 form a (2, 2) mesh, 3 ranks (which sp does not divide)
+    are refused by name; no card, no silent CPU run."""
+    from magicdrive_v2_tpu_torch.parallel.distributed import training_mesh_shape
     from magicdrive_v2_tpu_torch.scripts import train_brushnet
     out = f"outputs={tmp_path}"
     (line,) = _port_app(["--max-steps", "1", "--cfg-options", out, "sp_size=2"])
     assert line["step"] == 1 and np.isfinite(line["loss"])
-    with pytest.raises(NotImplementedError, match="queue A item 2"):
-        training_sp_size(2, 4)
+    assert training_mesh_shape(2, 4) == (2, 2)  # the ranks beyond sp are dp rows
+    with pytest.raises(ValueError, match="data-parallel rows"):
+        training_mesh_shape(2, 3)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             train_brushnet.main([BRUSH_SMOKE, "--synthetic", "--cfg-options", out])

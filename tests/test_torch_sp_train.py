@@ -2,8 +2,8 @@
 (``simulate_sp``), the grad rule over sp (``parallel.comm``: every rank's grads
 are its share, summed over the sp group before the clip), the encode scattered
 with its posterior noise drawn whole (``sp_vae(noise=...)``), and the train apps'
-mesh rule (sp = min(sp_size, world); a larger world refused), against one
-process of the port and against the JAX package.
+mesh rule (sp = min(sp_size, world), dp = world // sp), against one process of
+the port and against the JAX package.
 
 The ranks are the 2 processes of one gloo group (``tests/torch_sp_train_worker.py``,
 started once for the module by ``spawn_ranks`` with a deadline); they run the
@@ -48,7 +48,7 @@ from magicdrive_v2_tpu_torch.config.presets import rflow
 from magicdrive_v2_tpu_torch.models.magicdrive import brushnet as TB
 from magicdrive_v2_tpu_torch.models.magicdrive.stdit3 import MagicDriveSTDiT3 as TModel
 from magicdrive_v2_tpu_torch.models.vae.cogvideox import CogVAEConfig, VideoAutoencoderKLCogVideoX
-from magicdrive_v2_tpu_torch.parallel.distributed import training_sp_size
+from magicdrive_v2_tpu_torch.parallel.distributed import training_mesh_shape
 from magicdrive_v2_tpu_torch.pipelines.magicdrive import synthetic_batch
 from magicdrive_v2_tpu_torch.utils.ckpt import from_jax_params, init_weights
 from magicdrive_v2_tpu_torch.utils.misc import to_device
@@ -195,9 +195,9 @@ def _rank_group(cases, tmp_path_factory):
     """Every multi-rank case in one group of 2 ranks, started before the first test
     and run while this process compiles its JAX references: the model cases, the
     encode, the train app on smoke_tiny with sp_size 4 and simulate_sp_size [4, 8]
-    for 2 steps (seed 1: the picks are 4, 8), the BrushNet app with --sde at
-    sp_size 2, and both apps in a world larger than their sp. Yields a future of
-    (each rank's results, each rank's log, the app's output directory)."""
+    for 2 steps (seed 1: the picks are 4, 8), and the BrushNet app with --sde at
+    sp_size 2. Yields a future of (each rank's results, each rank's log, the app's
+    output directory)."""
     from concurrent.futures import ThreadPoolExecutor
     tmp = str(tmp_path_factory.mktemp("sp_train"))
     app_dir = os.path.join(tmp, "app")
@@ -205,15 +205,9 @@ def _rank_group(cases, tmp_path_factory):
     all_cases["app"] = dict(kind="app", app="train_magicdrive", argv=[
         SMOKE, "--synthetic", "--device", "cpu", "--max-steps", "2", "--cfg-options",
         f"outputs={app_dir}", "sp_size=4", "simulate_sp_size=[4,8]", "seed=1"])
-    all_cases["app_dp"] = dict(kind="app", app="train_magicdrive", argv=[
-        SMOKE, "--synthetic", "--device", "cpu", "--cfg-options",
-        f"outputs={os.path.join(tmp, 'dp')}"])
     all_cases["brush_app"] = dict(kind="app", app="train_brushnet", argv=[
         BRUSH_SMOKE, "--synthetic", "--sde", "--device", "cpu", "--max-steps", "1",
         "--cfg-options", f"outputs={os.path.join(tmp, 'brush')}", "sp_size=2"])
-    all_cases["brush_app_dp"] = dict(kind="app", app="train_brushnet", argv=[
-        BRUSH_SMOKE, "--synthetic", "--device", "cpu", "--cfg-options",
-        f"outputs={os.path.join(tmp, 'brush_dp')}"])
     torch.save(all_cases, os.path.join(tmp, "inputs.pt"))
 
     def run():
@@ -451,8 +445,9 @@ def test_train_app_sp4_on_two_ranks_resumes_in_one_process(ranks, tmp_path, capl
     its global_step2 to step 4: the metrics and the saved model and EMA equal 4
     uninterrupted steps in one process, within the sharded tolerances."""
     results, logs, app_dir = ranks
-    for log in logs:
-        assert "sequence parallel: sp=2 (sp_size 4), simulate_sp from [4, 8]" in log
+    for r, log in enumerate(logs):
+        assert (f"mesh: dp=1 sp=2 (rank {r}: dp row 0; sp_size 4), simulate_sp from [4, 8]"
+                in log)
     assert results[0]["app"] == results[1]["app"]
     sharded = results[0]["app"]["lines"]
     assert [x["simulate_sp"] for x in sharded] == [4.0, 8.0]
@@ -482,15 +477,6 @@ def test_train_app_sp4_on_two_ranks_resumes_in_one_process(ranks, tmp_path, capl
         assert moved <= 0.01 * sum(v.numel() for v in x.values()), (name, moved)
 
 
-def test_train_apps_refuse_a_world_larger_than_sp(ranks):
-    """(e) 2 processes and sp_size 1: the other rank would be data-parallel, which
-    is not ported; both apps refuse by name on every rank, before any step."""
-    for res in ranks[0]:
-        for name in ("app_dp", "brush_app_dp"):
-            msg = res[name]["refused"]
-            assert "data-parallel (dp=2)" in msg and "queue A item 2" in msg, msg
-
-
 def test_brushnet_app_on_two_ranks(ranks, tmp_path):
     """The SDE-BrushNet app at sp_size 2 on 2 ranks: S=20 splits without a pad, so
     its step equals one process's run of the same config."""
@@ -505,16 +491,19 @@ def test_brushnet_app_on_two_ranks(ranks, tmp_path):
     np.testing.assert_allclose(got["grad_norm"], ref["grad_norm"], rtol=1e-5)
 
 
-@pytest.mark.parametrize("sp_size,world,sp", [(4, 1, 1), (4, 2, 2), (4, 4, 4), (1, 1, 1),
-                                              (None, 1, 1), (4, 8, None), (1, 2, None)])
-def test_training_sp_size_rule(sp_size, world, sp):
-    """sp = min(sp_size, world), the JAX train apps' rule (not the serving rule,
-    which runs unsharded on fewer ranks); a world larger than sp is refused."""
-    if sp is None:
-        with pytest.raises(NotImplementedError, match="queue A item 2"):
-            training_sp_size(sp_size, world)
+@pytest.mark.parametrize("sp_size,world,dp_sp", [
+    (4, 1, (1, 1)), (4, 2, (1, 2)), (4, 4, (1, 4)), (1, 1, (1, 1)), (None, 1, (1, 1)),
+    (4, 8, (2, 4)), (1, 2, (2, 1)), (2, 3, None)])
+def test_training_sp_size_rule(sp_size, world, dp_sp):
+    """sp = min(sp_size, world) and dp = world // sp, the JAX train apps' rule (not
+    the serving rule, which runs unsharded on fewer ranks); the ranks beyond an sp
+    group are dp rows. A world that sp does not divide raises ValueError (JAX
+    leaves the extra devices idle)."""
+    if dp_sp is None:
+        with pytest.raises(ValueError, match="do not split into data-parallel rows"):
+            training_mesh_shape(sp_size, world)
     else:
-        assert training_sp_size(sp_size, world) == sp
+        assert training_mesh_shape(sp_size, world) == dp_sp
 
 
 

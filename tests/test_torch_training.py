@@ -477,11 +477,11 @@ def test_app_resume_equals_an_uninterrupted_run(tmp_path, caplog):
 
 def test_app_refuses_what_is_not_ported(tmp_path):
     """A dataset without a train split is refused. sp_size 2 and simulate_sp_size
-    run in one process (sp = min(2, 1) = 1; the simulate pick pads H); a world
-    larger than sp would be data-parallel, refused by name. No card, no silent
-    CPU run."""
+    run in one process (sp = min(2, 1) = 1; the simulate pick pads H); 4 ranks at
+    sp_size 2 form a (2, 2) mesh, 3 ranks (which sp does not divide) are refused by
+    name. No card, no silent CPU run."""
     out = f"outputs={tmp_path}"
-    from magicdrive_v2_tpu_torch.parallel.distributed import training_sp_size
+    from magicdrive_v2_tpu_torch.parallel.distributed import training_mesh_shape
     from magicdrive_v2_tpu_torch.scripts import train_magicdrive
     with pytest.raises(KeyError, match="data.train"):
         train_magicdrive.main([SMOKE, "--device", "cpu", "--cfg-options", out,
@@ -489,8 +489,9 @@ def test_app_refuses_what_is_not_ported(tmp_path):
     (line,) = _app(["--max-steps", "1", "--cfg-options", out, "sp_size=2",
                     "simulate_sp_size=[4]"])
     assert line["step"] == 1 and line["simulate_sp"] == 4 and np.isfinite(line["loss"])
-    with pytest.raises(NotImplementedError, match="queue A item 2"):
-        training_sp_size(2, 4)
+    assert training_mesh_shape(2, 4) == (2, 2)  # the ranks beyond sp are dp rows
+    with pytest.raises(ValueError, match="data-parallel rows"):
+        training_mesh_shape(2, 3)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             train_magicdrive.main([SMOKE, "--synthetic", "--cfg-options", out])

@@ -1,15 +1,15 @@
-"""One rank of the sequence-parallel training CPU tests of the port (not a test
-module).
+"""One rank of the sequence- and data-parallel training CPU tests of the port
+(not a test module).
 
     python tests/torch_sp_train_worker.py DIR
 
 with RANK, WORLD_SIZE, MASTER_ADDR and MASTER_PORT set (``spawn_ranks`` in
 ``tests/test_torch_common.py`` sets them). It joins a gloo group, reads the
-cases of ``DIR/inputs.pt``, runs each (the model cases under a (dp=1,
-sp=WORLD_SIZE) mesh, through the port's plain kernel versions; the app cases
-through the apps' own ``main``) and writes its results to ``DIR/rank<R>.pt``.
-``run_steps`` is also the one-process reference the tests run in their own
-process. It imports torch and the port only.
+cases of ``DIR/inputs.pt``, runs each (the model cases under the case's
+``mesh`` (dp, sp), by default (1, WORLD_SIZE), through the port's plain kernel
+versions; the app cases through the apps' own ``main``) and writes its results
+to ``DIR/rank<R>.pt``. ``run_steps`` is also the one-process reference the
+tests run in their own process. It imports torch and the port only.
 """
 import copy
 import dataclasses
@@ -39,12 +39,24 @@ def build_model(case):
     return model.train()
 
 
+def dp_rows(batch, mesh):
+    """This dp row's rows of a global batch (leading dims b or b*NC, sample-major)."""
+    if isinstance(batch, dict):
+        return {k: dp_rows(v, mesh) for k, v in batch.items()}
+    n = batch.shape[0] // mesh.dp
+    return batch[mesh.dp_rank * n:(mesh.dp_rank + 1) * n]
+
+
 def run_steps(case, mesh):
     """``len(case["draws"])`` steps of ``make_train_step`` under ``mesh`` (None: one
-    process) on the case's batch: each step's metrics, the grads it stepped with
-    (the reduced ones; after the clip), and the parameters and EMA after it. A
-    BrushNet model trains its branch (``build_brushnet_training``); draws a step is
-    not handed are drawn from (seed, step)."""
+    process) on the case's batch (the global batch: on a mesh of dp > 1 each dp
+    row takes its rows, and the state is split over dp with ``fsdp_min_size``):
+    each step's metrics, the grads it stepped with (the reduced ones; after the
+    clip), and the parameters and EMA after it, all gathered whole; the bytes of
+    this rank's split blocks of parameters, moments and EMA. A BrushNet model
+    trains its branch (``build_brushnet_training``); draws a step is not handed
+    are drawn from (seed, step)."""
+    from magicdrive_v2_tpu_torch.parallel.fsdp import shard_for_training
     from magicdrive_v2_tpu_torch.schedulers.rf import (RFLOW_BRUSHNET, RFLOW_SDEBRUSHNET,
                                                        build_scheduler)
     from magicdrive_v2_tpu_torch.training import trainer as TT
@@ -54,30 +66,47 @@ def run_steps(case, mesh):
     hyper = case["hyper"]
     brush = case["cfg"].get("sde_inpaint") is not None
     geo = dict(height=case["height"], width=case["width"], num_frames=case["num_frames"])
+    batch = case["batch"]
+    sharding = None
+    if mesh is not None and mesh.dp > 1:
+        batch = dp_rows(batch, mesh)
+        sharding = shard_for_training(model, mesh, min_size=case["fsdp_min_size"])
     if brush:
         kw = {k: v for k, v in case["scheduler"].items() if k != "type"}
         sched = (RFLOW_SDEBRUSHNET if case["cfg"]["sde_inpaint"] else RFLOW_BRUSHNET)(**kw)
         state, step = TT.build_brushnet_training(
             model, sched, dict(hyper, dtype="fp32"), **geo, seed=case.get("seed", 0),
-            simulate_sp=case.get("simulate_sp"))
+            simulate_sp=case.get("simulate_sp"), sharding=sharding)
     else:
         mask = TU.trainable_mask(model.named_parameters())
-        opt = TU.make_optimizer(model.named_parameters(), trainable=mask, **hyper)
+        opt = TU.make_optimizer(model.named_parameters(), trainable=mask, sharding=sharding,
+                                **hyper)
         state = TT.TrainState(step=0, model=model, optimizer=opt,
-                              ema=copy.deepcopy(model).requires_grad_(False))
+                              ema=copy.deepcopy(model).requires_grad_(False),
+                              sharding=sharding)
         step = TT.make_train_step(build_scheduler(case["scheduler"]), **geo, dtype=torch.float32,
                                   ema_decay=0.99, ema_mask=mask, seed=case.get("seed", 0),
                                   simulate_sp=case.get("simulate_sp"))
+
+    def whole(name, t):
+        return (t if sharding is None else sharding.full(name, t)).detach().clone()
+
     out = []
     for draws in case["draws"]:
         with use_mesh(mesh):
-            state, m = step(state, case["batch"], **draws)
+            state, m = step(state, batch, **draws)
         out.append(dict(
             metrics={k: v.detach().clone() for k, v in m.items()},
-            grads={n: p.grad.clone() for n, p in state.model.named_parameters()
+            grads={n: whole(n, p.grad) for n, p in state.model.named_parameters()
                    if p.grad is not None},
-            params={n: p.detach().clone() for n, p in state.model.named_parameters()},
-            ema={n: p.detach().clone() for n, p in state.ema.named_parameters()}))
+            params={n: whole(n, p) for n, p in state.model.named_parameters()},
+            ema={n: whole(n, p) for n, p in state.ema.named_parameters()}))
+    if sharding is not None:
+        moments = [v for s in state.optimizer.adamw.state.values() for k, v in s.items()
+                   if k in ("exp_avg", "exp_avg_sq")]
+        out[-1]["local_bytes"] = dict(
+            params=sharding.local_bytes(state.model), ema=sharding.local_bytes(state.ema),
+            moments=sum(v.numel() * v.element_size() for v in moments))
     return out
 
 
@@ -95,18 +124,26 @@ def run_sp_vae_encode(case, mesh):
 
 def run_app(case, mesh):
     """An app's ``main`` in this process group (it builds its own mesh): the
-    metrics lines it returns, or the message of the NotImplementedError it raises."""
+    metrics lines it returns."""
     import importlib
     app = importlib.import_module(f"magicdrive_v2_tpu_torch.scripts.{case['app']}")
-    try:
-        lines = app.main(case["argv"])
-    except NotImplementedError as e:
-        return {"refused": str(e)}
     return {"lines": [{k: float(v) for k, v in line.items() if k != "elapsed_s"}
-                      for line in lines]}
+                      for line in app.main(case["argv"])]}
 
 
-RUNNERS = {"steps": run_steps, "sp_vae_encode": run_sp_vae_encode, "app": run_app}
+def run_dp_encode(case, mesh):
+    """The train app's encode (``encode_latents``) of this dp row's views of the
+    case's global ``x`` at step 3."""
+    from magicdrive_v2_tpu_torch.models.vae.cogvideox import (CogVAEConfig,
+                                                              VideoAutoencoderKLCogVideoX)
+    from magicdrive_v2_tpu_torch.scripts.train_magicdrive import encode_latents
+    vae = VideoAutoencoderKLCogVideoX(CogVAEConfig(**case["cfg"]), device="cpu")
+    vae.module.load_state_dict(case["state"], strict=True)
+    return encode_latents(vae, dp_rows(case["x"], mesh), case["seed"], 3, mesh)
+
+
+RUNNERS = {"steps": run_steps, "sp_vae_encode": run_sp_vae_encode, "dp_encode": run_dp_encode,
+           "app": run_app}
 
 
 def main():
@@ -118,10 +155,13 @@ def main():
     rank = int(os.environ["RANK"])
     cases = torch.load(os.path.join(out_dir, "inputs.pt"), weights_only=True)
     results = {}
+    meshes = {}
     try:
-        mesh = make_mesh(dp=1, sp=int(os.environ["WORLD_SIZE"]))
         for name, case in cases.items():
-            results[name] = RUNNERS[case["kind"]](case, mesh)
+            shape = tuple(case.get("mesh", (1, int(os.environ["WORLD_SIZE"]))))
+            if shape not in meshes:  # made collectively, in the cases' order
+                meshes[shape] = make_mesh(*shape)
+            results[name] = RUNNERS[case["kind"]](case, meshes[shape])
         torch.save(results, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         shutdown()
