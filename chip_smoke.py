@@ -7,7 +7,8 @@ card. It imports only ``magicdrive_v2_tpu_torch`` and
 1. ``device``   reads the card's name and power limit, builds the three CUDA
                 kernels from ``magicdrive_v2_tpu_torch/csrc`` with ``nvcc``, checks
                 that ptxas spilled no register of the bf16 K1 and K3 kernels, and
-                records whether PIL, transformers and imageio import;
+                records whether PIL, transformers, imageio, scipy, cv2 and hmr2
+                import;
 2. ``shapes``   builds the model of phase 3, counts each kernel's launches over
                 ``encode_conditions`` and over one denoiser forward, and notes,
                 over a sample of one Euler step, every distinct shape and type
@@ -47,7 +48,8 @@ card. It imports only ``magicdrive_v2_tpu_torch`` and
                 each against the unsharded forward; then ``sp_vae`` of 6 views
                 over the 4 ranks against the direct decode; last, every shape the
                 ranks handed a wrapper is held against its plain version as in
-                phase 3;
+                phase 3; the unsharded forwards run while the ranks start, and each
+                rank reports where its seconds went (``rank0_timeline``);
 6. ``grads``    training's gradients: XL/2 at full width and depth 2/1, stage-2
                 bucket (4 samples, six views of 224x400, 17 frames), one
                 ``training_loss`` backward through the kernels against one through
@@ -64,11 +66,11 @@ card. It imports only ``magicdrive_v2_tpu_torch`` and
                 config for 2 steps and a resume of 2;
 7a. ``sp_train`` sequence-parallel training: XL/2 at full width, depth 2 / control
                 1, from the stage-3 config (bf16 over fp32 masters, remat full) at
-                its 848x1600 bucket (9 frames, b=1: S=5300, 2650 a rank), 2 steps
+                its 848x1600 bucket (9 frames, b=1: S=5300, 2650 a rank), 1 step
                 on 2 processes (gloo on one card, NCCL with a card a rank; the mesh
-                by the train apps' rule) against 2 in one process with the sp pad
+                by the train apps' rule) against 1 in one process with the sp pad
                 forced: loss, grad norm, the grads before the clip, parameters and
-                EMA after the steps; the ranks bit-equal after them; launches
+                EMA after the step; the ranks bit-equal after it; launches
                 and backwards per step; the grad all-reduce's seconds; every shape
                 the ranks handed a wrapper held against its plain version;
 7b. ``stage3_app`` the train app on ``configs/magicdrive/train/
@@ -88,7 +90,10 @@ card. It imports only ``magicdrive_v2_tpu_torch`` and
                 bytes of split state against one process's; s/step, each rank's
                 peak memory, the gather, reduce-scatter and all-reduce seconds and
                 bytes a step; launches and backwards per rank; every shape the
-                ranks handed a wrapper held against its plain version;
+                ranks handed a wrapper held against its plain version; both
+                meshes' ranks start at once and wait, their state built, while the
+                one-process references run, then take their steps one mesh after
+                the other (as ``sp_train``'s ranks wait for its reference);
 7d. ``dp_app``  the train app on 2 ranks at sp_size 1 (dp=2) on the stage-2
                 config, 2 rows a rank: XL/2 at full depth for 2 steps (each rank's
                 peak memory beside one process's), then at depth 2 for 2 steps with
@@ -100,18 +105,19 @@ card. It imports only ``magicdrive_v2_tpu_torch`` and
                 beside two controls with one cast point moved;
 9. ``app``      the inference app (``magicdrive_v2_tpu_torch.scripts.
                 inference_magicdrive``) on the 424x800 config with synthetic
-                conditioning, 17 frames, 2 steps; checks its launch counters and
-                the 17 PNG frames of the 2x3 grid it wrote;
+                conditioning, 9 frames (cut from 17), 2 steps; checks its launch
+                counters and the 9 PNG frames of the 2x3 grid it wrote;
 10. ``dataset`` writes a nuScenes-format set to a temporary directory (two scenes
                 of 41 frames at 12 Hz, six 1600x900 JPEG views a frame, 3-20 boxes
                 of the ten classes), builds the 224x400 and 424x800 pipelines from
                 the dataset yamls through the port's composition, and times a clip
-                and 2 batches of 4 through the threaded loader; requires the native
+                and a batch of 4 through the threaded loader; requires the native
                 polygon fill (timed on the BEV object layers);
 11. ``test_app`` the W-CODA test app (``scripts.test_magicdrive``) on a config
                 whose ``_base_`` is the 424x800 inference config, with a dataset on
-                that set: XL/2 bf16, 17 frames, 1 Euler step, the CogVideoX-2b VAE
-                decode, back-transform to 900x1600, 16 all-in-one frames read back;
+                that set: XL/2 bf16, 9 frames (cut from 17), 1 Euler step, the
+                CogVideoX-2b VAE decode, back-transform to 900x1600, 8 all-in-one
+                frames read back;
                 launch counters; host and device seconds apart;
 12. ``train_data`` the train app on a config whose ``_base_`` is the stage-2 config,
                 with a dataset on that set: XL/2 at full width and depth, b=4,
@@ -132,7 +138,7 @@ card. It imports only ``magicdrive_v2_tpu_torch`` and
                 the reference VAE-encoded on the card: the kept region of the final
                 latents equals the reference exactly;
 16. ``brushnet_apps`` the BrushNet app (``--sde``) and the repaint app on their
-                configs, 17 frames, 2 steps, frames read back; and (after phase 11)
+                configs, 9 frames, 2 steps, frames read back; and (after phase 11)
                 ``brushnet_test_app``: the W-CODA app with ``--sde`` on the
                 generated set;
 17. ``brushnet_grads``  XL/2-SDEBrushNet at full width, depth 2 / control depth
@@ -160,9 +166,26 @@ card. It imports only ``magicdrive_v2_tpu_torch`` and
 21. ``app848``  (after phase 12) the W-CODA app on the 848x1600 config
                 (``configs/magicdrive/test/17-16x848x1600_map0_fsp4_cfg2.0.py``,
                 rflow-slice) over the generated set through the 848x1600 dataset
-                yaml, 1 step, ``image_filename`` frames read back; launch counters;
+                yaml, 9 frames, 1 step, ``image_filename`` frames read back; launch
+                counters;
                 every shape it handed a wrapper held against its plain version as
-                in phase 3 (``app848_kernel_cases``).
+                in phase 3 (``app848_kernel_cases``);
+22. ``pedestrian`` the SMPL pedestrian pipeline (``scripts.pipeline_12hz.run_scene``:
+                pass 1, pose smoothing, inpainting, pass 2) at full size: a model in
+                the SMPL pickle's layout at SMPL's sizes (6890 vertices, 24 joints,
+                10 betas, 207 pose directions) written and loaded through
+                ``make_real_processor(path, device="cuda")``; a synthetic scene of six
+                900x1600 cameras at nuScenes' yaws (f=1266), 12 frames, 4 pedestrians
+                (two overlapping in CAM_FRONT) rendered with a known texture; two runs
+                on the card (bit-equal) and one of the port on the host (the same
+                pairs, textures within 1e-5, PNGs within 0.1 % of pixels); every
+                texture within 0.25 of the known one, every mask non-empty; seconds
+                of each stage, of the host rasterizer and its share, of PNG writing,
+                peak memory;
+23. ``extract_masks`` ``tools.extract_masks`` with its stub backend over 12 JPEGs of
+                900x1600 on the card and on the host: the masks equal; then the
+                transformers backend and the pipeline's SegFormer segmenter on a tiny
+                seeded SegFormer written locally, card against host in fp32.
 
 Every phase prints one JSON line. Any failure raises: the exit code is then not
 0 and no result line is printed. Without a card the script exits with code 1.
@@ -200,6 +223,9 @@ PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 
 NUM_FRAMES, HEIGHT, WIDTH = 17, 424, 800
+# frames of the apps' runs (app, brushnet_apps, test_app, brushnet_test_app, app848):
+# cut from 17 to keep the script inside its time; the samplers' phases keep 17
+APP_FRAMES = 9
 APP_CONFIG = "configs/magicdrive/inference/fullx424x800_stdit3_CogVAE_boxTDS_wCT_xCE_wSST.py"
 TRAIN_CONFIG = "configs/magicdrive/train/stage2_17x224x400.py"
 TRAIN_APP_CONFIG = "configs/magicdrive/train/smoke_tiny.py"
@@ -212,18 +238,20 @@ NUSCENES_CLASSES = ("car", "truck", "construction_vehicle", "bus", "trailer", "b
                     "motorcycle", "bicycle", "pedestrian", "traffic_cone")
 CAMERAS = ("CAM_FRONT_LEFT", "CAM_FRONT", "CAM_FRONT_RIGHT", "CAM_BACK_RIGHT", "CAM_BACK",
            "CAM_BACK_LEFT")
-WCODA_POST = dict(resize=[848, 1600], padding=[0, 52, 0, 0], cut_length=16)
+WCODA_POST = dict(resize=[848, 1600], padding=[0, 52, 0, 0], cut_length=APP_FRAMES - 1)
 L_BOX = 10  # box slots per frame in the synthetic batch
 CAMERA_NEIGHBORS = ((5, 1), (0, 2), (1, 3), (2, 4), (3, 5), (4, 0))
 
 
 def optional_packages():
     """Version of each package outside torch / numpy that the port uses or a later
-    slice may want (image decoding, dataset yamls, map caches, a real T5, video
-    files), or why it does not import; a record, not a gate."""
+    slice may want (image decoding, dataset yamls, map caches, a real T5 or SegFormer,
+    video files), or that the JAX package's host code used and the port does without
+    (scipy, cv2), or that a real HMR2 fitter needs (hmr2); or why it does not import.
+    A record, not a gate."""
     import importlib
     found = {}
-    for name in ("PIL", "yaml", "h5py", "transformers", "imageio"):
+    for name in ("PIL", "yaml", "h5py", "transformers", "imageio", "scipy", "cv2", "hmr2"):
         try:
             found[name] = getattr(importlib.import_module(name), "__version__", "no __version__")
         except Exception as e:  # a record of what the machine has, whatever the error
@@ -241,6 +269,24 @@ def emit(phase, **fields):
     """One phase's JSON line; ``wall_s``: seconds since the script started."""
     print(json.dumps({"phase": phase, **fields, "wall_s": time.time() - STARTED}),
           flush=True)
+
+
+def since_start(timeline, name):
+    """Notes in ``timeline`` the seconds since this process started under ``name``
+    (a rank's timeline: where its time goes beside its steps)."""
+    timeline[name] = time.time() - STARTED
+
+
+def await_go(deadline_s):
+    """In a rank started before its parent is ready for it: waits until the file
+    MDV2_GO_FILE names exists (the parent makes it when its own work on the card is
+    done), so that no timed step of the ranks runs beside that work. Returns at
+    once without MDV2_GO_FILE."""
+    path = os.environ.get("MDV2_GO_FILE")
+    end = time.time() + deadline_s
+    while path and not os.path.exists(path):
+        require(time.time() < end, f"{path} did not appear within {deadline_s} s")
+        time.sleep(0.05)
 
 
 def time_ms(torch, fn, iters):
@@ -1204,11 +1250,15 @@ def sp_rank_worker(torch, out_dir, seed):
     from magicdrive_v2_tpu_torch.parallel.sharding import make_mesh, sp_vae, use_mesh
     from magicdrive_v2_tpu_torch.pipelines.magicdrive import synthetic_batch
     backend = os.environ["MDV2_SP_BACKEND"]
+    timeline = {}
+    since_start(timeline, "imported")
     maybe_initialize("cuda", backend=backend, timeout_s=SP_RANKS_DEADLINE_S)
     rank = dist.get_rank()
+    since_start(timeline, "joined")
     try:
         meshes = {(1, 4): make_mesh(1, 4), (2, 2): make_mesh(2, 2)}
         model = sp_ranks_model(torch, seed, enable_sequence_parallelism=True)
+        since_start(timeline, "model_built")
         outs, launches, k1_shapes, seen_all = {}, {}, {}, no_shapes()
         for name, sp, mesh, (h, w), dt in sp_ranks_cases():
             if dt == "bf16" and model.dtype != torch.bfloat16:
@@ -1233,31 +1283,34 @@ def sp_rank_worker(torch, out_dir, seed):
             del out, batch
         del model
         torch.cuda.empty_cache()
+        since_start(timeline, "forwards_done")
         vae = cogvideox_vae(torch, torch.float32, seed + 1)
         z = torch.randn(SP_VAE_LATENT, generator=torch.Generator().manual_seed(seed)).cuda()
         with torch.no_grad(), no_tf32(torch):
             video = sp_vae(z, vae.decode, meshes[(1, 4)])
         if rank == 0:
             outs["sp_vae"] = video.float().cpu()
+        since_start(timeline, "sp_vae_done")
         torch.save(dict(outputs=outs, launches=launches, k1_shapes=k1_shapes, seen=seen_all,
                         backend=dist.get_backend(), world_size=dist.get_world_size(),
-                        device=str(torch.cuda.current_device())),
+                        device=str(torch.cuda.current_device()), timeline=timeline),
                    os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         shutdown()
     return 0
 
 
-def spawn_sp_ranks(n, out_dir, seed):
-    """Starts ``n`` ranks of this script's sp worker (the port's launcher: it fails,
-    and kills every rank, when one fails or they outlive SP_RANKS_DEADLINE_S).
-    Returns the backend used (``collective_backend``)."""
+def start_sp_ranks(n, out_dir, seed):
+    """Starts ``n`` ranks of this script's sp worker (the port's ``RankGroup``: its
+    ``wait`` fails, and kills every rank, when one fails or they outlive
+    SP_RANKS_DEADLINE_S). Returns (the group, the backend: ``collective_backend``)."""
     import torch
-    from magicdrive_v2_tpu_torch.parallel.distributed import spawn_ranks
+    from magicdrive_v2_tpu_torch.parallel.distributed import RankGroup
     backend, local_ranks = collective_backend(torch, n)
-    spawn_ranks(n, [os.path.abspath(__file__), "--sp-rank-worker", out_dir, "--seed", str(seed)],
-                SP_RANKS_DEADLINE_S, env={"MDV2_SP_BACKEND": backend}, local_ranks=local_ranks)
-    return backend
+    group = RankGroup(n, [os.path.abspath(__file__), "--sp-rank-worker", out_dir, "--seed",
+                          str(seed)], SP_RANKS_DEADLINE_S, env={"MDV2_SP_BACKEND": backend},
+                      local_ranks=local_ranks)
+    return group, backend
 
 
 def run_sp_ranks(torch, seed, encode_launches, held):
@@ -1269,8 +1322,31 @@ def run_sp_ranks(torch, seed, encode_launches, held):
     - unsharded) <= 2**-6 rms(unsharded) + rms(unsharded bf16 - unsharded fp32)).
     Then sp_vae of 6 views over the 4 ranks against the direct decode (fp32). Last,
     every shape a rank handed a wrapper is held against its plain version
-    (``held``: the ``HeldCases`` of phase kernels)."""
-    import numpy as np
+    (``held``: the ``HeldCases`` of phase kernels). The ranks start first and run
+    beside the unsharded forwards, which only their outputs wait for."""
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_sp_ranks_")
+    try:
+        t_start = time.time()
+        group, backend = start_sp_ranks(SP_RANKS, out_dir, seed)
+        try:
+            refs, direct, ref_seconds = sp_ranks_references(torch, seed)
+            group.wait()
+            ranks_seconds = time.time() - t_start
+        finally:
+            group.close()
+        t0 = time.time()
+        res = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+               for r in range(SP_RANKS)]
+        load_seconds = time.time() - t0
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return check_sp_ranks(torch, res, refs, direct, backend, encode_launches, held,
+                          ref_seconds, ranks_seconds, load_seconds)
+
+
+def sp_ranks_references(torch, seed):
+    """The unsharded forwards of phase sp_ranks on the card (keyed (h, w, dtype)),
+    the direct decode, and their seconds."""
     from magicdrive_v2_tpu_torch.models.magicdrive.stdit3 import cast_model
     from magicdrive_v2_tpu_torch.pipelines.magicdrive import synthetic_batch
     refs = {}
@@ -1295,15 +1371,12 @@ def run_sp_ranks(torch, seed, encode_launches, held):
     torch.cuda.synchronize()
     ref_seconds = time.time() - t0
     torch.cuda.empty_cache()
-    out_dir = tempfile.mkdtemp(prefix="chip_smoke_sp_ranks_")
-    try:
-        t0 = time.time()
-        backend = spawn_sp_ranks(SP_RANKS, out_dir, seed)
-        ranks_seconds = time.time() - t0
-        res = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
-               for r in range(SP_RANKS)]
-    finally:
-        shutil.rmtree(out_dir, ignore_errors=True)
+    return refs, direct, ref_seconds
+
+
+def check_sp_ranks(torch, res, refs, direct, backend, encode_launches, held, ref_seconds,
+                   ranks_seconds, load_seconds):
+    """Phase sp_ranks' checks of the ranks' results ``res`` against the references."""
     rms = lambda x: float(x.square().mean().sqrt())  # noqa: E731
     per_forward = expected_launches(xl2_config(torch, torch.float32, depth=2, control_depth=1))
     rows = {}
@@ -1342,7 +1415,8 @@ def run_sp_ranks(torch, seed, encode_launches, held):
         seen["flash_attention"] |= r["seen"]["flash_attention"]
     emit("sp_ranks", backend=backend, world_size=res[0]["world_size"],
          card_of_each_rank=[r["device"] for r in res], reference_seconds=ref_seconds,
-         ranks_seconds=ranks_seconds, depth=2, control_depth=1, frames=SP_RANKS_FRAMES,
+         ranks_seconds=ranks_seconds, rank0_timeline=res[0]["timeline"],
+         results_load_seconds=load_seconds, depth=2, control_depth=1, frames=SP_RANKS_FRAMES,
          results=rows, kernel_cases=held.hold(seen, "sp_ranks"))
     del refs, direct, video
     torch.cuda.empty_cache()
@@ -1782,7 +1856,8 @@ def run_train_app(torch):
 STAGE3_CONFIG = "configs/magicdrive/train/stage3_multires_sp4.py"
 SP_TRAIN_RANKS = 2          # processes of phase sp_train (mesh (1, 2))
 SP_TRAIN_BUCKET = (9, H848, W848)  # 848-1600-12-9, one view group: S = 53 x 100
-SP_TRAIN_STEPS = 2
+# cut from 2 to keep the script in time; dp_train's (2, 2) mesh takes 2 sp steps
+SP_TRAIN_STEPS = 1
 SP_TRAIN_DEADLINE_S = 600
 # params and EMA after the steps, sharded against one process: an element may move
 # apart by at most two opposite AdamW steps a step; beyond an eighth of a step only
@@ -1895,8 +1970,11 @@ def sp_train_worker(torch, out_dir, seed):
                                                               training_mesh)
     from magicdrive_v2_tpu_torch.training import trainer
     backend = os.environ["MDV2_SP_BACKEND"]
+    timeline = {}
+    since_start(timeline, "imported")
     maybe_initialize("cuda", backend=backend, timeout_s=SP_TRAIN_DEADLINE_S)
     rank = dist.get_rank()
+    since_start(timeline, "joined")
     reduce_sp_grads = trainer.reduce_sp_grads
     reduces = []
 
@@ -1918,6 +1996,9 @@ def sp_train_worker(torch, out_dir, seed):
         model_cfg, state, step_fn = small_train_state(torch, cfg, seed, torch.bfloat16,
                                                       SP_TRAIN_BUCKET,
                                                       enable_sequence_parallelism=True)
+        since_start(timeline, "state_built")
+        await_go(SP_TRAIN_DEADLINE_S)
+        since_start(timeline, "go")
 
         def ranks_equal(state):
             if state.step < SP_TRAIN_STEPS:
@@ -1933,8 +2014,9 @@ def sp_train_worker(torch, out_dir, seed):
                                        train_batches(cfg, model_cfg, seed), SP_TRAIN_BUCKET,
                                        SP_TRAIN_STEPS, mesh=mesh, seen=seen,
                                        after_step=ranks_equal)
+        since_start(timeline, "steps_done")
         out = dict(rows=rows, reduces=reduces, seen=seen, backend=dist.get_backend(),
-                   device=str(torch.cuda.current_device()))
+                   device=str(torch.cuda.current_device()), timeline=timeline)
         if rank == 0:
             out.update(grads0=grads0,
                        params={n: p.detach().cpu() for n, p in state.model.named_parameters()},
@@ -1949,50 +2031,60 @@ def sp_train_worker(torch, out_dir, seed):
 def run_sp_train(torch, seed, encode_launches, held):
     """Sequence-parallel training at the 848x1600 bucket of the stage-3 config: XL/2
     at full width, depth 2 / control depth 1, bf16 over fp32 masters, remat full,
-    b=1, 6 views x 9 frames (S=5300, 2650 a rank). Two steps on SP_TRAIN_RANKS
-    processes (gloo on one card, NCCL with a card a rank) against two in one
-    process with force_pad_h_for_sp_size=2 (the same function; S needs no pad).
+    b=1, 6 views x 9 frames (S=5300, 2650 a rank). SP_TRAIN_STEPS steps on
+    SP_TRAIN_RANKS processes (gloo on one card, NCCL with a card a rank) against as
+    many in one process with force_pad_h_for_sp_size=2 (the same function; S needs no pad).
     Held: the loss and grad norm within 2**-6; the first step's grads before the
     clip by phase grads' bf16 rule (rms of the difference within 2**-6 rms plus the
     distance of the one-process bf16 grad from its fp32 one); the parameters and
-    EMA after both steps within two opposite AdamW steps, beyond an eighth of a
+    EMA after the steps within two opposite AdamW steps a step, beyond an eighth of a
     step in at most SP_TRAIN_FLIP_SHARE of the elements; the ranks bit-equal after
     the steps (the CPU tests hold them after every step); each rank's launches and
     backwards those of one unsharded remat step; every shape a rank handed a
     wrapper held against its plain version."""
+    from magicdrive_v2_tpu_torch.parallel.distributed import RankGroup
     from magicdrive_v2_tpu_torch.utils.train_utils import multistep_warmup_schedule
     t_phase = time.time()
     cfg = sp_train_config(torch)
-    ref_rows = {}
-    grads_ref = {}
-    with no_tf32(torch):
-        for dtype, steps in ((torch.float32, 1), (torch.bfloat16, SP_TRAIN_STEPS)):
-            torch.cuda.reset_peak_memory_stats()
-            model_cfg, state, step_fn = small_train_state(torch, cfg, seed, dtype,
-                                                          SP_TRAIN_BUCKET,
-                                                          force_pad_h_for_sp_size=2)
-            ref_rows[dtype], grads_ref[dtype] = train_steps(
-                torch, state, step_fn, train_batches(cfg, model_cfg, seed), SP_TRAIN_BUCKET,
-                steps)
-            if dtype == torch.bfloat16:
-                params_ref = {n: p.detach().cpu() for n, p in state.model.named_parameters()}
-                ema_ref = {n: p.detach().cpu() for n, p in state.ema.named_parameters()}
-                ref_peak = torch.cuda.max_memory_allocated()
-            del state, step_fn
-            torch.cuda.empty_cache()
-    ref_seconds = time.time() - t_phase
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_sp_train_")
     try:
-        t0 = time.time()
-        from magicdrive_v2_tpu_torch.parallel.distributed import spawn_ranks
+        # the ranks start first and wait, their state built, until the one-process
+        # reference below is done (the file ``go``)
         backend, local_ranks = collective_backend(torch, SP_TRAIN_RANKS)
-        spawn_ranks(SP_TRAIN_RANKS, [os.path.abspath(__file__), "--sp-train-worker", out_dir,
-                                     "--seed", str(seed)],
-                    SP_TRAIN_DEADLINE_S, env={"MDV2_SP_BACKEND": backend},
-                    local_ranks=local_ranks)
-        ranks_seconds = time.time() - t0
+        go = os.path.join(out_dir, "go")
+        group = RankGroup(SP_TRAIN_RANKS, [os.path.abspath(__file__), "--sp-train-worker",
+                                           out_dir, "--seed", str(seed)],
+                          SP_TRAIN_DEADLINE_S, env={"MDV2_SP_BACKEND": backend,
+                                                    "MDV2_GO_FILE": go},
+                          local_ranks=local_ranks)
+        try:
+            ref_rows, grads_ref = {}, {}
+            with no_tf32(torch):
+                for dtype, steps in ((torch.float32, 1), (torch.bfloat16, SP_TRAIN_STEPS)):
+                    torch.cuda.reset_peak_memory_stats()
+                    model_cfg, state, step_fn = small_train_state(
+                        torch, cfg, seed, dtype, SP_TRAIN_BUCKET, force_pad_h_for_sp_size=2)
+                    ref_rows[dtype], grads_ref[dtype] = train_steps(
+                        torch, state, step_fn, train_batches(cfg, model_cfg, seed),
+                        SP_TRAIN_BUCKET, steps)
+                    if dtype == torch.bfloat16:
+                        params_ref = {n: p.detach().cpu()
+                                      for n, p in state.model.named_parameters()}
+                        ema_ref = {n: p.detach().cpu() for n, p in state.ema.named_parameters()}
+                        ref_peak = torch.cuda.max_memory_allocated()
+                    del state, step_fn
+                    torch.cuda.empty_cache()
+            ref_seconds = time.time() - t_phase
+            t0 = time.time()
+            open(go, "w").close()
+            group.wait()
+            ranks_seconds = time.time() - t0  # from the go to the ranks' exit
+        finally:
+            group.close()
+        t0 = time.time()
         res = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
                for r in range(SP_TRAIN_RANKS)]
+        load_seconds = time.time() - t0
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     bf16_model_cfg = train_model_config(torch, cfg, torch.bfloat16, depth=2, control_depth=1)
@@ -2057,6 +2149,7 @@ def run_sp_train(torch, seed, encode_launches, held):
          grad_all_reduce=res[0]["reduces"], launches_per_step_rank0=rows0[-1]["launches"],
          backwards_per_step=want_backward, one_process_peak_memory_bytes=ref_peak,
          reference_seconds=ref_seconds, ranks_seconds=ranks_seconds,
+         rank0_timeline=res[0]["timeline"], results_load_seconds=load_seconds,
          kernel_cases=held.hold(seen, "sp_train"), seconds=time.time() - t_phase)
     torch.cuda.empty_cache()
     return {k: sum(row["launches"][k] for row in rows0) for k in per_forward}
@@ -2181,9 +2274,12 @@ def dp_train_worker(torch, out_dir, seed):
     from magicdrive_v2_tpu_torch.parallel.distributed import (maybe_initialize, shutdown,
                                                               training_mesh)
     case = DP_TRAIN_MESHES[os.environ["MDV2_DP_CASE"]]
+    timeline = {}
+    since_start(timeline, "imported")
     maybe_initialize("cuda", backend=os.environ["MDV2_SP_BACKEND"],
                      timeout_s=DP_TRAIN_DEADLINE_S)
     rank = dist.get_rank()
+    since_start(timeline, "joined")
     timed = {"gather": [], "reduce_scatter": [], "all_reduce": []}
     paused = []
     originals = dict(gather=fsdp._gather, reduce_scatter=fsdp._reduce_scatter,
@@ -2226,6 +2322,9 @@ def dp_train_worker(torch, out_dir, seed):
             torch, cfg, seed, torch.bfloat16, case["bucket"], mesh=mesh,
             enable_sequence_parallelism=mesh.sp > 1)
         sharding = state.sharding
+        since_start(timeline, "state_built")
+        await_go(DP_TRAIN_DEADLINE_S)
+        since_start(timeline, "go")
 
         def per_step(state):
             out = {k: dict(calls=len(v), seconds=sum(s for s, _ in v),
@@ -2240,6 +2339,7 @@ def dp_train_worker(torch, out_dir, seed):
                 torch, state, step_fn, train_batches(cfg, model_cfg, seed, mesh.dp_rank),
                 case["bucket"], DP_TRAIN_STEPS, mesh=mesh, seen=seen, after_step=per_step,
                 capture=untimed)
+        since_start(timeline, "steps_done")
         peak = torch.cuda.max_memory_allocated()
         moments = sum(size(v) for st in state.optimizer.adamw.state.values()
                       for k, v in st.items() if k in ("exp_avg", "exp_avg_sq"))
@@ -2258,6 +2358,8 @@ def dp_train_worker(torch, out_dir, seed):
                    local_bytes=local, mesh=[mesh.dp, mesh.sp], dp_row=mesh.dp_rank,
                    blocks_equal_sp_peer=bool(torch.equal(blocks, peer)),
                    split_parameters=len(sharding.sharded))
+        since_start(timeline, "gathered")
+        out["timeline"] = timeline
         if rank == 0:
             out.update(grads0=grads0, params=params, ema=ema)
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
@@ -2284,131 +2386,173 @@ def run_dp_train(torch, seed, encode_launches, held):
     Each rank's bytes of split parameters, EMA and moments at most 1/dp of one
     process's plus the replicated parameters; launches and backwards per rank
     those of one remat step; every shape the ranks handed a wrapper held against
-    its plain version. Returns rank 0's launches over the (2, 1) mesh's steps."""
-    from magicdrive_v2_tpu_torch.parallel.distributed import spawn_ranks
+    its plain version. Returns rank 0's launches over the (2, 1) mesh's steps.
+
+    Both meshes' ranks start first and build their state while this process runs
+    both references; then each mesh's ranks take their steps in turn (the file
+    ``go`` of each), so no timed step runs beside other work on the card."""
+    from magicdrive_v2_tpu_torch.parallel.distributed import RankGroup
+    launches = None
+    groups, out_dirs, refs = {}, {}, {}
+    try:
+        for name, case in DP_TRAIN_MESHES.items():
+            n = case["dp"] * case["sp"]
+            backend, local_ranks = collective_backend(torch, n)
+            out_dirs[name] = tempfile.mkdtemp(prefix="chip_smoke_dp_train_")
+            groups[name] = RankGroup(
+                n, [os.path.abspath(__file__), "--dp-train-worker", out_dirs[name],
+                    "--seed", str(seed)], DP_TRAIN_DEADLINE_S, local_ranks=local_ranks,
+                env={"MDV2_SP_BACKEND": backend, "MDV2_DP_CASE": name,
+                     "MDV2_GO_FILE": os.path.join(out_dirs[name], "go")})
+        for name, case in DP_TRAIN_MESHES.items():
+            refs[name] = dp_train_reference(torch, case, seed)
+        for name, case in DP_TRAIN_MESHES.items():
+            t0 = time.time()
+            open(os.path.join(out_dirs[name], "go"), "w").close()
+            groups[name].wait()
+            ranks_seconds = time.time() - t0  # from the go to the ranks' exit
+            res = [torch.load(os.path.join(out_dirs[name], f"rank{r}.pt"), weights_only=False)
+                   for r in range(case["dp"] * case["sp"])]
+            load_seconds = time.time() - t0 - ranks_seconds
+            shutil.rmtree(out_dirs[name], ignore_errors=True)
+            rows0 = check_dp_train(torch, name, case, res, refs.pop(name), encode_launches,
+                                   held, ranks_seconds, load_seconds)
+            if launches is None:
+                launches = {k: sum(row["launches"][k] for row in rows0)
+                            for k in rows0[0]["launches"]}
+    finally:
+        for name in groups:
+            groups[name].close()
+            shutil.rmtree(out_dirs[name], ignore_errors=True)
+    return launches
+
+
+def dp_train_reference(torch, case, seed):
+    """Phase dp_train's one-process reference for the mesh ``case``: 1 step in fp32
+    and DP_TRAIN_STEPS in bf16 on the global batch; its rows, the first step's grads,
+    the bf16 run's final parameters and EMA, which parameters train, peak memory
+    and seconds."""
+    t_phase = time.time()
+    cfg = dp_train_config(torch, case)
+    dp, sp = case["dp"], case["sp"]
+    pad = {"force_pad_h_for_sp_size": sp} if sp > 1 else {}
+    ref_rows, grads_ref = {}, {}
+    with no_tf32(torch):
+        for dtype, steps in ((torch.float32, 1), (torch.bfloat16, DP_TRAIN_STEPS)):
+            torch.cuda.reset_peak_memory_stats()
+            model_cfg, state, step_fn = small_train_state(torch, cfg, seed, dtype,
+                                                          case["bucket"], **pad)
+            ref_rows[dtype], grads_ref[dtype] = train_steps(
+                torch, state, step_fn, global_batches(cfg, model_cfg, seed, dp),
+                case["bucket"], steps)
+            if dtype == torch.bfloat16:
+                params_ref = {n: p.detach().cpu() for n, p in state.model.named_parameters()}
+                ema_ref = {n: p.detach().cpu() for n, p in state.ema.named_parameters()}
+                trainable = {n: p.requires_grad for n, p in state.model.named_parameters()}
+                ref_peak = torch.cuda.max_memory_allocated()
+            del state, step_fn
+            torch.cuda.empty_cache()
+    return dict(rows=ref_rows, grads=grads_ref, params=params_ref, ema=ema_ref,
+                trainable=trainable, peak=ref_peak, seconds=time.time() - t_phase)
+
+
+def check_dp_train(torch, name, case, res, ref_run, encode_launches, held, ranks_seconds,
+                   load_seconds):
+    """Phase dp_train's checks of the ranks' results ``res`` of the mesh ``case``
+    against its one-process reference ``ref_run``; emits the mesh's line and
+    returns rank 0's rows."""
     from magicdrive_v2_tpu_torch.parallel.fsdp import param_spec
     from magicdrive_v2_tpu_torch.utils.train_utils import multistep_warmup_schedule
-    launches = None
-    for name, case in DP_TRAIN_MESHES.items():
-        t_phase = time.time()
-        cfg = dp_train_config(torch, case)
-        dp, sp = case["dp"], case["sp"]
-        pad = {"force_pad_h_for_sp_size": sp} if sp > 1 else {}
-        ref_rows, grads_ref = {}, {}
-        with no_tf32(torch):
-            for dtype, steps in ((torch.float32, 1), (torch.bfloat16, DP_TRAIN_STEPS)):
-                torch.cuda.reset_peak_memory_stats()
-                model_cfg, state, step_fn = small_train_state(torch, cfg, seed, dtype,
-                                                              case["bucket"], **pad)
-                ref_rows[dtype], grads_ref[dtype] = train_steps(
-                    torch, state, step_fn, global_batches(cfg, model_cfg, seed, dp),
-                    case["bucket"], steps)
-                if dtype == torch.bfloat16:
-                    params_ref = {n: p.detach().cpu() for n, p in state.model.named_parameters()}
-                    ema_ref = {n: p.detach().cpu() for n, p in state.ema.named_parameters()}
-                    trainable = {n: p.requires_grad for n, p in state.model.named_parameters()}
-                    ref_peak = torch.cuda.max_memory_allocated()
-                del state, step_fn
-                torch.cuda.empty_cache()
-        ref_seconds = time.time() - t_phase
-        n = dp * sp
-        backend, local_ranks = collective_backend(torch, n)
-        out_dir = tempfile.mkdtemp(prefix="chip_smoke_dp_train_")
-        try:
-            t0 = time.time()
-            spawn_ranks(n, [os.path.abspath(__file__), "--dp-train-worker", out_dir,
-                            "--seed", str(seed)], DP_TRAIN_DEADLINE_S,
-                        env={"MDV2_SP_BACKEND": backend, "MDV2_DP_CASE": name},
-                        local_ranks=local_ranks)
-            ranks_seconds = time.time() - t0
-            res = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
-                   for r in range(n)]
-        finally:
-            shutil.rmtree(out_dir, ignore_errors=True)
-        bf16_model_cfg = train_model_config(torch, cfg, torch.bfloat16, depth=2,
-                                            control_depth=1)
-        per_forward = expected_launches(bf16_model_cfg, x_mask=True)
-        want = {k: 2 * per_forward[k] + encode_launches[k] for k in per_forward}
-        want_backward = {k: per_forward[k] + encode_launches[k] for k in per_forward}
-        for r in res:
-            require(r["mesh"] == [dp, sp] and r["blocks_equal_sp_peer"], (r["mesh"], name))
-            for row in r["rows"]:
-                require(row["launches"] == want and row["backwards"] == want_backward,
-                        (name, row["launches"], want, row["backwards"], want_backward))
-        rows0, ref = res[0]["rows"], ref_rows[torch.bfloat16]
-        metrics = []
-        for got, one in zip(rows0, ref):
-            for k in ("loss", "grad_norm"):
-                err = abs(got[k] - one[k])
-                require(math.isfinite(got[k]) and err <= 2.0 ** -6 * abs(one[k]),
-                        (name, k, got, one))
-            metrics.append(dict(loss=got["loss"], loss_one_process=one["loss"],
-                                grad_norm=got["grad_norm"],
-                                grad_norm_one_process=one["grad_norm"]))
-        worst, with_grad, roundings = compare_grads(torch, res[0]["grads0"],
-                                                    grads_ref[torch.bfloat16],
-                                                    grads_ref[torch.float32])
-        require(worst[0] <= 1.0 and with_grad > 0, (name, worst))
-        lrs = [multistep_warmup_schedule(cfg.lr)(i) for i in range(DP_TRAIN_STEPS)]
-        flip = 2 * sum(lrs) * (1 + cfg.weight_decay)
-        agreement = {}
-        for key, got, one, scale in (("params", res[0]["params"], params_ref, 1.0),
-                                     ("ema", res[0]["ema"], ema_ref, 1 - cfg.ema_decay ** 2)):
-            worst_abs, beyond, total = 0.0, 0, 0
-            for pname, p in one.items():
-                err = (got[pname] - p).abs()
-                worst_abs = max(worst_abs, float(err.max()))
-                beyond += int((err > scale * sum(lrs) / 8).sum())
-                total += err.numel()
-            agreement[key] = dict(max_abs_err=worst_abs, limit=scale * flip,
-                                  share_beyond_eighth_step=beyond / total)
-            require(worst_abs <= scale * flip and beyond / total <= SP_TRAIN_FLIP_SHARE,
-                    (name, key, agreement[key]))
-        # one process's state against each rank's blocks
-        split = {k: param_spec(tuple(p.shape), dp) is not None for k, p in params_ref.items()}
-        one_params = sum(p.numel() * 4 for p in params_ref.values())
-        one_moments = 2 * sum(p.numel() * 4 for k, p in params_ref.items() if trainable[k])
-        repl = sum(p.numel() * 4 for k, p in params_ref.items() if not split[k])
-        shards = []
-        for r in res:
-            lb = r["local_bytes"]
-            local_params = sum(lb["params"])
-            require(lb["params"][1] == repl and lb["ema"] == lb["params"]
-                    and local_params <= (one_params - repl) / dp + repl
-                    and lb["moments"] <= (one_moments - 2 * repl) / dp + 2 * repl,
-                    (name, lb, one_params, one_moments, repl))
-            shards.append(dict(dp_row=r["dp_row"], params_split=lb["params"][0],
-                               params_replicated=lb["params"][1], ema=sum(lb["ema"]),
-                               moments=lb["moments"], peak_memory_bytes=r["peak_memory_bytes"]))
-        seen = no_shapes()
-        for r in res:
-            for k, perm in r["seen"]["fused_qkv_attention"].items():
-                seen["fused_qkv_attention"].setdefault(k, perm)
-            seen["adaln_modulate"] |= r["seen"]["adaln_modulate"]
-            seen["flash_attention"] |= r["seen"]["flash_attention"]
-        nf, h, w = case["bucket"]
-        emit("dp_train", mesh=[dp, sp], config=TRAIN_CONFIG, bucket=f"{h}-{w}-12-{nf}",
-             rows_per_dp_row=case["rows"], global_batch=dp * case["rows"], depth=2,
-             control_depth=1, dtype="bfloat16 compute, float32 masters", remat="full",
-             backend=res[0]["backend"], card_of_each_rank=[r["device"] for r in res],
-             split_parameters=res[0]["split_parameters"], metrics=metrics,
-             grads_worst_ratio_to_limit=worst[0], grads_worst_tensor=worst[1],
-             tensors_with_grad=with_grad,
-             bf16_rounding_rms_ratio_max=max(roundings) if roundings else None,
-             after_steps=agreement,
-             one_process_bytes=dict(params=one_params, moments=one_moments, ema=one_params,
-                                    replicated_params=repl),
-             each_rank=shards, one_process_peak_memory_bytes=ref_peak,
-             seconds_per_step_rank0=[row["seconds"] for row in rows0],
-             seconds_per_step_one_process=[row["seconds"] for row in ref],
-             collectives_per_step_rank0=[row["collectives"] for row in rows0],
-             launches_per_step_rank0=rows0[-1]["launches"], backwards_per_step=want_backward,
-             reference_seconds=ref_seconds, ranks_seconds=ranks_seconds,
-             kernel_cases=held.hold(seen, f"dp_train_{name}"), seconds=time.time() - t_phase)
-        if launches is None:
-            launches = {k: sum(row["launches"][k] for row in rows0) for k in per_forward}
-        torch.cuda.empty_cache()
-    return launches
+    t_phase = time.time()
+    cfg = dp_train_config(torch, case)
+    dp, sp = case["dp"], case["sp"]
+    ref_rows, grads_ref = ref_run["rows"], ref_run["grads"]
+    params_ref, ema_ref, trainable = ref_run["params"], ref_run["ema"], ref_run["trainable"]
+    ref_peak, ref_seconds = ref_run["peak"], ref_run["seconds"]
+    bf16_model_cfg = train_model_config(torch, cfg, torch.bfloat16, depth=2,
+                                        control_depth=1)
+    per_forward = expected_launches(bf16_model_cfg, x_mask=True)
+    want = {k: 2 * per_forward[k] + encode_launches[k] for k in per_forward}
+    want_backward = {k: per_forward[k] + encode_launches[k] for k in per_forward}
+    for r in res:
+        require(r["mesh"] == [dp, sp] and r["blocks_equal_sp_peer"], (r["mesh"], name))
+        for row in r["rows"]:
+            require(row["launches"] == want and row["backwards"] == want_backward,
+                    (name, row["launches"], want, row["backwards"], want_backward))
+    rows0, ref = res[0]["rows"], ref_rows[torch.bfloat16]
+    metrics = []
+    for got, one in zip(rows0, ref):
+        for k in ("loss", "grad_norm"):
+            err = abs(got[k] - one[k])
+            require(math.isfinite(got[k]) and err <= 2.0 ** -6 * abs(one[k]),
+                    (name, k, got, one))
+        metrics.append(dict(loss=got["loss"], loss_one_process=one["loss"],
+                            grad_norm=got["grad_norm"],
+                            grad_norm_one_process=one["grad_norm"]))
+    worst, with_grad, roundings = compare_grads(torch, res[0]["grads0"],
+                                                grads_ref[torch.bfloat16],
+                                                grads_ref[torch.float32])
+    require(worst[0] <= 1.0 and with_grad > 0, (name, worst))
+    lrs = [multistep_warmup_schedule(cfg.lr)(i) for i in range(DP_TRAIN_STEPS)]
+    flip = 2 * sum(lrs) * (1 + cfg.weight_decay)
+    agreement = {}
+    for key, got, one, scale in (("params", res[0]["params"], params_ref, 1.0),
+                                 ("ema", res[0]["ema"], ema_ref, 1 - cfg.ema_decay ** 2)):
+        worst_abs, beyond, total = 0.0, 0, 0
+        for pname, p in one.items():
+            err = (got[pname] - p).abs()
+            worst_abs = max(worst_abs, float(err.max()))
+            beyond += int((err > scale * sum(lrs) / 8).sum())
+            total += err.numel()
+        agreement[key] = dict(max_abs_err=worst_abs, limit=scale * flip,
+                              share_beyond_eighth_step=beyond / total)
+        require(worst_abs <= scale * flip and beyond / total <= SP_TRAIN_FLIP_SHARE,
+                (name, key, agreement[key]))
+    # one process's state against each rank's blocks
+    split = {k: param_spec(tuple(p.shape), dp) is not None for k, p in params_ref.items()}
+    one_params = sum(p.numel() * 4 for p in params_ref.values())
+    one_moments = 2 * sum(p.numel() * 4 for k, p in params_ref.items() if trainable[k])
+    repl = sum(p.numel() * 4 for k, p in params_ref.items() if not split[k])
+    shards = []
+    for r in res:
+        lb = r["local_bytes"]
+        local_params = sum(lb["params"])
+        require(lb["params"][1] == repl and lb["ema"] == lb["params"]
+                and local_params <= (one_params - repl) / dp + repl
+                and lb["moments"] <= (one_moments - 2 * repl) / dp + 2 * repl,
+                (name, lb, one_params, one_moments, repl))
+        shards.append(dict(dp_row=r["dp_row"], params_split=lb["params"][0],
+                           params_replicated=lb["params"][1], ema=sum(lb["ema"]),
+                           moments=lb["moments"], peak_memory_bytes=r["peak_memory_bytes"]))
+    seen = no_shapes()
+    for r in res:
+        for k, perm in r["seen"]["fused_qkv_attention"].items():
+            seen["fused_qkv_attention"].setdefault(k, perm)
+        seen["adaln_modulate"] |= r["seen"]["adaln_modulate"]
+        seen["flash_attention"] |= r["seen"]["flash_attention"]
+    nf, h, w = case["bucket"]
+    emit("dp_train", mesh=[dp, sp], config=TRAIN_CONFIG, bucket=f"{h}-{w}-12-{nf}",
+         rows_per_dp_row=case["rows"], global_batch=dp * case["rows"], depth=2,
+         control_depth=1, dtype="bfloat16 compute, float32 masters", remat="full",
+         backend=res[0]["backend"], card_of_each_rank=[r["device"] for r in res],
+         split_parameters=res[0]["split_parameters"], metrics=metrics,
+         grads_worst_ratio_to_limit=worst[0], grads_worst_tensor=worst[1],
+         tensors_with_grad=with_grad,
+         bf16_rounding_rms_ratio_max=max(roundings) if roundings else None,
+         after_steps=agreement,
+         one_process_bytes=dict(params=one_params, moments=one_moments, ema=one_params,
+                                replicated_params=repl),
+         each_rank=shards, one_process_peak_memory_bytes=ref_peak,
+         seconds_per_step_rank0=[row["seconds"] for row in rows0],
+         seconds_per_step_one_process=[row["seconds"] for row in ref],
+         collectives_per_step_rank0=[row["collectives"] for row in rows0],
+         launches_per_step_rank0=rows0[-1]["launches"], backwards_per_step=want_backward,
+         reference_seconds=ref_seconds, ranks_seconds=ranks_seconds,
+         rank0_timeline=res[0]["timeline"], results_load_seconds=load_seconds,
+         kernel_cases=held.hold(seen, f"dp_train_{name}"),
+         seconds=ref_seconds + ranks_seconds + load_seconds + time.time() - t_phase)
+    torch.cuda.empty_cache()
+    return rows0
 
 
 def dp_app_worker(torch, out_dir):
@@ -2650,8 +2794,8 @@ def run_decode_vs_cpu(torch, seed):
 
 
 def run_app(torch, per_forward, encode_launches):
-    """The inference app on the 424x800 config, synthetic conditioning, 17 frames,
-    2 steps; its frames are written under outputs/ in the checkout, read back, and
+    """The inference app on the 424x800 config, synthetic conditioning, APP_FRAMES
+    frames, 2 steps; its frames are written under outputs/ in the checkout, read back, and
     removed."""
     from magicdrive_v2_tpu_torch.scripts import inference_magicdrive
     from magicdrive_v2_tpu_torch.utils.inference_utils import read_png
@@ -2660,7 +2804,7 @@ def run_app(torch, per_forward, encode_launches):
     t0 = time.time()
     reset_counters()
     saved = inference_magicdrive.main(
-        [APP_CONFIG, "--synthetic", "--num-frames", str(NUM_FRAMES), "--num-samples", "1",
+        [APP_CONFIG, "--synthetic", "--num-frames", str(APP_FRAMES), "--num-samples", "1",
          "--cfg-options", "scheduler.num_sampling_steps=2", f"outputs={out_dir}"])
     got = read_counters()
     seconds = time.time() - t0
@@ -2669,8 +2813,8 @@ def run_app(torch, per_forward, encode_launches):
     require(len(saved) == 1, len(saved))
     path, frames = saved[0]
     names = sorted(os.listdir(path))
-    require(names == [f"{i:04d}.png" for i in range(NUM_FRAMES)], names)
-    require(frames.shape == (NUM_FRAMES, 2 * HEIGHT, 3 * WIDTH, 3), frames.shape)
+    require(names == [f"{i:04d}.png" for i in range(APP_FRAMES)], names)
+    require(frames.shape == (APP_FRAMES, 2 * HEIGHT, 3 * WIDTH, 3), frames.shape)
     for i, name in enumerate(names):
         require(bool((read_png(os.path.join(path, name)) == frames[i]).all()), name)
     require(float(frames.std()) > 1.0, "constant frames")
@@ -2773,10 +2917,24 @@ def dataset_config(yaml_name, ann, split, collate=None):
     return cfg.dataset
 
 
+class FirstClips:
+    """The first ``n`` clips of ``dataset``: a loader over it holds one batch of
+    ``n``, so it loads no batch ahead that nobody takes."""
+
+    def __init__(self, dataset, n):
+        self.dataset, self.n = dataset, n
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        return self.dataset[i]
+
+
 def run_dataset(torch, root):
     """Writes the set, then per pipeline (224x400 train split, 424x800 val split, 17
-    frames): ms of two clips on one thread, and of batches of 4 through the loader
-    with its worker threads; then the BEV object layers and aux channels (the
+    frames): ms of one clip on one thread, and of one batch of 4 through the loader
+    with its worker threads (each cut from two to keep the script inside its time); then the BEV object layers and aux channels (the
     polygon fill) of one frame, and which fill ran."""
     import numpy as np
     from magicdrive_v2_tpu_torch import native
@@ -2796,14 +2954,14 @@ def run_dataset(torch, root):
             "all-xyz", is_train=is_train)).data[split], video_length=NUM_FRAMES)
         dataset = build_module(ds_cfg, DATASETS)
         clip_ms = []
-        for i in range(2):
-            t1 = time.time()
-            clip = dataset[i]
-            clip_ms.append((time.time() - t1) * 1e3)
+        t1 = time.time()
+        clip = dataset[0]
+        clip_ms.append((time.time() - t1) * 1e3)
         require(clip["pixel_values"].shape == (NUM_FRAMES, 6, 3) + shape,
                 clip["pixel_values"].shape)
         require(bool(np.isfinite(clip["pixel_values"]).all()), "clip pixels not finite")
-        loader, _ = prepare_dataloader(dataset, batch_size=4, num_workers=4, seed=0)
+        loader, _ = prepare_dataloader(FirstClips(dataset, 4), batch_size=4, num_workers=4,
+                                       seed=0)
         batch_ms, t1 = [], time.time()
         for bi, batch in enumerate(loader):
             now = time.time()
@@ -2811,8 +2969,7 @@ def run_dataset(torch, root):
             t1 = now
             require(batch["pixel_values"].shape[:2] == (4, NUM_FRAMES),
                     batch["pixel_values"].shape)
-            if bi == 1:
-                break
+            break
         pipelines[name] = dict(clips=len(dataset), clip_ms=clip_ms,
                                batch_of_4_ms=batch_ms, map_shape=list(
                                    clip["bev_map_with_aux"].shape[1:]),
@@ -2852,8 +3009,8 @@ def run_test_app(torch, per_forward, encode_launches, ann, root, base_config=APP
                  save_mode="all-in-one", seen=None):
     """The W-CODA test app on the config ``base_config`` with a dataset on the
     generated set through ``data_yaml``, ``extra_argv`` added to its command line;
-    its frames are written under outputs/ in the checkout in ``save_mode``, read
-    back and removed. TEST_APP_STEPS steps, two forwards a step under the config's
+    its frames (APP_FRAMES, cut to one less) are written under outputs/ in the
+    checkout in ``save_mode``, read back and removed. TEST_APP_STEPS steps, two forwards a step under the config's
     rflow-slice. With
     ``seen``, the shapes each wrapper was handed are noted there."""
     from magicdrive_v2_tpu_torch.config.presets import img_collate_param
@@ -2863,7 +3020,7 @@ def run_test_app(torch, per_forward, encode_launches, ann, root, base_config=APP
     shutil.rmtree(out_dir, ignore_errors=True)
     config = os.path.join(root, f"{phase}_config.py")
     write_config(config, {
-        "_base_": os.path.abspath(base_config), "num_frames": NUM_FRAMES,
+        "_base_": os.path.abspath(base_config), "num_frames": APP_FRAMES,
         "validation_index": [0], "outputs": out_dir, "save_mode": save_mode,
         "post": WCODA_POST, "scheduler": {"num_sampling_steps": TEST_APP_STEPS},
         "dataset": dict(dataset_config(data_yaml, ann, "val",
@@ -3321,8 +3478,8 @@ def read_back(saved, n_frames, shape):
 
 def run_brushnet_apps(torch, sde_per_forward, base_per_forward, encode_launches):
     """The BrushNet app (``--synthetic --sde``) and the repaint app (``--synthetic``)
-    on their 424x800 configs, 17 frames, 2 steps; launch counters and the frames
-    read back."""
+    on their 424x800 configs, APP_FRAMES frames, 2 steps; launch counters and the
+    frames read back."""
     from magicdrive_v2_tpu_torch.scripts import (inference_magicdrive_brushnet,
                                                  inference_magicdrive_repaint)
     rows = {}
@@ -3335,18 +3492,18 @@ def run_brushnet_apps(torch, sde_per_forward, base_per_forward, encode_launches)
         shutil.rmtree(out_dir, ignore_errors=True)
         reset_counters()
         t0 = time.time()
-        saved = app.main([config, "--synthetic", "--num-frames", str(NUM_FRAMES),
+        saved = app.main([config, "--synthetic", "--num-frames", str(APP_FRAMES),
                           "--num-samples", "1", *argv, "--cfg-options",
                           "scheduler.num_sampling_steps=2", f"outputs={out_dir}"])
         seconds = time.time() - t0
         got = read_counters()
         require(got == want, (name, got, want))
-        nbytes = read_back(saved, NUM_FRAMES, (2 * HEIGHT, 3 * WIDTH, 3))
+        nbytes = read_back(saved, APP_FRAMES, (2 * HEIGHT, 3 * WIDTH, 3))
         shutil.rmtree(out_dir, ignore_errors=True)
         rows[name] = dict(config=config, argv=argv, steps=2, seconds=seconds, png_bytes=nbytes,
                           launches=got)
         torch.cuda.empty_cache()
-    emit("brushnet_apps", frames=NUM_FRAMES, frame_shape=[2 * HEIGHT, 3 * WIDTH, 3], apps=rows)
+    emit("brushnet_apps", frames=APP_FRAMES, frame_shape=[2 * HEIGHT, 3 * WIDTH, 3], apps=rows)
 
 
 # ---------------------------------------------------------------------------
@@ -3741,6 +3898,312 @@ def run_brushnet_train_app(torch):
     emit("brushnet_train_app", config=BRUSH_TRAIN_APP_CONFIG, steps=[1, 2], runs=rows)
 
 
+# the pedestrian phase's scene: a 6-camera rig at nuScenes' yaws (degrees, positive to
+# the left of the front camera) and image size, f=1266, the principal point at the
+# centre; 4 pedestrians over PED_FRAMES frames (1 s at 12 Hz)
+PED_FRAMES, PED_H, PED_W, PED_FOCAL = 12, 900, 1600, 1266.0
+PED_CAMERA_YAWS = (("CAM_FRONT", 0.0), ("CAM_FRONT_LEFT", 55.0), ("CAM_FRONT_RIGHT", -55.0),
+                   ("CAM_BACK", 180.0), ("CAM_BACK_LEFT", 110.0), ("CAM_BACK_RIGHT", -110.0))
+# (start, step a frame) of each pedestrian's centre, world frame = the front camera's
+# axes (x right, y down, z ahead): two overlap in CAM_FRONT, one is seen by CAM_FRONT
+# and CAM_FRONT_LEFT, one by CAM_BACK
+PED_WALKS = {"front_near": ((-0.8, 0.1, 6.0), (0.1, 0.0, 0.0)),
+             "front_far": ((0.6, 0.1, 8.5), (-0.1, 0.0, 0.0)),
+             "front_left": ((-3.5, 0.1, 6.06), (0.05, 0.0, 0.02)),
+             "back": ((2.39, 0.1, -6.58), (-0.05, 0.0, 0.0))}
+MASK_IMAGES = 12  # JPEGs of phase extract_masks
+
+
+def write_smpl_layout_model(path, seed):
+    """A model in the SMPL pickle's v1.0 layout (v_template, f, shapedirs, posedirs,
+    J_regressor, weights, kintree_table) at SMPL's sizes: the capsule template of 106
+    rings x 65 segments (6890 vertices, 13,650 faces), 24 joints each regressed from
+    12 vertices, each vertex skinned to 4 joints, 10 betas and 207 pose directions of
+    seeded small values."""
+    import pickle
+
+    import numpy as np
+
+    from magicdrive_v2_tpu_torch.pedestrian.processor import _capsule_body
+    from magicdrive_v2_tpu_torch.pedestrian.smpl import (NUM_BETAS, NUM_JOINTS,
+                                                         NUM_POSE_BASIS, SMPL_PARENTS)
+    rng = np.random.default_rng(seed)
+    v_template, faces = _capsule_body(106, 65)
+    n = len(v_template)
+    J_regressor = np.zeros((NUM_JOINTS, n))
+    for j in range(NUM_JOINTS):
+        J_regressor[j, rng.choice(n, 12, replace=False)] = 1.0 / 12
+    weights = np.zeros((n, NUM_JOINTS))
+    joints = np.argsort(rng.random((n, NUM_JOINTS)), axis=1)[:, :4]
+    weights[np.arange(n)[:, None], joints] = rng.dirichlet(np.ones(4), n)
+    kintree = np.stack([SMPL_PARENTS.astype(np.int64), np.arange(NUM_JOINTS)])
+    kintree[0, 0] = 2 ** 32 - 1  # as the real file stores the root's parent
+    model = dict(v_template=v_template.astype(np.float64), f=faces.astype(np.int64),
+                 shapedirs=rng.standard_normal((n, 3, NUM_BETAS)) * 0.01,
+                 posedirs=rng.standard_normal((n, 3, NUM_POSE_BASIS)) * 0.001,
+                 J_regressor=J_regressor, weights=weights, kintree_table=kintree)
+    with open(path, "wb") as f:
+        pickle.dump(model, f, protocol=2)
+    return n, len(faces)
+
+
+def pedestrian_scene(torch, processor, n_frames=PED_FRAMES):
+    """The synthetic scene of phase pedestrian, built as the app's
+    ``build_synthetic_scene`` builds its own: each camera's image renders every
+    pedestrian in front of it with the known texture (normalised template xyz) at
+    identity rotation in that camera, z-merged, on ``processor``'s device; each frame
+    lists every pedestrian's box (0.7 x 0.7 x the body's height, in the world frame).
+    Returns (frames, gt_tex) with host images."""
+    import numpy as np
+
+    from magicdrive_v2_tpu_torch.utils.misc import to_host
+    dev = processor.device
+    tv = to_host(processor.body.v_template)
+    gt_tex = (tv - tv.min(0)) / (np.ptp(tv, 0) + 1e-6)
+    K = np.array([[PED_FOCAL, 0, PED_W / 2], [0, PED_FOCAL, PED_H / 2], [0, 0, 1]])
+    K4 = np.eye(4)
+    K4[:3, :3] = K
+    c2ws = {}
+    for name, yaw in PED_CAMERA_YAWS:
+        a = math.radians(yaw)
+        c2w = np.eye(4)
+        c2w[:3, :3] = [[math.cos(a), 0, -math.sin(a)], [0, 1, 0], [math.sin(a), 0, math.cos(a)]]
+        c2w[:3, 3] = 0.5 * c2w[:3, 2]  # on a ring of 0.5 m, looking out
+        c2ws[name] = c2w
+    frames = []
+    for f in range(n_frames):
+        at = {tok: np.asarray(start) + f * np.asarray(step)
+              for tok, (start, step) in PED_WALKS.items()}
+        frame = {"cams": {}, "peds": [], "timestamp": f / 12.0}
+        for name, c2w in c2ws.items():
+            w2c = np.linalg.inv(c2w)
+            canvas = torch.zeros((PED_H, PED_W, 3), dtype=torch.uint8, device=dev)
+            zbuf = torch.full((PED_H, PED_W), float("inf"), device=dev)
+            for pos in at.values():
+                pos_cam = (w2c @ np.append(pos, 1.0))[:3]
+                if pos_cam[2] < 1.0:
+                    continue
+                u = PED_FOCAL * pos_cam[0] / pos_cam[2] + PED_W / 2
+                v = PED_FOCAL * pos_cam[1] / pos_cam[2] + PED_H / 2
+                size = PED_FOCAL * 2.0 / pos_cam[2] / 0.8
+                if not (-size < u < PED_W + size and -size < v < PED_H + size):
+                    continue
+                s = 255.0 / size  # the region around it, as pass 2 frames a body
+                tform = np.array([[s, 0, -(u - size / 2) * s], [0, s, -(v - size / 2) * s]])
+                render, mask, depth = processor.render_colored_mesh(
+                    dict(vertices=tv[None], cam_t=pos_cam[None], pos_cam=pos_cam,
+                         crop_info={"tform": tform}), gt_tex, (PED_H, PED_W), intrinsics=K)
+                closer = mask & (depth < zbuf)
+                canvas = torch.where(closer[..., None], render, canvas)
+                zbuf = torch.where(closer, depth, zbuf)
+            frame["cams"][name] = dict(image=to_host(canvas), lidar2img=(K4 @ w2c)[:3],
+                                       c2w=c2w, K=K)
+        body_h = float(np.ptp(tv[:, 2]))
+        for tok, pos in at.items():
+            frame["peds"].append((np.array([*pos, 0.7, 0.7, body_h, 0.0]), tok, pos.copy()))
+        frames.append(frame)
+    return frames, gt_tex
+
+
+@contextlib.contextmanager
+def pedestrian_stage_seconds(torch, sync):
+    """Seconds spent in each stage of ``run_scene`` (pass 1, smoothing, inpainting,
+    pass 2), in the host rasterizer (both passes) and writing PNGs, summed over the
+    calls made meanwhile; with ``sync`` the card is synchronised around each."""
+    from magicdrive_v2_tpu_torch.pedestrian import processor as processor_module
+    from magicdrive_v2_tpu_torch.scripts import pipeline_12hz as app
+    points = ((app, "harvest_textures", "pass1"), (app, "smooth_poses", "smoothing"),
+              (app, "inpaint_textures", "inpaint"), (app, "render_frames", "pass2"),
+              (processor_module, "rasterize_mesh", "rasterizer"), (app, "_imwrite", "png_write"))
+    seconds = {key: 0.0 for _, _, key in points}
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in points]
+
+    def timed(fn, key):
+        def call(*args, **kwargs):
+            if sync:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            if sync:
+                torch.cuda.synchronize()
+            seconds[key] += time.perf_counter() - t0
+            return out
+        return call
+
+    for (mod, name, key), (_, _, fn) in zip(points, saved):
+        setattr(mod, name, timed(fn, key))
+    try:
+        yield seconds
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def read_pngs(directory):
+    import numpy as np
+    from PIL import Image
+    out = {}
+    for name in sorted(os.listdir(directory)):
+        with Image.open(os.path.join(directory, name)) as im:
+            out[name] = np.asarray(im)
+    return out
+
+
+def run_scene_timed(torch, processor, frames, out_dir):
+    """``run_scene`` with its stages timed; (n, textures, PNG arrays, seconds)."""
+    from magicdrive_v2_tpu_torch.scripts import pipeline_12hz
+    sync = processor.device.type == "cuda"
+    with pedestrian_stage_seconds(torch, sync) as seconds:
+        if sync:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n, textures = pipeline_12hz.run_scene(processor, frames, out_dir)
+        if sync:
+            torch.cuda.synchronize()
+        seconds = dict(seconds, run_scene=time.perf_counter() - t0)
+    seconds["rasterizer_share"] = seconds["rasterizer"] / seconds["run_scene"]
+    return n, textures, read_pngs(out_dir), seconds
+
+
+def run_pedestrian(torch, seed):
+    """Phase pedestrian: the SMPL pedestrian pipeline at full size on the card (see
+    the module docstring); the scene is made on the card, the CPU run of the port is
+    the reference."""
+    import numpy as np
+
+    from magicdrive_v2_tpu_torch.pedestrian.smpl import make_real_processor
+    root = tempfile.mkdtemp(prefix="chip_smoke_pedestrian_")
+    try:
+        model_path = os.path.join(root, "smpl_layout_v1.0.pkl")
+        n_verts, n_faces = write_smpl_layout_model(model_path, seed)
+        t0 = time.perf_counter()
+        processor = make_real_processor(model_path, device="cuda")
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        frames, gt_tex = pedestrian_scene(torch, processor)
+        scene_s = time.perf_counter() - t0
+        runs = []
+        torch.cuda.reset_peak_memory_stats()
+        before_gb = torch.cuda.memory_allocated() / 1e9  # the model, and earlier phases'
+        for i in range(2):
+            runs.append(run_scene_timed(torch, processor, frames, os.path.join(root, f"card{i}")))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        n, textures, pngs, _ = runs[0]
+        require(n > 0 and len(pngs) == 2 * n, (n, len(pngs)))
+        require(sorted(textures) == sorted(PED_WALKS), sorted(textures))
+        tex_err = {tok: float(np.abs(tex - gt_tex).mean()) for tok, tex in textures.items()}
+        require(all(e < 0.25 for e in tex_err.values()), tex_err)
+        mask_px = {k: int((v > 0).sum()) for k, v in pngs.items() if k.endswith("_mask.png")}
+        require(all(px > 0 for px in mask_px.values()), mask_px)
+        # a rerun on the card is bit-equal
+        require(runs[1][0] == n and sorted(runs[1][2]) == sorted(pngs), runs[1][0])
+        require(all(np.array_equal(textures[t], runs[1][1][t]) for t in textures), "textures")
+        require(all(np.array_equal(pngs[k], runs[1][2][k]) for k in pngs), "rerun PNGs")
+        # the port on the host: the same counts, textures within 1e-5, PNGs within
+        # 0.1 % of pixels
+        cpu_processor = make_real_processor(model_path, device="cpu")
+        n_cpu, tex_cpu, pngs_cpu, cpu_seconds = run_scene_timed(
+            torch, cpu_processor, frames, os.path.join(root, "cpu"))
+        require(n_cpu == n and sorted(pngs_cpu) == sorted(pngs), (n_cpu, n))
+        tex_diff = max(float(np.abs(textures[t] - tex_cpu[t]).max()) for t in textures)
+        require(tex_diff <= 1e-5, tex_diff)
+        px_diff = {}
+        for k, v in pngs.items():
+            differ = v != pngs_cpu[k]
+            px_diff[k] = float((differ.any(-1) if differ.ndim == 3 else differ).mean())
+        require(max(px_diff.values()) <= 1e-3, px_diff)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit("pedestrian", cameras=[c for c, _ in PED_CAMERA_YAWS], image_hw=[PED_H, PED_W],
+         frames=PED_FRAMES, pedestrians=len(PED_WALKS), body=dict(vertices=n_verts,
+                                                                  faces=n_faces, joints=24),
+         pairs_written=n, texture_error_vs_gt=tex_err,
+         mask_pixels=dict(masks=len(mask_px), least=min(mask_px.values()),
+                          most=max(mask_px.values())),
+         setup_s=setup_s, scene_build_s=scene_s,
+         card_seconds=[r[3] for r in runs], cpu_seconds=cpu_seconds, peak_memory_gb=peak_gb,
+         allocated_before_runs_gb=before_gb,
+         rerun_bit_equal=True, cpu_vs_card=dict(texture_max_abs=tex_diff,
+                                                pixels_differing_max=max(px_diff.values())))
+
+
+def run_extract_masks(torch, seed):
+    """Phase extract_masks: the stub backend over MASK_IMAGES JPEGs of 900x1600 (smooth
+    random images, every camera), on the card and on the host: the PNGs equal; the
+    SegFormer backends on a tiny local snapshot, card against host."""
+    import numpy as np
+    from PIL import Image
+
+    from magicdrive_v2_tpu_torch.pedestrian.processor import SegformerSegmenter
+    from magicdrive_v2_tpu_torch.tools import extract_masks
+    root = tempfile.mkdtemp(prefix="chip_smoke_masks_")
+    try:
+        rng = np.random.default_rng(seed)
+        for i in range(MASK_IMAGES):
+            cam_dir = os.path.join(root, "data", "samples", extract_masks.CAMS[i % 6])
+            os.makedirs(cam_dir, exist_ok=True)
+            coarse = Image.fromarray(rng.integers(0, 256, (9, 16, 3), np.uint8))
+            coarse.resize((PED_W, PED_H), Image.BILINEAR).save(
+                os.path.join(cam_dir, f"frame{i:02d}.jpg"), quality=90)
+        seconds, masks = {}, {}
+        for device in ("cuda", "cpu"):
+            out = os.path.join(root, device)
+            t0 = time.perf_counter()
+            n = extract_masks.extract(os.path.join(root, "data"), out,
+                                      extract_masks.StubBackend(device))
+            seconds[device] = time.perf_counter() - t0
+            require(n == MASK_IMAGES, n)
+            masks[device] = {os.path.relpath(os.path.join(d, f), out): read_pngs(d)[f]
+                             for d, _, fs in os.walk(out) for f in fs}
+        require(sorted(masks["cuda"]) == sorted(masks["cpu"])
+                and len(masks["cuda"]) == 2 * MASK_IMAGES, sorted(masks["cuda"]))
+        require(all(np.array_equal(masks["cuda"][k], masks["cpu"][k]) for k in masks["cpu"]),
+                "masks differ between the card and the host")
+        share = {g: float(np.mean([(v > 0).mean() for k, v in masks["cuda"].items()
+                                   if k.startswith(g)])) for g in extract_masks.GROUPS}
+        require(all(0 < s < 1 for s in share.values()), share)
+        # the transformers backends on this machine's transformers: a tiny seeded
+        # SegFormer written locally, one image, the card against the host in fp32
+        snapshot = os.path.join(root, "segformer")
+        write_tiny_segformer(torch, snapshot, seed)
+        with Image.open(os.path.join(root, "data", "samples", extract_masks.CAMS[0],
+                                     "frame00.jpg")) as im:
+            rgb = np.asarray(im.convert("RGB"))
+        agree = {}
+        with no_tf32(torch):
+            for name, make in (("transformers_backend", extract_masks.TransformersBackend),
+                               ("segformer_segmenter", SegformerSegmenter)):
+                image = rgb if name == "transformers_backend" else rgb[:, :, ::-1]
+                got = {d: make(snapshot, device=d)(image).cpu().numpy() for d in ("cuda", "cpu")}
+                require(got["cuda"].shape == (PED_H, PED_W), got["cuda"].shape)
+                agree[name] = float((got["cuda"] == got["cpu"]).mean())
+        require(min(agree.values()) >= 0.999, agree)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit("extract_masks", backend="stub", images=MASK_IMAGES, image_hw=[PED_H, PED_W],
+         card_s=seconds["cuda"], cpu_s=seconds["cpu"], mask_share=share, equal=True,
+         tiny_segformer_card_vs_cpu=agree)
+
+
+def write_tiny_segformer(torch, path, seed):
+    """A SegFormer of the cityscapes head (19 classes), two tiny stages, seeded random
+    weights, written with ``save_pretrained``, beside a preprocessor config in the
+    published cityscapes snapshots' layout (512x512 input): nothing is downloaded."""
+    from transformers import SegformerConfig, SegformerForSemanticSegmentation
+    torch.manual_seed(seed)
+    cfg = SegformerConfig(num_labels=19, num_encoder_blocks=2, depths=[1, 1],
+                          sr_ratios=[2, 1], hidden_sizes=[16, 32], num_attention_heads=[1, 2],
+                          patch_sizes=[7, 3], strides=[4, 2], mlp_ratios=[2, 2],
+                          decoder_hidden_size=32)
+    SegformerForSemanticSegmentation(cfg).eval().save_pretrained(path)
+    with open(os.path.join(path, "preprocessor_config.json"), "w") as f:
+        json.dump(dict(do_normalize=True, do_resize=True, resample=2, size=512,
+                       image_mean=[0.485, 0.456, 0.406], image_std=[0.229, 0.224, 0.225],
+                       feature_extractor_type="SegformerFeatureExtractor",
+                       reduce_labels=False), f)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=5)
@@ -3851,6 +4314,8 @@ def main():
     finally:
         shutil.rmtree(data_root, ignore_errors=True)
     emit("app848_kernel_cases", cases=held.hold(seen848, "app848"))
+    run_pedestrian(torch, args.seed)
+    run_extract_masks(torch, args.seed)
     for name, worst in held.worst.items():  # over every case held, later paths' too
         kernel_numbers[name]["max_abs_err"] = worst
 

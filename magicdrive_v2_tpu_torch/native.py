@@ -1,6 +1,7 @@
 """ctypes binding of the native host kernels (``native/src/mdv2_native.cpp``): the
-polygon fill of the BEV maps, box corners and corner projection. The port's own
-binding of the library the JAX package also loads.
+polygon fill of the BEV maps, box corners, corner projection and the z-buffered
+triangle rasterizer of the pedestrian pipeline. The port's own binding of the
+library the JAX package also loads.
 
 The library is ``native/libmdv2_native.so`` as committed. It was built with
 ``-march=native``, so on another host CPU it may fail to load or stop on an illegal
@@ -42,10 +43,11 @@ p, c = ctypes.c_void_p, ctypes.c_int
 lib.mdv2_fill_polygons.argtypes = [p, c, c, p, p, c, ctypes.c_uint8]
 lib.mdv2_boxes_to_corners.argtypes = [p, c, c, p]
 lib.mdv2_project_corners.argtypes = [p, c, p, c, p]
+lib.mdv2_rasterize_mesh.argtypes = [p, c, p, c, p, c, c, ctypes.c_float, p, p, p]
 canvas = np.zeros((64, 64), np.uint8)
 xy = np.array([[3, 4], [50, 9], [40, 60], [8, 40]], np.float32)
-lib.mdv2_fill_polygons(canvas.ctypes.data, 64, 64, xy.ctypes.data,
-                       np.array([4], np.int32).ctypes.data, 1, 1)
+n_pts = np.array([4], np.int32)
+lib.mdv2_fill_polygons(canvas.ctypes.data, 64, 64, xy.ctypes.data, n_pts.ctypes.data, 1, 1)
 boxes = np.array([[1, 2, 0, 2, 4, 1.5, 0.3, 0, 0]] * 9, np.float32)
 corners = np.empty((9, 8, 3), np.float32)
 lib.mdv2_boxes_to_corners(boxes.ctypes.data, 9, 9, corners.ctypes.data)
@@ -53,7 +55,16 @@ out = np.empty_like(corners)
 trans = np.eye(4)
 trans[2, 3] = 5.0  # every corner in front of the camera
 lib.mdv2_project_corners(corners.ctypes.data, 9, trans.ctypes.data, 1, out.ctypes.data)
+verts = np.array([[2, 2, 1], [30, 4, 2], [8, 28, 3]], np.float32)
+tri = np.array([[0, 1, 2]], np.int32)
+rgb = np.zeros((32, 32, 3), np.float32)
+depth = np.full((32, 32), np.inf, np.float32)
+face_id = np.full((32, 32), -1, np.int32)
+colors = np.ones_like(verts)
+lib.mdv2_rasterize_mesh(verts.ctypes.data, 3, tri.ctypes.data, 1, colors.ctypes.data, 32, 32,
+                        1e-4, rgb.ctypes.data, depth.ctypes.data, face_id.ctypes.data)
 assert canvas.sum() > 100 and np.isfinite(out).all()
+assert (face_id == 0).sum() > 100 and np.isfinite(depth[face_id == 0]).all()
 """
 
 
@@ -108,6 +119,11 @@ def _load() -> ctypes.CDLL:
     lib.mdv2_fill_polygons.argtypes = [u8p, c, c, f32p, i32p, c, ctypes.c_uint8]
     lib.mdv2_boxes_to_corners.argtypes = [f32p, c, c, f32p]
     lib.mdv2_project_corners.argtypes = [f32p, c, f64p, c, f32p]
+    lib.mdv2_rasterize_mesh.argtypes = [f32p, c, i32p, c, ctypes.c_void_p, c, c,
+                                        ctypes.c_float, f32p, f32p, i32p]
+    for entry in (lib.mdv2_fill_polygons, lib.mdv2_boxes_to_corners,
+                  lib.mdv2_project_corners, lib.mdv2_rasterize_mesh):
+        entry.restype = None
     _lib, _path = lib, path
     logger.info("native host kernels loaded from %s", path)
     return lib
@@ -154,3 +170,37 @@ def project_corners(corners: np.ndarray, trans: np.ndarray, proj: bool = True) -
     out = np.empty_like(corners)
     lib.mdv2_project_corners(corners, corners.shape[0], trans, int(proj), out)
     return out
+
+
+def rasterize_mesh(verts: np.ndarray, faces: np.ndarray, colors: Optional[np.ndarray],
+                   h: int, w: int, z_near: float = 1e-4):
+    """Z-buffered triangle rasterization with per-vertex colours (screen-space
+    barycentric weights, no perspective correction; a face with a vertex at
+    z <= ``z_near`` is skipped).
+
+    verts: (V, 3) screen x, y and camera depth z; faces: (F, 3) vertex indices;
+    colors: (V, 3) or None (depth and face ids only). Returns rgb (h, w, 3) float32
+    (0 where empty), depth (h, w) float32 (+inf where empty) and face_id (h, w)
+    int32 (-1 where empty), as numpy arrays.
+    """
+    verts = np.ascontiguousarray(np.asarray(verts, np.float32))
+    faces = np.ascontiguousarray(np.asarray(faces, np.int32))
+    if verts.ndim != 2 or verts.shape[1] != 3 or faces.ndim != 2 or faces.shape[1] != 3:
+        raise ValueError(f"verts must be (V, 3) and faces (F, 3), got {verts.shape} and "
+                         f"{faces.shape}")
+    if faces.size and (faces.min() < 0 or faces.max() >= verts.shape[0]):
+        raise ValueError(f"face indices must lie in [0, {verts.shape[0]})")
+    col = None
+    if colors is not None:
+        col = np.ascontiguousarray(np.asarray(colors, np.float32))
+        if col.shape != verts.shape:
+            raise ValueError(f"colors must be {verts.shape}, got {col.shape}")
+    lib = _load()
+    rgb = np.zeros((h, w, 3), np.float32)
+    depth = np.full((h, w), np.inf, np.float32)
+    face_id = np.full((h, w), -1, np.int32)
+    if faces.shape[0]:
+        lib.mdv2_rasterize_mesh(verts, verts.shape[0], faces, faces.shape[0],
+                                None if col is None else col.ctypes.data, int(h), int(w),
+                                float(z_near), rgb, depth, face_id)
+    return rgb, depth, face_id

@@ -158,52 +158,73 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def spawn_ranks(n: int, argv: Sequence[str], deadline_s: float,
-                env: Optional[Dict[str, str]] = None, cwd: Optional[str] = None,
-                local_ranks: Optional[Sequence[int]] = None) -> List[str]:
-    """Run ``python argv...`` as ranks 0..n-1 of one group on this host, as a
-    launcher would: RANK, WORLD_SIZE, LOCAL_RANK (``local_ranks[r]``, else r),
-    MASTER_ADDR and MASTER_PORT (a free port) set, ``env`` added. Each rank's
-    output goes to a file, so a rank that prints much never blocks on a pipe.
-    Raises, and kills every rank, when a rank fails or the group outlives
-    ``deadline_s``: a rank that died must not leave the others waiting in a
-    collective. Returns each rank's output."""
-    base = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
-                WORLD_SIZE=str(n), **(env or {}))
-    local = list(local_ranks) if local_ranks is not None else list(range(n))
-    logs = [tempfile.TemporaryFile("w+") for _ in range(n)]
-    procs = [subprocess.Popen([sys.executable] + list(argv), cwd=cwd,
-                              env=dict(base, RANK=str(r), LOCAL_RANK=str(local[r])),
-                              stdout=logs[r], stderr=subprocess.STDOUT, text=True)
-             for r in range(n)]
+class RankGroup:
+    """Ranks 0..n-1 of one group on this host, started as a launcher would start
+    them: RANK, WORLD_SIZE, LOCAL_RANK (``local_ranks[r]``, else r), MASTER_ADDR
+    and MASTER_PORT (a free port) set, ``env`` added. Each rank's output goes to a
+    file, so a rank that prints much never blocks on a pipe. The caller may work
+    while they run; ``wait`` then collects them, and ``close`` kills whatever still
+    runs (call it in a ``finally``: a rank must not outlive its caller)."""
 
-    def output(r):
-        logs[r].flush()
-        logs[r].seek(0)
-        return logs[r].read()
+    def __init__(self, n: int, argv: Sequence[str], deadline_s: float,
+                 env: Optional[Dict[str, str]] = None, cwd: Optional[str] = None,
+                 local_ranks: Optional[Sequence[int]] = None):
+        base = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
+                    WORLD_SIZE=str(n), **(env or {}))
+        local = list(local_ranks) if local_ranks is not None else list(range(n))
+        self.n, self.deadline_s = n, deadline_s
+        self.end = time.time() + deadline_s
+        self.logs = [tempfile.TemporaryFile("w+") for _ in range(n)]
+        self.procs = [subprocess.Popen([sys.executable] + list(argv), cwd=cwd,
+                                       env=dict(base, RANK=str(r), LOCAL_RANK=str(local[r])),
+                                       stdout=self.logs[r], stderr=subprocess.STDOUT,
+                                       text=True)
+                      for r in range(n)]
 
-    end = time.time() + deadline_s
-    try:
-        while any(p.poll() is None for p in procs):
-            failed = [r for r, p in enumerate(procs) if p.poll() not in (None, 0)]
+    def output(self, r: int) -> str:
+        self.logs[r].flush()
+        self.logs[r].seek(0)
+        return self.logs[r].read()
+
+    def _failed(self, r: int) -> RuntimeError:
+        return RuntimeError(f"rank {r} of {self.n} exited with {self.procs[r].returncode}:\n"
+                            f"{self.output(r)[-6000:]}")
+
+    def wait(self) -> List[str]:
+        """Each rank's output once all exited 0. Raises, and kills every rank, when a
+        rank fails or the group outlives its deadline (counted from the start): a
+        rank that died must not leave the others waiting in a collective."""
+        try:
+            while any(p.poll() is None for p in self.procs):
+                failed = [r for r, p in enumerate(self.procs) if p.poll() not in (None, 0)]
+                if failed:
+                    raise self._failed(failed[0])
+                if time.time() > self.end:
+                    raise RuntimeError(f"{self.n} ranks outlived their deadline of "
+                                       f"{self.deadline_s} s; rank 0's output:\n"
+                                       f"{self.output(0)[-6000:]}")
+                time.sleep(0.05)
+            failed = [r for r, p in enumerate(self.procs) if p.returncode != 0]
             if failed:
-                r = failed[0]
-                raise RuntimeError(f"rank {r} of {n} exited with {procs[r].returncode}:\n"
-                                   f"{output(r)[-6000:]}")
-            if time.time() > end:
-                raise RuntimeError(f"{n} ranks outlived their deadline of {deadline_s} s; "
-                                   f"rank 0's output:\n{output(0)[-6000:]}")
-            time.sleep(0.05)
-        failed = [r for r, p in enumerate(procs) if p.returncode != 0]
-        if failed:
-            r = failed[0]
-            raise RuntimeError(f"rank {r} of {n} exited with {procs[r].returncode}:\n"
-                               f"{output(r)[-6000:]}")
-        return [output(r) for r in range(n)]
-    finally:
-        for p in procs:
+                raise self._failed(failed[0])
+            return [self.output(r) for r in range(self.n)]
+        finally:
+            self.close()
+
+    def close(self) -> None:
+        for p in self.procs:
             if p.poll() is None:
                 p.kill()
             p.wait()
-        for log in logs:
-            log.close()
+        for log in self.logs:
+            if not log.closed:
+                log.close()
+
+
+def spawn_ranks(n: int, argv: Sequence[str], deadline_s: float,
+                env: Optional[Dict[str, str]] = None, cwd: Optional[str] = None,
+                local_ranks: Optional[Sequence[int]] = None) -> List[str]:
+    """Run ``python argv...`` as ranks 0..n-1 of one group on this host
+    (``RankGroup``) and wait for them. Raises, and kills every rank, when a rank
+    fails or the group outlives ``deadline_s``. Returns each rank's output."""
+    return RankGroup(n, argv, deadline_s, env=env, cwd=cwd, local_ranks=local_ranks).wait()

@@ -63,15 +63,31 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def to_tensor(x, device, dtype=None) -> torch.Tensor:
+    """A tensor or array-like on ``device``, its dtype kept unless ``dtype`` is given
+    (a numpy array that is read-only or not C-contiguous is copied first)."""
+    if not isinstance(x, torch.Tensor):
+        x = np.asarray(x)
+        if not (x.flags.writeable and x.flags.c_contiguous):
+            x = np.array(x, order="C")
+        x = torch.from_numpy(x)
+    return x.to(device=device, dtype=dtype)
+
+
+def to_host(x) -> np.ndarray:
+    """A tensor or array-like as a numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
 def to_device(v, device):
     """numpy arrays and tensors, in nested dicts too, onto ``device``; other values
     as they are."""
     if isinstance(v, dict):
         return {k: to_device(x, device) for k, x in v.items()}
-    if isinstance(v, np.ndarray):
-        v = torch.from_numpy(v)
-    if isinstance(v, torch.Tensor):
-        return v.to(device)
+    if isinstance(v, (np.ndarray, torch.Tensor)):
+        return to_tensor(v, device)
     return v
 
 

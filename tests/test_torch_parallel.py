@@ -280,3 +280,28 @@ def test_sp_vae_decode(vae, sp4):
     assert float((out - direct).abs().max()) < 2e-5
     ref = j_sp_vae(j(z), jw.decode, j_make_mesh(dp=1, sp=4, devices=jax.devices()[:4]))
     assert_close(out, ref, TOL)
+
+
+def test_rank_group_lets_its_caller_work_while_the_ranks_run(tmp_path):
+    """``RankGroup`` returns as soon as its ranks are started: here they wait for a
+    file the caller writes afterwards. ``wait`` returns each rank's output (RANK
+    and WORLD_SIZE set as a launcher sets them); a rank that fails makes ``wait``
+    raise; ``close`` kills ranks that still run."""
+    from magicdrive_v2_tpu_torch.parallel.distributed import RankGroup
+    go = tmp_path / "go"
+    wait_for_go = ("import os, time\n"
+                   f"while not os.path.exists({str(go)!r}):\n    time.sleep(0.01)\n"
+                   "print(os.environ['RANK'], os.environ['WORLD_SIZE'])")
+    group = RankGroup(2, ["-c", wait_for_go], 60)
+    try:
+        assert all(p.poll() is None for p in group.procs)
+        go.write_text("")
+        assert [out.split() for out in group.wait()] == [["0", "2"], ["1", "2"]]
+    finally:
+        group.close()
+    failing = RankGroup(2, ["-c", "import os, sys; sys.exit(3 * int(os.environ['RANK']))"], 60)
+    with pytest.raises(RuntimeError, match="rank 1 of 2 exited with 3"):
+        failing.wait()
+    sleeping = RankGroup(1, ["-c", "import time; time.sleep(60)"], 60)
+    sleeping.close()
+    assert sleeping.procs[0].returncode not in (None, 0)

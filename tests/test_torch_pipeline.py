@@ -309,6 +309,7 @@ assert vid.shape == (1, 6, 3, 1, 64, 80) and bool(torch.isfinite(vid).all()), vi
 assert float(vid.std()) > 1e-3
 
 # one step of the train app on the tiny training config
+import os
 import tempfile
 from magicdrive_v2_tpu_torch.scripts import train_magicdrive
 with tempfile.TemporaryDirectory() as d:
@@ -339,9 +340,26 @@ with tempfile.TemporaryDirectory() as d:
     data = next(iter(prepare_dataloader(dataset, batch_size=2)[0]))
 assert data["pixel_values"].shape[:3] == (2, 3, 6), data["pixel_values"].shape
 assert native.library_path().endswith(".so")
+# the pedestrian pipeline on its synthetic scene, and the mask tool on its stub backend
+import numpy as np
+from PIL import Image
+import magicdrive_v2_tpu_torch.pedestrian
+from magicdrive_v2_tpu_torch.scripts import pipeline_12hz
+from magicdrive_v2_tpu_torch.tools import extract_masks
+with tempfile.TemporaryDirectory() as d:
+    proc = magicdrive_v2_tpu_torch.pedestrian.make_synthetic_processor(device="cpu")
+    frames, gt_tex = pipeline_12hz.build_synthetic_scene(proc)
+    n_ped, textures = pipeline_12hz.run_scene(proc, frames, d)
+    os.makedirs(os.path.join(d, "data", "samples", "CAM_FRONT"))
+    Image.fromarray(frames[0]["cams"]["CAM_FRONT"]["image"]).save(
+        os.path.join(d, "data", "samples", "CAM_FRONT", "a.jpg"))
+    n_masks = extract_masks.extract(os.path.join(d, "data"), os.path.join(d, "masks"),
+                                    extract_masks.StubBackend(device="cpu"))
+assert n_ped >= 4 and float(np.abs(textures["ped0"] - gt_tex).mean()) < 0.25, n_ped
+assert n_masks == 1, n_masks
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
-                                    "magicdrive_v2_tpu"))
+                                    "magicdrive_v2_tpu", "scipy", "cv2"))
 assert not bad, bad
 print("NO_JAX_OK", float(out.abs().mean()), float(vid.abs().mean()))
 """
@@ -357,8 +375,8 @@ def test_port_runs_without_importing_jax_or_the_jax_package():
 
 def test_port_sources_name_no_jax_import():
     import re
-    pat = re.compile(r"import (jax|flax|optax|orbax)|from (jax|flax|optax|orbax)"
-                     r"|magicdrive_v2_tpu[^_]")
+    pat = re.compile(r"import (jax|flax|optax|orbax|scipy|cv2)"
+                     r"|from (jax|flax|optax|orbax|scipy|cv2)|magicdrive_v2_tpu[^_]")
     roots = [os.path.join(REPO, "magicdrive_v2_tpu_torch"), os.path.join(REPO, "chip_smoke.py")]
     hits = []
     for root in roots:
