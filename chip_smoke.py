@@ -34,6 +34,11 @@ card. It imports only ``magicdrive_v2_tpu_torch`` and
                 sampling and decode apart;
 5. ``slice_vs_plain``  one forward of the same model at reduced depth in fp32 with
                 the kernels against one with their plain versions;
+5c. ``block_bench`` ``tools/block_bench`` at the 424p bench shape (B=12, T=5, S=1350,
+                C=1152, bf16): a chain of 8 spatial and of 8 temporal blocks through
+                the kernels and through their plain versions, median of 3 chains in
+                ms/block, launches a block; each kind's first block through the
+                kernels held against the plain route;
 5a. ``sp848``   the fullx848x1600 config (sp_size 8, force_pad_h_for_sp_size 8,
                 rflow-slice, VAE tiling) through ``MagicDrivePipeline.from_config``
                 in one process of an NCCL group of one, so it runs unsharded with
@@ -48,8 +53,10 @@ card. It imports only ``magicdrive_v2_tpu_torch`` and
                 each against the unsharded forward; then ``sp_vae`` of 6 views
                 over the 4 ranks against the direct decode; last, every shape the
                 ranks handed a wrapper is held against its plain version as in
-                phase 3; the unsharded forwards run while the ranks start, and each
-                rank reports where its seconds went (``rank0_timeline``);
+                phase 3; the ranks import and join while phase sp848 reruns its
+                sample (after the timed one), the unsharded forwards run beside
+                their work, and each rank reports where its seconds went
+                (``rank0_timeline``);
 6. ``grads``    training's gradients: XL/2 at full width and depth 2/1, stage-2
                 bucket (4 samples, six views of 224x400, 17 frames), one
                 ``training_loss`` backward through the kernels against one through
@@ -182,6 +189,19 @@ card. It imports only ``magicdrive_v2_tpu_torch`` and
                 texture within 0.25 of the known one, every mask non-empty; seconds
                 of each stage, of the host rasterizer and its share, of PNG writing,
                 peak memory;
+21a. ``app848_sde``, ``app848_brushnet`` (after ``app848``) the W-CODA app on the
+                17-16 848x1600 SDE-BrushNet config at full depth (28 + 28 BrushNet
+                blocks, control 13) and on the BrushNet one at depth 7 / control 4
+                (``--cfg-options``), as ``app848`` runs them: 9 frames, 1 step, the
+                frames read back, launch counters (SDE: K1 97, K2 304, K3 82 a
+                forward), every shape held against its plain version;
+21b. ``sde848_65f`` the 65-frame 848x1600 SDE-BrushNet config through
+                ``MagicDrivePipeline.from_config`` in one process (sp_size 4 runs
+                unsharded; 5300 tokens a frame, 540,600 a forward): full width and
+                depth, 1 step of rflow-sdebrushnet-slice, ``sample(decode=False)``,
+                the pedestrian frames and masks drawn on the card; then one view's 17
+                latent frames through the tiled decode (65 frames); s/step, peak
+                memory, launches, every shape held;
 23. ``extract_masks`` ``tools.extract_masks`` with its stub backend over 12 JPEGs of
                 900x1600 on the card and on the host: the masks equal; then the
                 transformers backend and the pipeline's SegFormer segmenter on a tiny
@@ -201,7 +221,6 @@ under which the rerun of one seed must give the same video bit for bit.
 """
 import argparse
 import contextlib
-import functools
 import gc
 import json
 import logging
@@ -211,6 +230,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import weakref
 
@@ -277,12 +297,13 @@ def since_start(timeline, name):
     timeline[name] = time.time() - STARTED
 
 
-def await_go(deadline_s):
+def await_go(deadline_s, var="MDV2_GO_FILE"):
     """In a rank started before its parent is ready for it: waits until the file
-    MDV2_GO_FILE names exists (the parent makes it when its own work on the card is
-    done), so that no timed step of the ranks runs beside that work. Returns at
-    once without MDV2_GO_FILE."""
-    path = os.environ.get("MDV2_GO_FILE")
+    the environment variable ``var`` names exists (the parent makes it when its own
+    work on the card is done: MDV2_GO_FILE before the ranks' timed steps,
+    MDV2_START_FILE before they touch the card at all). Returns at once without
+    the variable."""
+    path = os.environ.get(var)
     end = time.time() + deadline_s
     while path and not os.path.exists(path):
         require(time.time() < end, f"{path} did not appear within {deadline_s} s")
@@ -876,33 +897,20 @@ def profile_step(torch, pipe, cond):
              lambda: pipe.vae.decode(z))
 
 
-def patch_points():
-    """The three names through which the model's modules reach the wrappers
-    (flash_attention through the dispatcher, which sends a call without a bias on
-    to it)."""
-    from magicdrive_v2_tpu_torch.models.layers import blocks
-    from magicdrive_v2_tpu_torch.models.magicdrive import stdit3
-    return ((blocks, "fused_qkv_attention"), (stdit3, "adaln_modulate"),
-            (blocks, "dot_product_attention"))
-
-
-@contextlib.contextmanager
-def patched(*replacements):
-    points = patch_points()
-    saved = [getattr(mod, name) for mod, name in points]
-    for (mod, name), fn in zip(points, replacements):
-        setattr(mod, name, fn)
-    try:
-        yield saved
-    finally:
-        for (mod, name), fn in zip(points, saved):
-            setattr(mod, name, fn)
+def routed(route):
+    """The model's three kernel sites routed to ``route`` ("kernels", "plain" or
+    three callables) for the duration: ``tools/block_bench.routed``, which puts
+    back what was there on exit (for the comparisons only: the package itself
+    has no such switch)."""
+    from magicdrive_v2_tpu_torch.tools.block_bench import routed as route_sites
+    return route_sites(route)
 
 
 @contextlib.contextmanager
 def recorded_shapes(seen):
     """Note every distinct shape and type the model hands to a kernel's wrapper,
     then call the wrapper as the model would."""
+    from magicdrive_v2_tpu_torch.tools.block_bench import patch_points
     k1, k2, k3 = (getattr(mod, name) for mod, name in patch_points())
 
     def rec_k1(qkv, qw, kw, kv_perm=None, scale=None):
@@ -920,7 +928,7 @@ def recorded_shapes(seen):
             seen["flash_attention"].add((tuple(q.shape), k.shape[1], q.dtype))
         return k3(q, k, v, scale=scale, bias=bias)
 
-    with patched(rec_k1, rec_k2, rec_k3):
+    with routed((rec_k1, rec_k2, rec_k3)):
         yield
 
 
@@ -991,11 +999,7 @@ def build_slice(torch, steps, seed):
         torch.cuda.synchronize()
     emit("shapes", l_cond=l_cond, setup_seconds=setup_s,
          launches_per_forward=per_forward, launches_encode_conditions=encode_launches,
-         fused_qkv_attention=[dict(qkv=list(k[0]), dtype=str(k[1]), norm=k[2], J=k[3])
-                              for k in seen["fused_qkv_attention"]],
-         adaln_modulate=[dict(x=list(k[0]), dtype=str(k[1])) for k in seen["adaln_modulate"]],
-         flash_attention=[dict(q=list(k[0]), M=k[1], dtype=str(k[2]))
-                          for k in seen["flash_attention"]])
+         **shape_record(seen))
     return pipe, cond, per_forward, encode_launches, l_cond, seen
 
 
@@ -1093,16 +1097,6 @@ def no_tf32(torch):
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
-@contextlib.contextmanager
-def plain_versions():
-    """Route the model through the kernels' plain versions on the card (for the
-    comparison only: the package itself has no such switch)."""
-    from magicdrive_v2_tpu_torch import ops
-    with patched(functools.partial(ops.fused_qkv_attention_plain, group_chunk=6),
-                 ops.adaln_modulate_plain, ops.plain_attention):
-        yield
-
-
 def run_slice_vs_plain(torch, seed):
     from magicdrive_v2_tpu_torch.models.magicdrive.stdit3 import MagicDriveSTDiT3
     from magicdrive_v2_tpu_torch.pipelines.magicdrive import synthetic_batch
@@ -1119,7 +1113,7 @@ def run_slice_vs_plain(torch, seed):
         out = model(**dev)
         torch.cuda.synchronize()
         with_kernels = read_counters()
-        with plain_versions():
+        with routed("plain"):
             reset_counters()
             ref = model(**dev)
             torch.cuda.synchronize()
@@ -1150,7 +1144,7 @@ SP_RANKS_DEADLINE_S = 420
 SP_VAE_LATENT = (6, 16, 5, TRAIN_HEIGHT // 8, TRAIN_WIDTH // 8)
 
 
-def run_sp848(torch, seed, per_forward, encode_launches, l_cond):
+def run_sp848(torch, seed, per_forward, encode_launches, l_cond, after_timed):
     """The fullx848x1600 config (sp_size 8, force_pad_h_for_sp_size 8,
     rflow-slice, VAE tiling 384) through ``from_config`` in one process of an NCCL
     group of one: fewer ranks than sp_size, so it runs unsharded with the fsp8 pad
@@ -1158,7 +1152,8 @@ def run_sp848(torch, seed, per_forward, encode_launches, l_cond):
     width and depth in bf16, 6 views, 17 frames (cut from "full"), SP848_STEPS
     steps, ``sample(decode=True)``; then the same seed again without the decode:
     the latents bit-equal, and the shapes each wrapper was handed those phase
-    ``kernels`` held (``sp848_shapes``, ``sp848_k3``)."""
+    ``kernels`` held (``sp848_shapes``, ``sp848_k3``). ``after_timed()`` is called
+    between the timed sample and the rerun."""
     import torch.distributed as dist
     from magicdrive_v2_tpu_torch.config.config import Config, merge_dot_options
     from magicdrive_v2_tpu_torch.parallel.distributed import free_port
@@ -1194,6 +1189,7 @@ def run_sp848(torch, seed, per_forward, encode_launches, l_cond):
     require(got == want, (got, want))
     require(tuple(video.shape) == (1, 6, 3, NUM_FRAMES, H848, W848) and video.dtype ==
             torch.float32 and bool(video.isfinite().all()), (video.shape, video.dtype))
+    after_timed()
     seen848 = no_shapes()
     with recorded_shapes(seen848):
         again = pipe.sample(cond, num_frames=NUM_FRAMES, height=H848, width=W848,
@@ -1256,6 +1252,8 @@ def sp_rank_worker(torch, out_dir, seed):
     rank = dist.get_rank()
     since_start(timeline, "joined")
     try:
+        await_go(SP_RANKS_DEADLINE_S, "MDV2_START_FILE")
+        since_start(timeline, "started")
         meshes = {(1, 4): make_mesh(1, 4), (2, 2): make_mesh(2, 2)}
         model = sp_ranks_model(torch, seed, enable_sequence_parallelism=True)
         since_start(timeline, "model_built")
@@ -1303,17 +1301,21 @@ def sp_rank_worker(torch, out_dir, seed):
 def start_sp_ranks(n, out_dir, seed):
     """Starts ``n`` ranks of this script's sp worker (the port's ``RankGroup``: its
     ``wait`` fails, and kills every rank, when one fails or they outlive
-    SP_RANKS_DEADLINE_S). Returns (the group, the backend: ``collective_backend``)."""
+    SP_RANKS_DEADLINE_S); they import and join, then wait for the file ``start`` in
+    ``out_dir`` before they touch the card, so they can start while the phase before
+    runs. Returns (the group, the backend: ``collective_backend``)."""
     import torch
     from magicdrive_v2_tpu_torch.parallel.distributed import RankGroup
     backend, local_ranks = collective_backend(torch, n)
     group = RankGroup(n, [os.path.abspath(__file__), "--sp-rank-worker", out_dir, "--seed",
-                          str(seed)], SP_RANKS_DEADLINE_S, env={"MDV2_SP_BACKEND": backend},
+                          str(seed)], SP_RANKS_DEADLINE_S,
+                      env={"MDV2_SP_BACKEND": backend,
+                           "MDV2_START_FILE": os.path.join(out_dir, "start")},
                       local_ranks=local_ranks)
     return group, backend
 
 
-def run_sp_ranks(torch, seed, encode_launches, held):
+def run_sp_ranks(torch, seed, encode_launches, held, started):
     """XL/2 at full width, depth 2 / control depth 1: one forward at sp=2 (mesh
     (2, 2): two sp groups of 2) and one at sp=4 (mesh (1, 4)), 6x848x1600x9f, in
     fp32 and bf16, and the 424x800 shape at sp=4 (the sp pad: S 1350 -> 1400), in
@@ -1322,13 +1324,15 @@ def run_sp_ranks(torch, seed, encode_launches, held):
     - unsharded) <= 2**-6 rms(unsharded) + rms(unsharded bf16 - unsharded fp32)).
     Then sp_vae of 6 views over the 4 ranks against the direct decode (fp32). Last,
     every shape a rank handed a wrapper is held against its plain version
-    (``held``: the ``HeldCases`` of phase kernels). The ranks start first and run
-    beside the unsharded forwards, which only their outputs wait for."""
-    out_dir = tempfile.mkdtemp(prefix="chip_smoke_sp_ranks_")
+    (``held``: the ``HeldCases`` of phase kernels). The ranks run beside the
+    unsharded forwards, which only their outputs wait for. ``started``: (out_dir,
+    group, backend) of the ranks ``start_sp_ranks`` started while the phase before
+    ran."""
+    out_dir, group, backend = started
     try:
-        t_start = time.time()
-        group, backend = start_sp_ranks(SP_RANKS, out_dir, seed)
+        t_start = time.time()  # ranks_seconds: from the start file to the ranks' exit
         try:
+            open(os.path.join(out_dir, "start"), "w").close()
             refs, direct, ref_seconds = sp_ranks_references(torch, seed)
             group.wait()
             ranks_seconds = time.time() - t_start
@@ -1597,7 +1601,7 @@ def run_grads(torch, seed):
         model.zero_grad(set_to_none=True)
         reset_counters()
         reset_backward_calls()
-        with (plain_versions() if plain else recorded_shapes(seen)):
+        with (routed("plain") if plain else recorded_shapes(seen)):
             loss, _ = training_loss(model, sched, dev, height=h, width=w, num_frames=nf,
                                     dtype=dtype, t=t, noise=noise)
             loss.backward()
@@ -2760,7 +2764,10 @@ def run_decode_vs_cpu(torch, seed):
     gen = torch.Generator().manual_seed(seed)
     with no_tf32(torch):
         on_card = cogvideox_vae(torch, torch.float32, seed + 1)
+        # the card's weights on the CPU (a seeded fill draws from each device's own
+        # generator)
         on_cpu = cogvideox_vae(torch, torch.float32, seed + 1, device="cpu")
+        on_cpu.module.load_state_dict(on_card.module.state_dict())
         z = torch.randn(1, 16, 5, 8, 10, generator=gen)
         out, ref = on_card.decode(z.cuda()).cpu(), on_cpu.decode(z)
         require(tuple(out.shape) == (1, 3, 17, 64, 80), out.shape)
@@ -3199,7 +3206,7 @@ def run_brushnet_vs_plain(torch, seed):
             torch.cuda.synchronize()
             require(read_counters() == {k: want[k] + encode[k] for k in want},
                     (read_counters(), want, encode))
-            with plain_versions():
+            with routed("plain"):
                 reset_counters()
                 ref = model(**dev)
                 torch.cuda.synchronize()
@@ -3507,6 +3514,195 @@ def run_brushnet_apps(torch, sde_per_forward, base_per_forward, encode_launches)
 
 
 # ---------------------------------------------------------------------------
+# phases app848_sde, app848_brushnet, sde848_65f: the 848x1600 inpainting configs
+# ---------------------------------------------------------------------------
+
+APP848_SDE_CONFIG = "configs/magicdrive/test/17-16x848x1600_map0_fsp4_cfg2.0_sde_brushnet.py"
+APP848_BRUSHNET_CONFIG = "configs/magicdrive/test/17-16x848x1600_map0_fsp4_cfg2.0_brushnet.py"
+SDE848_65F_CONFIG = ("configs/magicdrive/inference/"
+                     "65x848x1600_stdit3_CogVAE_boxTDS_wCT_xCE_wSST_sde_brushnet.py")
+# depth / control depth of app848_brushnet: app848_sde runs the full-depth blocks,
+# brushnet_plain the plain type at full depth
+APP848_BRUSHNET_DEPTH = (7, 4)
+
+
+def run_app848_inpainting(torch, encode_launches, ann, root, held):
+    """The W-CODA app on the two 17-16 848x1600 inpainting configs over the
+    generated set (rflow-sdebrushnet-slice / rflow-brushnet-slice, sp_size 4 on one
+    rank: unsharded, S = 5300, which the fsp4 pad leaves as it is): the SDE-BrushNet one at full depth (28 + 28 BrushNet blocks, control
+    13), the BrushNet one at depth APP848_BRUSHNET_DEPTH; as ``app848`` runs, with
+    the shapes each wrapper was handed held. Returns the launches of each."""
+    out = {}
+    for phase, config, depth in (("app848_sde", APP848_SDE_CONFIG, None),
+                                 ("app848_brushnet", APP848_BRUSHNET_CONFIG,
+                                  APP848_BRUSHNET_DEPTH)):
+        overrides = {} if depth is None else dict(depth=depth[0], control_depth=depth[1])
+        model_cfg = brushnet_config(torch, torch.bfloat16, sde=depth is None, **overrides)
+        per_forward = expected_launches(model_cfg)
+        if depth is None:
+            require(per_forward == {"fused_qkv_attention": 97, "adaln_modulate": 304,
+                                    "flash_attention": 82}, per_forward)
+        argv = () if depth is None else ("--cfg-options", f"model.depth={depth[0]}",
+                                         f"model.control_depth={depth[1]}")
+        seen = no_shapes()
+        out[phase] = run_test_app(torch, per_forward, encode_launches, ann, root,
+                                  base_config=config, extra_argv=argv, phase=phase,
+                                  data_yaml=DATA_YAML_848, save_mode="image_filename",
+                                  seen=seen)
+        emit(f"{phase}_kernel_cases", per_forward=per_forward,
+             cases=held.hold(seen, phase), shapes=shape_record(seen))
+        torch.cuda.empty_cache()
+    return out
+
+
+def shape_record(seen):
+    """A record of ``recorded_shapes`` as JSON."""
+    return dict(fused_qkv_attention=[dict(qkv=list(k[0]), dtype=str(k[1]), norm=k[2], J=k[3])
+                                     for k in seen["fused_qkv_attention"]],
+                adaln_modulate=[dict(x=list(k[0]), dtype=str(k[1]))
+                                for k in seen["adaln_modulate"]],
+                flash_attention=[dict(q=list(k[0]), M=k[1], dtype=str(k[2]))
+                                 for k in seen["flash_attention"]])
+
+
+def run_sde848_65f(torch, seed, encode_launches, held):
+    """The 65-frame 848x1600 SDE-BrushNet config through ``from_config`` in one
+    process of an NCCL group of one (sp_size 4 on one rank: unsharded; 5300 tokens a
+    frame divide 4, so the fsp4 pad adds none): XL/2-SDEBrushNet at full width and
+    depth, bf16, rflow-sdebrushnet-slice (two forwards of b=1 a step), 6 views of 65
+    frames (17 latent frames: 540,600 tokens a forward), 1 step,
+    ``sample(decode=False)``, the pedestrian frames and masks drawn on the card; then
+    one view's 17 latent frames through the tiled VAE decode (65 frames). s/step,
+    peak memory (one card holds it unsharded: 48.4 GB on an H100 80GB HBM3 at 700 W,
+    PERF.md), launches; every shape the path handed a wrapper held against its plain
+    version (``held``). Returns the launches."""
+    import torch.distributed as dist
+    from magicdrive_v2_tpu_torch.config.config import Config, merge_dot_options
+    from magicdrive_v2_tpu_torch.parallel.distributed import free_port
+    from magicdrive_v2_tpu_torch.pipelines.magicdrive import MagicDrivePipeline, synthetic_batch
+    from magicdrive_v2_tpu_torch.utils.inference_utils import resolve_num_frames
+    cfg = Config.fromfile(SDE848_65F_CONFIG)
+    merge_dot_options(cfg, ["scheduler.num_sampling_steps=1", f"seed={seed}"])
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0, device_id=torch.device("cuda", 0))
+    try:
+        t0 = time.time()
+        pipe = MagicDrivePipeline.from_config(cfg, device="cuda")
+        torch.cuda.synchronize()
+        setup_s = time.time() - t0
+    finally:
+        dist.destroy_process_group()
+    mc = pipe.model_cfg
+    require(pipe.mesh is None and mc.sde_inpaint and mc.depth == 28 and mc.control_depth == 13
+            and mc.hidden_size == 1152 and mc.force_pad_h_for_sp_size == 4
+            and pipe.scheduler.slice_cfg and pipe.vae.tiling, (pipe.mesh, mc))
+    frames = resolve_num_frames(cfg)
+    require(frames == 65, frames)
+    per_forward = expected_launches(mc)
+    require(per_forward == {"fused_qkv_attention": 97, "adaln_modulate": 304,
+                            "flash_attention": 82}, per_forward)
+    # 53 x 100 token rows and columns: 5300 tokens a frame divide 4, so the fsp4 pad
+    # adds none (it pads where H * W does not divide 4)
+    H, W = -(-H848 // 16), -(-W848 // 16)
+    pad = pipe.model._h_pad_size(H, W)
+    S = (H + pad) * W
+    require(pad == 0 and S == 5300, (pad, S))
+    batch = synthetic_batch(mc, frames, H848, W848, l_box=L_BOX,
+                            l_txt=pipe.text_encoder.model_max_length)
+    cond = {k: batch[k] for k in ("y", "maps", "bbox", "cams", "rel_pos", "fps")}
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    px = (1, mc.nc, frames, H848, W848)
+    cond["x_inpaint"] = torch.randn((1, 3 * mc.nc) + px[2:], generator=gen, device="cuda",
+                                    dtype=torch.bfloat16)
+    cond["mask_inpaint"] = (torch.rand(px, generator=gen, device="cuda") > 0.5).to(
+        torch.bfloat16)
+    cond["t_inpaint"] = torch.full((1,), INPAINT_NOISE_SCALE * 1000.0, device="cuda")
+    seen = no_shapes()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.time()
+    with recorded_shapes(seen):
+        latents = pipe.sample(cond, num_frames=frames, height=H848, width=W848,
+                              torch_seed=1024, decode=False)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
+    got = read_counters()
+    T = (frames - 1) // 4 + 1
+    want = {k: 2 * (per_forward[k] + encode_launches[k]) for k in per_forward}
+    require(got == want, (got, want))
+    require(tuple(latents.shape) == (1, 6 * mc.in_channels, T, H848 // 8, W848 // 8)
+            and bool(latents.isfinite().all()), latents.shape)
+    del cond
+    # one view's latent frames through the tiled decode
+    z = latents[:, ::mc.nc].to(pipe.vae.dtype)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with torch.no_grad():
+        video = pipe.vae.decode(z)
+    torch.cuda.synchronize()
+    decode_s = time.time() - t0
+    require(tuple(video.shape) == (1, 3, frames, H848, W848) and bool(video.isfinite().all()),
+            video.shape)
+    del pipe, video, z
+    gc.collect()
+    torch.cuda.empty_cache()
+    cases = held.hold(seen, "sde848_65f")
+    tokens = 6 * T * S
+    emit("sde848_65f", config=SDE848_65F_CONFIG, model=SDE_BRUSHNET, dtype="bfloat16",
+         sp_config=int(cfg.sp_size), sp_run=1, force_pad_h_for_sp_size=4,
+         scheduler="rflow-sdebrushnet-slice", views=6, frames=frames, latent_frames=T,
+         height=H848, width=W848, tokens_per_view=S, tokens_per_forward=tokens,
+         steps=1, setup_seconds=setup_s, seconds_per_step=seconds, peak_memory_bytes=peak,
+         decode_one_view_seconds=decode_s, vae_tiling=int(cfg.vae_tiling),
+         launches_per_forward=per_forward, launches_per_sample=got,
+         latent_abs_mean=float(latents.abs().mean()), shapes=shape_record(seen),
+         kernel_cases=cases)
+    del latents
+    torch.cuda.empty_cache()
+    return got
+
+
+# ---------------------------------------------------------------------------
+# phase block_bench: one block at the 424p bench shape, kernels against plain
+# ---------------------------------------------------------------------------
+
+# the launches of one block: spatial (self-attention and cross-view attention, three
+# norms, condition cross-attention), temporal (two norms, condition cross-attention)
+BLOCK_LAUNCHES = {"spatial": {"fused_qkv_attention": 2, "adaln_modulate": 3,
+                              "flash_attention": 1},
+                  "temporal": {"fused_qkv_attention": 0, "adaln_modulate": 2,
+                               "flash_attention": 1}}
+
+
+def run_block_bench(torch, seed):
+    """``tools/block_bench`` at its bench shape (B=12, T=5, S=1350, C=1152, 16
+    heads, bf16): a chain of 8 spatial and of 8 temporal blocks, through the kernels
+    and through their plain versions, the median of 3 chains in ms per block, and
+    each kind's first block through the kernels held against the plain route
+    (``first_block_check``'s limit). Returns the launches of the timed chains."""
+    from magicdrive_v2_tpu_torch.tools import block_bench as bb
+    reset_counters()
+    rows = bb.bench("both", **bb.BENCH_SHAPE, seed=seed)
+    launches = read_counters()
+    for r in rows:
+        want = (BLOCK_LAUNCHES[r["block"]] if r["route"] == "kernels"
+                else dict.fromkeys(BLOCK_LAUNCHES["spatial"], 0))
+        require(r["launches_per_block"] == want, r)
+    checks = bb.check_first_blocks(**bb.BENCH_SHAPE, seed=seed)
+    require(all(c["ok"] and c["finite"] for c in checks.values()), checks)
+    ms = {(r["block"], r["route"]): r["ms_per_block"] for r in rows}
+    emit("block_bench", shape=bb.BENCH_SHAPE, dtype="bfloat16", chain=bb.CHAIN, reps=bb.REPS,
+         rows=rows, first_block_vs_plain=checks,
+         kernels_over_plain={k: ms[(k, "kernels")] / ms[(k, "plain")]
+                             for k in ("spatial", "temporal")},
+         launches=launches)
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phases 17-20: BrushNet training and the remat policies
 # ---------------------------------------------------------------------------
 
@@ -3593,7 +3789,7 @@ def run_brushnet_grads(torch, seed, encode_launches):
         model.zero_grad(set_to_none=True)
         reset_counters()
         reset_backward_calls()
-        with (plain_versions() if plain else contextlib.nullcontext()):
+        with (routed("plain") if plain else contextlib.nullcontext()):
             loss, _ = training_loss(model, sched, dev, height=h, width=w, num_frames=nf,
                                     dtype=dtype, t=t, noise=noise,
                                     t_inpaint=t_inpaint, model_kwargs=model_draws)
@@ -4237,6 +4433,10 @@ def main():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+    # the optional packages import while nvcc builds the kernels
+    packages = {}
+    probe = threading.Thread(target=lambda: packages.update(optional_packages()))
+    probe.start()
     _cuda_build.build_all()
     for name in _cuda_build.SOURCES:
         _cuda_build.load(name)
@@ -4252,9 +4452,10 @@ def main():
                                         for r in k3_bodies), k3_bodies)
     from magicdrive_v2_tpu_torch import native
     fill = native.library_path()
+    probe.join()
     emit("device", nvidia_smi=smi, python=sys.version.split()[0], torch=torch.__version__,
          cuda=torch.version.cuda, build_seconds=_cuda_build.build_seconds,
-         k1_ptxas=k1_bodies, k3_ptxas=k3_bodies, optional_packages=optional_packages(),
+         k1_ptxas=k1_bodies, k3_ptxas=k3_bodies, optional_packages=packages,
          polygon_fill=dict(kind="native", library=fill,
                            committed_library=fill == str(native.COMMITTED)))
 
@@ -4268,8 +4469,20 @@ def main():
     del pipe
     torch.cuda.empty_cache()
     run_slice_vs_plain(torch, args.seed)
-    sp848_launches = run_sp848(torch, args.seed, per_forward, encode_launches, l_cond)
-    sp_ranks_launches = run_sp_ranks(torch, args.seed, encode_launches, held)
+    block_bench_launches = run_block_bench(torch, args.seed)
+    # sp_ranks' processes import and join while sp848 reruns its sample (after its
+    # timed one, which they would slow)
+    sp_dir, sp_ranks = tempfile.mkdtemp(prefix="chip_smoke_sp_ranks_"), []
+    try:
+        sp848_launches = run_sp848(
+            torch, args.seed, per_forward, encode_launches, l_cond,
+            after_timed=lambda: sp_ranks.extend(start_sp_ranks(SP_RANKS, sp_dir, args.seed)))
+        sp_ranks_launches = run_sp_ranks(torch, args.seed, encode_launches, held,
+                                         started=(sp_dir, *sp_ranks))
+    finally:
+        if sp_ranks:
+            sp_ranks[0].close()
+        shutil.rmtree(sp_dir, ignore_errors=True)
     seen_train = run_grads(torch, args.seed)
     train_launches, backward_rows, synthetic_s_step = run_train(
         torch, args.seed, seen_train, encode_launches, with_profile=args.profile)
@@ -4279,6 +4492,11 @@ def main():
     stage3_launches = run_stage3_app(torch, encode_launches)
     torch.cuda.empty_cache()
     dp_train_launches = run_dp_train(torch, args.seed, encode_launches, held)
+    # dp_app's two full-depth ranks need ~58 GB of the card: this process gives back
+    # what its allocator still holds from dp_train's references (a rank ran out of
+    # memory beside ~20 GB of it on an H100 80GB HBM3)
+    gc.collect()
+    torch.cuda.empty_cache()
     dp_app_launches = run_dp_app(torch, encode_launches)
     torch.cuda.empty_cache()
     run_decode_vs_cpu(torch, args.seed)
@@ -4311,9 +4529,12 @@ def main():
             torch, per_forward, encode_launches, ann, data_root, base_config=APP848_CONFIG,
             phase="app848", data_yaml=DATA_YAML_848, save_mode="image_filename",
             seen=seen848)
+        emit("app848_kernel_cases", cases=held.hold(seen848, "app848"))
+        inpaint848_launches = run_app848_inpainting(torch, encode_launches, ann, data_root,
+                                                    held)
     finally:
         shutil.rmtree(data_root, ignore_errors=True)
-    emit("app848_kernel_cases", cases=held.hold(seen848, "app848"))
+    sde848_65f_launches = run_sde848_65f(torch, args.seed, encode_launches, held)
     run_pedestrian(torch, args.seed)
     run_extract_masks(torch, args.seed)
     for name, worst in held.worst.items():  # over every case held, later paths' too
@@ -4359,7 +4580,12 @@ def main():
                                       "stage3_app": stage3_launches[name],
                                       "dp_train_rank0": dp_train_launches[name],
                                       "dp_app_rank0": dp_app_launches[name],
-                                      "app848": app848_launches[name]},
+                                      "app848": app848_launches[name],
+                                      "app848_sde": inpaint848_launches["app848_sde"][name],
+                                      "app848_brushnet":
+                                          inpaint848_launches["app848_brushnet"][name],
+                                      "sde848_65f": sde848_65f_launches[name],
+                                      "block_bench": block_bench_launches[name]},
                     **meta[name], **kernel_numbers[name], backward=backward[name])
                for name in meta]
     for k in kernels:

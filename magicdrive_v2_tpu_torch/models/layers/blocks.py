@@ -348,6 +348,65 @@ class CrossAttention(nn.Module):
         return self.proj(out.reshape(B, N, C))
 
 
+class SharedKVAttention(nn.Module):
+    """Attention through one shared qkv projection: q from x, k and v from
+    ``cond`` (x itself without one), optional per-head RMS qk-norm; the product
+    through ``ops.dot_product_attention``. No MagicDrive config builds it."""
+
+    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
+                 qk_norm: bool = False):
+        super().__init__()
+        self.dim, self.num_heads = dim, num_heads
+        self.head_dim = dim // num_heads
+        self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
+        self.q_norm = RMSNorm(self.head_dim) if qk_norm else None
+        self.k_norm = RMSNorm(self.head_dim) if qk_norm else None
+        self.proj = nn.Linear(dim, dim)
+
+    def forward(self, x: torch.Tensor, cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+        B, N, C = x.shape
+        H, D = self.num_heads, self.head_dim
+        cond = x if cond is None else cond
+        w, b = self.qkv.weight, self.qkv.bias
+        q = F.linear(x, w[:C], None if b is None else b[:C]).reshape(B, N, H, D)
+        kv = F.linear(cond, w[C:], None if b is None else b[C:])
+        kv = kv.reshape(B, cond.shape[1], 2, H, D)
+        k, v = kv[:, :, 0], kv[:, :, 1]
+        if self.q_norm is not None:
+            q, k = self.q_norm(q), self.k_norm(k)
+        out = dot_product_attention(q, k, v, scale=D ** -0.5)
+        return self.proj(out.reshape(B, N, C))
+
+
+class LabelEmbedder(nn.Module):
+    """Class-label embedding; with ``dropout_prob`` > 0 the table holds one more
+    row, the null label that ``force_drop_ids`` selects. No MagicDrive config
+    builds it."""
+
+    def __init__(self, num_classes: int, hidden_size: int, dropout_prob: float = 0.0):
+        super().__init__()
+        self.num_classes = num_classes
+        self.embedding_table = nn.Embedding(num_classes + int(dropout_prob > 0), hidden_size)
+
+    def forward(self, labels: torch.Tensor,
+                force_drop_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if force_drop_ids is not None:
+            labels = torch.where(force_drop_ids.bool(), self.num_classes, labels)
+        return self.embedding_table(labels)
+
+
+class FinalLayer(nn.Module):
+    """Plain (not adaLN) final projection: affine-free fp32 LayerNorm, then one
+    linear layer. No MagicDrive config builds it."""
+
+    def __init__(self, hidden_size: int, num_patch: int, out_channels: int):
+        super().__init__()
+        self.linear = nn.Linear(hidden_size, num_patch * out_channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.linear(layer_norm_fp32(x))
+
+
 def t_mask_select(x_mask: torch.Tensor, x: torch.Tensor, masked_x: torch.Tensor,
                   T: int, S: int) -> torch.Tensor:
     """Frame-conditioned select. x/masked_x: (B, T*S, C), x_mask: (B, T) bool."""

@@ -73,7 +73,7 @@ class T5Encoder:
         self.tokenizer = AutoTokenizer.from_pretrained(from_pretrained,
                                                        local_files_only=True)
         self.model = T5EncoderModel.from_pretrained(
-            from_pretrained, local_files_only=True, torch_dtype=dtype).to(self.device).eval()
+            from_pretrained, local_files_only=True, dtype=dtype).to(self.device).eval()
         self.model_max_length = model_max_length
         self.output_dim = self.model.config.d_model
         self.null_y: Optional[torch.Tensor] = None

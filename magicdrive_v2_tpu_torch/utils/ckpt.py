@@ -28,7 +28,6 @@ import os
 import random as pyrandom
 import re
 import struct
-from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -48,6 +47,7 @@ _NAME_REWRITES = [
     (re.compile(r"^after_proj_layer$"), "after_proj"),
     (re.compile(r"^qkv_kernel$"), "qkv.weight"),
     (re.compile(r"^qkv_bias$"), "qkv.bias"),
+    (re.compile(r"^embedding_table$"), "embedding_table.weight"),  # LabelEmbedder
     (re.compile(r"^kernel$"), "weight"),
     # the CogVideoX VAE's module tree
     (re.compile(r"^down_blocks_(\d+)$"), r"down_blocks.\1"),
@@ -114,7 +114,7 @@ def _torch_key(path: Tuple[str, ...], control_depth: int) -> Tuple[str, Optional
 
 def _to_torch_layout(key: str, w: np.ndarray) -> np.ndarray:
     w = np.asarray(w)
-    if not key.endswith("weight"):
+    if not key.endswith("weight") or key.endswith("embedding_table.weight"):
         return w
     if w.ndim == 2:
         return w.T
@@ -289,34 +289,33 @@ def resolve_pretrained_dir(path: str, subfolder: Optional[str] = None
 @torch.no_grad()
 def init_weights(model: torch.nn.Module, seed: int = 0, std: float = 0.02,
                  chunk: int = 1 << 24) -> torch.nn.Module:
-    """Fill every parameter and buffer with small normal values from
-    ``np.random.default_rng``: one stream per tensor, keyed by (seed, position in
-    the state dict), the tensors filled on 8 threads (numpy draws without the
-    GIL). The projections the reference zero-initialises are filled too, so every
-    branch of the network contributes to the output. RMSNorm and GroupNorm weights
-    centre on 1."""
+    """Fill every parameter and buffer with small normal values, drawn where the
+    tensor lives: one torch generator per tensor on its device, seeded from
+    (seed, position in the state dict), drawn in fp32 ``chunk`` values at a time,
+    scaled by ``std`` and rounded to the tensor's dtype. The same seed gives the same
+    weights on the same kind of device; the CPU's and the card's generators differ,
+    so a model to be held against another on the other device is copied, not
+    initialised twice. The projections the reference zero-initialises are filled
+    too, so every branch of the network contributes to the output. RMSNorm and
+    GroupNorm weights centre on 1."""
     centred = {f"{n}.weight" for n, m in model.named_modules()
                if isinstance(m, torch.nn.GroupNorm)}
-
-    def fill(item):
-        i, (name, t) = item
-        if not t.is_floating_point():
-            return
-        rng = np.random.default_rng([seed, i])
-        flat = t.view(-1)
-        for s in range(0, flat.numel(), chunk):
-            n = min(chunk, flat.numel() - s)
-            vals = torch.from_numpy(rng.standard_normal(n, np.float32))
-            flat[s:s + n] = (vals * std).to(device=t.device, dtype=t.dtype)
-        if name.endswith("_norm.weight") or name in centred:
-            t.add_(1.0)
-
     items = list(enumerate(model.state_dict().items()))
     # a tensor under two names is filled once, as its last name (what a fill in
     # order leaves)
     last = {t.data_ptr(): i for i, (_, t) in items if t.numel()}
-    with ThreadPoolExecutor(8) as pool:
-        list(pool.map(fill, [it for it in items if last.get(it[1][1].data_ptr()) == it[0]]))
+    for i, (name, t) in items:
+        if not t.is_floating_point() or last.get(t.data_ptr()) != i:
+            continue
+        gen = torch.Generator(device=t.device)
+        gen.manual_seed((seed * (1 << 20) + i) % (1 << 63))
+        flat = t.view(-1)
+        for s in range(0, flat.numel(), chunk):
+            n = min(chunk, flat.numel() - s)
+            vals = torch.randn(n, generator=gen, device=t.device, dtype=torch.float32)
+            flat[s:s + n] = (vals * std).to(t.dtype)
+        if name.endswith("_norm.weight") or name in centred:
+            t.add_(1.0)
     return model
 
 

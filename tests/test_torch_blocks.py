@@ -195,3 +195,50 @@ def test_t2i_final_layer_and_mask_select(masked):
                      JB.t_mask_select(j(xm), j(x), j(y), T, S), 0.0)
     else:
         assert_close(tm(t(x), t(tt)), jm.apply(p, j(x), j(tt)), ATOL)
+
+
+def _shared_kv(rng, cross, qk_norm=True, qkv_bias=True):
+    x = rng.standard_normal((2, 10, 32)).astype(np.float32)
+    args = (x, rng.standard_normal((2, 7, 32)).astype(np.float32)) if cross else (x,)
+    return (JB.SharedKVAttention(32, 4, qkv_bias=qkv_bias, qk_norm=qk_norm),
+            TB.SharedKVAttention(32, 4, qkv_bias=qkv_bias, qk_norm=qk_norm), args, {})
+
+
+def _label(rng, dropped):
+    labels = np.array([0, 4, 2, 6], np.int32)
+    kw = {"force_drop_ids": np.array([1, 0, 0, 1], np.int32)} if dropped else {}
+    prob = 0.1 if dropped else 0.0
+    return (JB.LabelEmbedder(7, 32, dropout_prob=prob), TB.LabelEmbedder(7, 32, prob),
+            (labels,), kw)
+
+
+def _final(rng):
+    x = rng.standard_normal((2, 12, 32)).astype(np.float32) * 3 + 0.5
+    return JB.FinalLayer(32, 4, 8), TB.FinalLayer(32, 4, 8), (x,), {}
+
+
+@pytest.mark.parametrize("case", [
+    "shared_kv_self", "shared_kv_cond", "shared_kv_no_bias_no_norm", "label", "label_dropped",
+    "final"])
+def test_blocks_no_config_builds(case):
+    """SharedKVAttention (q from x, k/v from cond through one qkv), LabelEmbedder
+    (the null row chosen by force_drop_ids) and FinalLayer (LayerNorm + linear):
+    weights through from_jax_params + load_state_dict(strict=True)."""
+    rng = np.random.default_rng(11)
+    jm, tm, args, kw = {
+        "shared_kv_self": lambda: _shared_kv(rng, False),
+        "shared_kv_cond": lambda: _shared_kv(rng, True),
+        "shared_kv_no_bias_no_norm": lambda: _shared_kv(rng, True, False, False),
+        "label": lambda: _label(rng, False),
+        "label_dropped": lambda: _label(rng, True),
+        "final": lambda: _final(rng)}[case]()
+    p = random_params(jm, *map(j, args), **{k: j(v) for k, v in kw.items()})
+    tm = load_into(tm, p)
+    out = tm(*map(t, args), **{k: t(v) for k, v in kw.items()})
+    assert_close(out, jm.apply(p, *map(j, args), **{k: j(v) for k, v in kw.items()}), ATOL)
+    if case == "label_dropped":  # the null row: index num_classes of the table
+        assert tm.embedding_table.weight.shape == (8, 32)
+        np.testing.assert_array_equal(out[0].detach().numpy(),
+                                      tm.embedding_table.weight[7].detach().numpy())
+    if case == "shared_kv_self":  # without cond, k/v come from x
+        assert_close(tm(t(args[0]), t(args[0])), out.detach().numpy(), 0.0)

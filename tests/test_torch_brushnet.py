@@ -48,10 +48,10 @@ def brush_configs(sde, **replace):
     return jb, TB.BrushNetConfig.from_base(tcfg, sde_inpaint=sde)
 
 
-def inpaint_inputs(nc, seed=0, frame_valid=None):
+def inpaint_inputs(nc, seed=0, frame_valid=None, hw=(HH, WW)):
     rng = np.random.default_rng(seed)
-    xi = rng.standard_normal((1, 3 * nc, NF, HH, WW)).astype(np.float32)
-    mi = rng.integers(0, 2, (1, nc, NF, HH, WW)).astype(np.float32)
+    xi = rng.standard_normal((1, 3 * nc, NF) + tuple(hw)).astype(np.float32)
+    mi = rng.integers(0, 2, (1, nc, NF) + tuple(hw)).astype(np.float32)
     if frame_valid is not None:  # pad frames are zero (the JAX model's contract)
         xi[:, :, ~frame_valid[0]] = 0
         mi[:, :, ~frame_valid[0]] = 0

@@ -147,20 +147,26 @@ def test_sample_repaint_matches_jax(imt):
 _PIPES = {}
 
 
-def pipes(kind):
+def pipes(kind, hh=HH, pad=None):
     """(JAX pipeline, port pipeline, conditions) of the tiny model ``kind``:
-    "brushnet", "sde" or "base"; one per kind and test module."""
-    if kind not in _PIPES:
+    "brushnet", "sde" or "base", for images of hh x WW, with
+    ``force_pad_h_for_sp_size=pad``; one per kind, size and pad and test module."""
+    key = (kind, hh, pad)
+    if key not in _PIPES:
+        replace = dict(model_max_length=L_TXT)
+        if pad:
+            replace["force_pad_h_for_sp_size"] = pad
         if kind == "base":
-            jcfg, tcfg = tiny_configs(model_max_length=L_TXT)
+            jcfg, tcfg = tiny_configs(**replace)
             jmodel, tcls = JModel(jcfg), MagicDriveSTDiT3
         else:
-            jcfg, tcfg = brush_configs(kind == "sde", model_max_length=L_TXT)
+            jcfg, tcfg = brush_configs(kind == "sde", **replace)
             jmodel, tcls = JBrush(jcfg), MagicDriveSTDiT3BrushNet
-        batch = synthetic_batch(tcfg, NF, HH, WW, l_txt=L_TXT, map_size=(8, 40, 40))
+        batch = synthetic_batch(tcfg, NF, hh, WW, l_txt=L_TXT, map_size=(8, 40, 40))
         extra = {}
         if kind != "base":
-            batch["x_inpaint"], batch["mask_inpaint"] = inpaint_inputs(tcfg.nc, seed=4)
+            batch["x_inpaint"], batch["mask_inpaint"] = inpaint_inputs(tcfg.nc, seed=4,
+                                                                       hw=(hh, WW))
         if kind == "sde":
             batch["t_inpaint"] = np.full((1,), 200.0, np.float32)
             extra["rngs_key"] = jax.random.PRNGKey(0)
@@ -171,8 +177,45 @@ def pipes(kind):
         tmodel = load_into(tcls(tcfg), params, control_depth=tcfg.control_depth)
         tpipe = MagicDrivePipeline(tcfg, TR.build_scheduler(sched), model=tmodel, device="cpu")
         cond = {k: v for k, v in batch.items() if k not in ("x", "timestep", "height", "width")}
-        _PIPES[kind] = (jpipe, tpipe, cond)
-    return _PIPES[kind]
+        _PIPES[key] = (jpipe, tpipe, cond)
+    return _PIPES[key]
+
+
+def check_latents(kind, slice_cfg, hh=HH, pad=None):
+    """Two Euler steps of the tiny ``kind`` model (``pipes``), t_inpaint 200 for the
+    SDE model, against the JAX pipeline's latents; the mask reaches them; without
+    a given draw the SDE noise comes from the sample's stream after z."""
+    jpipe, tpipe, cond = pipes(kind, hh, pad)
+    latent = LATENT[:3] + (hh // 8,) + LATENT[4:]
+    sched = rflow(type=("rflow-sdebrushnet" if kind == "sde" else "rflow-brushnet")
+                  + ("-slice" if slice_cfg else ""), num_sampling_steps=STEPS,
+                  inpaint_noise_scale=0.2)
+    jpipe.scheduler, tpipe.scheduler = JR.build_scheduler(sched), TR.build_scheduler(sched)
+    jcond, tcond = jtree(cond), dict(cond)
+    if kind == "sde":
+        key = jax.random.PRNGKey(1024)
+        jcond["rngs_key"] = key
+        shape = tpipe.inpaint_noise_shape(latent, slice_cfg)
+        assert shape == ((1 if slice_cfg else 2) * 6 * 16 * 3,) + latent[3:]
+        tcond["inpaint_input_noise"] = np.asarray(jax.random.normal(key, shape))
+    kw = dict(num_frames=NF, height=hh, width=WW, torch_seed=1027, decode=False)
+    ref = jpipe.sample(jcond, **kw)
+    out = tpipe.sample(tcond, **kw)
+    assert out.shape == latent and torch.isfinite(out).all()
+    assert_close(out, ref, 3e-4)
+    # the mask reaches the result
+    other = tpipe.sample({**tcond, "mask_inpaint": 1 - cond["mask_inpaint"]}, **kw)
+    assert float((other - out).abs().max()) > 1e-4
+    if kind == "sde":
+        # without a given draw, the noise comes from the sample's stream after z
+        g = torch.Generator().manual_seed(1027)
+        z = torch.randn(latent, generator=g)
+        noise = torch.randn(shape, generator=g)
+        drawn = tpipe.sample(cond, **kw)
+        again = tpipe.sample({**cond, "inpaint_input_noise": noise}, z=z,
+                             **{k: v for k, v in kw.items() if k != "torch_seed"})
+        np.testing.assert_array_equal(drawn.numpy(), again.numpy())
+    return tpipe
 
 
 @pytest.mark.parametrize("cfg_mode", ["batched", "slice"])
@@ -182,36 +225,7 @@ def test_pipeline_latents_match_jax(kind, cfg_mode):
     draws it from ``rngs_key`` for the batch it sees, the doubled batch under
     batched CFG and the same draw in both passes of slice CFG; the port takes
     that draw (``inpaint_input_noise``)."""
-    jpipe, tpipe, cond = pipes(kind)
-    slice_cfg = cfg_mode == "slice"
-    sched = rflow(type=("rflow-sdebrushnet" if kind == "sde" else "rflow-brushnet")
-                  + ("-slice" if slice_cfg else ""), num_sampling_steps=STEPS,
-                  inpaint_noise_scale=0.2)
-    jpipe.scheduler, tpipe.scheduler = JR.build_scheduler(sched), TR.build_scheduler(sched)
-    jcond, tcond = jtree(cond), dict(cond)
-    if kind == "sde":
-        key = jax.random.PRNGKey(1024)
-        jcond["rngs_key"] = key
-        shape = tpipe.inpaint_noise_shape(LATENT, slice_cfg)
-        assert shape == ((1 if slice_cfg else 2) * 6 * 16 * 3, 4, 5)
-        tcond["inpaint_input_noise"] = np.asarray(jax.random.normal(key, shape))
-    kw = dict(num_frames=NF, height=HH, width=WW, torch_seed=1027, decode=False)
-    ref = jpipe.sample(jcond, **kw)
-    out = tpipe.sample(tcond, **kw)
-    assert out.shape == LATENT and torch.isfinite(out).all()
-    assert_close(out, ref, 3e-4)
-    # the mask reaches the result
-    other = tpipe.sample({**tcond, "mask_inpaint": 1 - cond["mask_inpaint"]}, **kw)
-    assert float((other - out).abs().max()) > 1e-4
-    if kind == "sde":
-        # without a given draw, the noise comes from the sample's stream after z
-        g = torch.Generator().manual_seed(1027)
-        z = torch.randn(LATENT, generator=g)
-        noise = torch.randn(shape, generator=g)
-        drawn = tpipe.sample(cond, **kw)
-        again = tpipe.sample({**cond, "inpaint_input_noise": noise}, z=z,
-                             **{k: v for k, v in kw.items() if k != "torch_seed"})
-        np.testing.assert_array_equal(drawn.numpy(), again.numpy())
+    check_latents(kind, cfg_mode == "slice")
 
 
 def test_pipeline_sample_repaint_matches_jax():

@@ -24,24 +24,19 @@ NF = 9
 NOISE_SHAPE = (2 * 6 * 16 * 3, 3, 5)  # batched CFG doubles the batch the model sees
 
 
-@pytest.mark.parametrize("variant", ["sde", "brushnet"])
-def test_wcoda_inpainting_app_matches_jax(brush_assets, tmp_path, monkeypatch, caplog,
-                                          variant):
-    """Two clips (validation indices 0 and 1) cut to 7 frames, back-transformed to
-    48x80 with 4 rows on top, all-in-one; the latents and the frames against the
-    JAX app's, the SDE model at inpaint timestep 0.3 x 1000."""
+def check_wcoda_app(cfg, argv, ckpt, sde, noise_shape, monkeypatch, caplog, jax_argv=()):
+    """The JAX and the port's W-CODA app on ``cfg`` with ``argv`` (the JAX app's
+    followed by ``jax_argv``), the SDE model's noise (JAX's draw for
+    ``noise_shape``) handed over: the latents and the two clips' frames (7 frames,
+    48x80 with 4 rows on top, all-in-one) agree."""
     from magicdrive_v2_tpu_torch.scripts import test_magicdrive
     rec = Recorder(monkeypatch)
-    cfg = write_config(tmp_path / "cfg.py", tmp_path / "out", brush_assets["ann"],
-                       brush_assets["vae_dir"], NF, [0, 1])
-    flags = ["--sde", "--inpaint-noise-scale", "0.3"] if variant == "sde" else ["--brushnet"]
-    ckpt = brush_assets["ckpts"][variant]
-    argv = [cfg, "--save-mode", "all-in-one", "--ckpt-path", ckpt] + flags
-    run_jax_app("test_magicdrive", argv, monkeypatch)
+    argv = [cfg, "--save-mode", "all-in-one", "--ckpt-path", ckpt] + argv
+    run_jax_app("test_magicdrive", argv + list(jax_argv), monkeypatch)
     left = lambda: {}  # noqa: E731
-    if variant == "sde":
+    if sde:
         left = hand_over(monkeypatch, {1024 + ns: [jax_normal(jax.random.PRNGKey(1024 + ns),
-                                                              NOISE_SHAPE)]
+                                                              noise_shape)]
                                        for ns in range(2)})
     with caplog.at_level("INFO", logger="test"):
         saved = test_magicdrive.main(argv + ["--device", "cpu"])
@@ -55,6 +50,20 @@ def test_wcoda_inpainting_app_matches_jax(brush_assets, tmp_path, monkeypatch, c
         compare_frames(frames, ref, path)
         assert (frames[:, :4] == 128).all()  # the zero padding of [-1, 1] frames
         assert sorted(os.listdir(path)) == [f"{i:04d}.png" for i in range(7)]
+    return saved
+
+
+@pytest.mark.parametrize("variant", ["sde", "brushnet"])
+def test_wcoda_inpainting_app_matches_jax(brush_assets, tmp_path, monkeypatch, caplog,
+                                          variant):
+    """Two clips (validation indices 0 and 1) cut to 7 frames, back-transformed to
+    48x80 with 4 rows on top, all-in-one; the latents and the frames against the
+    JAX app's, the SDE model at inpaint timestep 0.3 x 1000."""
+    cfg = write_config(tmp_path / "cfg.py", tmp_path / "out", brush_assets["ann"],
+                       brush_assets["vae_dir"], NF, [0, 1])
+    flags = ["--sde", "--inpaint-noise-scale", "0.3"] if variant == "sde" else ["--brushnet"]
+    check_wcoda_app(cfg, flags, brush_assets["ckpts"][variant], variant == "sde",
+                    NOISE_SHAPE, monkeypatch, caplog)
 
 
 def test_brushnet_model_type_and_wrappers_reach_the_same_app(brush_assets, tmp_path,

@@ -20,6 +20,23 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from magicdrive_v2_tpu_torch.utils.ckpt import from_jax_params, load_state_dict_cast
 
+# Two intra-op threads for the port's CPU ops in every process that imports these
+# helpers (each test worker does): the tier-1 run puts 6 workers on 8 cores, and a
+# torch thread per core in each oversubscribes them, its idle OpenMP threads
+# spinning on cores the other workers' JAX compiles need. ALL_THREADS: the count
+# before, for a module whose checks were written against it (``all_threads``).
+ALL_THREADS = torch.get_num_threads()
+torch.set_num_threads(min(ALL_THREADS, 2))
+
+
+def all_threads():
+    """A module-scoped autouse fixture body: torch's own thread count for the
+    module's tests, the cap again after them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(ALL_THREADS)
+    yield
+    torch.set_num_threads(n)
+
 
 def fill_tree(shapes, seed=0, std=0.05):
     """Random values for every leaf of a tree of ShapeDtypeStructs: normal(std),

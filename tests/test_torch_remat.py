@@ -169,6 +169,7 @@ def test_chip_smoke_derives_the_brushnet_backward_calls(monkeypatch):
     import chip_smoke
     from magicdrive_v2_tpu_torch import ops
     from magicdrive_v2_tpu_torch.ops import plain_vjp
+    from magicdrive_v2_tpu_torch.tools.block_bench import patch_points
 
     calls = {}
 
@@ -182,7 +183,7 @@ def test_chip_smoke_derives_the_brushnet_backward_calls(monkeypatch):
         return wrapper
 
     for (module, attr), name, plain in zip(
-            chip_smoke.patch_points(),
+            patch_points(),
             ("fused_qkv_attention", "adaln_modulate", "flash_attention"),
             (ops.fused_qkv_attention_plain, ops.adaln_modulate_plain, ops.plain_attention)):
         monkeypatch.setattr(module, attr, as_on_the_card(name, plain))

@@ -51,9 +51,25 @@ TINY_VAE = dict(block_out_channels=[8, 8, 8, 16], latent_channels=16, layers_per
 LATENT_ATOL = 3e-4
 FRAME_MAX, FRAME_MEAN = 2, 0.05
 
-CFG = '''
-from magicdrive_v2_tpu.config.presets import MV_ORDER_MAP, img_collate_param, rflow, xl2_model
+# the dataset part of the configs: the val split on the mini set at 24x40
+CFG_DATASET = '''
+from magicdrive_v2_tpu.config.presets import img_collate_param
 from magicdrive_v2_tpu.config.yaml_compose import load_yaml_config
+
+_yaml = load_yaml_config({yaml_path!r})
+_pipe = _yaml["test_pipeline"]
+for _t in _pipe:
+    if _t["type"] == "ImageAug3D":
+        _t["final_dim"] = [24, 40]
+        _t["resize_lim"] = [0.25, 0.25]
+_val = dict(_yaml["data"]["val"], ann_file={ann_file!r}, dataset_root="", pipeline=_pipe,
+            img_collate_param=dict(img_collate_param(bbox_mode, is_train=False),
+                                   template=_yaml["template"]))
+dataset = dict(data=dict(val=_val))
+'''
+
+CFG = '''
+from magicdrive_v2_tpu.config.presets import MV_ORDER_MAP, rflow, xl2_model
 
 dtype = "fp32"
 seed = 3
@@ -79,18 +95,7 @@ model.pop("from_pretrained", None)
 scheduler = rflow(num_sampling_steps=2, cfg_scale=2.0)
 text_encoder = dict(type="t5-dummy", model_max_length=16)
 vae = dict(from_pretrained={vae_dir!r}, micro_frame_size=None, micro_batch_size=None)
-
-_yaml = load_yaml_config({yaml_path!r})
-_pipe = _yaml["test_pipeline"]
-for _t in _pipe:
-    if _t["type"] == "ImageAug3D":
-        _t["final_dim"] = [24, 40]
-        _t["resize_lim"] = [0.25, 0.25]
-_val = dict(_yaml["data"]["val"], ann_file={ann_file!r}, dataset_root="", pipeline=_pipe,
-            img_collate_param=dict(img_collate_param(bbox_mode, is_train=False),
-                                   template=_yaml["template"]))
-dataset = dict(data=dict(val=_val))
-'''
+''' + CFG_DATASET
 
 
 @pytest.fixture(scope="module")
