@@ -205,7 +205,37 @@ card. It imports only ``magicdrive_v2_tpu_torch`` and
 23. ``extract_masks`` ``tools.extract_masks`` with its stub backend over 12 JPEGs of
                 900x1600 on the card and on the host: the masks equal; then the
                 transformers backend and the pipeline's SegFormer segmenter on a tiny
-                seeded SegFormer written locally, card against host in fp32.
+                seeded SegFormer written locally, card against host in fp32;
+24. ``ped_video`` (after ``pedestrian``, whose first card run's renders it keeps):
+                OpenCV's video backend (FFMPEG required); the 900x1600 renders resized
+                to 424x800 (PIL bicubic, masks nearest; a black frame where a camera
+                saw nobody), laid out per camera and written by ``tools.
+                create_video_12hz`` as the 2x3 grid ``videos.mp4`` / ``masks.mp4`` and
+                by ``tools.img_folder2vid`` as ``<CAM>.mp4`` / ``<CAM>_mask.mp4``
+                (mp4v); both read back by the apps' loaders (``load_grid_video``,
+                ``load_pedestrian_inputs``) and held against the frames written (each
+                view within 0.5 levels on average and 0.2 of its mean level, each
+                mask's IoU >= 0.99, pedestrians in exactly the views written, no view
+                swapped); then, once phase plan_memory's ranks have ended, the W-CODA
+                app with ``--sde --ped-video-dir`` on
+                the grid, XL/2-SDEBrushNet at full width and depth, 9 frames, 1 step:
+                the model given the loader's arrays bit for bit, launch counters, the
+                frames read back, every shape held against its plain version;
+25. ``kernel_bench`` ``tools.kernel_bench``: K1 at G=60, N=1350, H=16, D=72 in
+                bf16, J=1 and J=2, the kernel, its plain version and SDPA, chained ms;
+                the kernel within the limits of phase 3 against the plain version;
+26. ``perf_lab``  ``tools.perf_lab``: ``time`` of the 424p batched-CFG step at 2
+                chained steps (p50 of 3 calls), then ``profile`` of one step and
+                ``report`` of its trace: the three kernels found by their CUDA names,
+                the device time summed over kernels within the timed step's, the
+                device's busy share;
+27. ``plan_memory`` ``tools.plan_memory`` at full width, 6 x 424x800 x 17, depth 7 /
+                control 4, remat full, on (dp, sp) = (2, 1), then (1, 2) (each case's
+                ranks share the card over gloo; they run beside phases pedestrian,
+                extract_masks and ped_video's host part, whose seconds they lengthen,
+                and end before ped_video's app runs): each rank's parameter and
+                buffer bytes equal to the fsdp split's, the loss and grad norm equal
+                on every rank, each rank's peak.
 
 Every phase prints one JSON line. Any failure raises: the exit code is then not
 0 and no result line is printed. Without a card the script exits with code 1.
@@ -744,10 +774,9 @@ def check_kernels(torch, seen, l_cond):
 
 
 def xl2_config(torch, dtype, **overrides):
-    from magicdrive_v2_tpu_torch.config.presets import MV_ORDER_MAP, xl2_model
-    from magicdrive_v2_tpu_torch.models.magicdrive.stdit3 import build_model_config
-    return build_model_config(xl2_model(control_skip_temporal=False), vae_out_channels=16,
-                              mv_order_map=MV_ORDER_MAP, dtype=dtype, **overrides)
+    """XL/2 as the 424x800 config builds it (``tools/perf_lab.flagship_config``)."""
+    from magicdrive_v2_tpu_torch.tools.perf_lab import flagship_config
+    return flagship_config(dtype, **overrides)
 
 
 def cogvideox_vae(torch, dtype, seed, device="cuda"):
@@ -4261,10 +4290,11 @@ def run_scene_timed(torch, processor, frames, out_dir):
     return n, textures, read_pngs(out_dir), seconds
 
 
-def run_pedestrian(torch, seed):
+def run_pedestrian(torch, seed, keep_renders=None):
     """Phase pedestrian: the SMPL pedestrian pipeline at full size on the card (see
     the module docstring); the scene is made on the card, the CPU run of the port is
-    the reference."""
+    the reference. With ``keep_renders`` (a path) the first card run's PNG pairs are
+    copied there (phase ped_video reads them)."""
     import numpy as np
 
     from magicdrive_v2_tpu_torch.pedestrian.smpl import make_real_processor
@@ -4309,6 +4339,8 @@ def run_pedestrian(torch, seed):
             differ = v != pngs_cpu[k]
             px_diff[k] = float((differ.any(-1) if differ.ndim == 3 else differ).mean())
         require(max(px_diff.values()) <= 1e-3, px_diff)
+        if keep_renders is not None:
+            shutil.copytree(os.path.join(root, "card0"), keep_renders)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     emit("pedestrian", cameras=[c for c, _ in PED_CAMERA_YAWS], image_hw=[PED_H, PED_W],
@@ -4400,6 +4432,418 @@ def write_tiny_segformer(torch, path, seed):
                        reduce_labels=False), f)
 
 
+# ---------------------------------------------------------------------------
+# phases 24-27: the pedestrian videos into the apps, and the measurement tools
+# ---------------------------------------------------------------------------
+
+PED_VIDEO_FRAMES = APP_FRAMES    # frames of the W-CODA run on the rendered pedestrians
+PED_VIDEO_STEPS = 1
+# a view read back against the frames written (sound reads on an H100's machine: 0.05-0.14
+# levels a view, 0.06-0.07 of the view's mean level, masks equal on every pixel; the
+# renders are 97-99 % black, 0.7-2.3 levels a view on average, so an all-black read
+# misses by 0.7 levels or more, and the pedestrians cover < 1 % of the pixels)
+PED_VIDEO_RGB_LIMIT = 0.5        # mean abs error of a view, levels of 255
+PED_VIDEO_RGB_SHARE = 0.2        # ... and of a view with content, over its mean level
+PED_VIDEO_MASK_IOU = 0.99        # a view's mask read back over the one written
+# levels of 255 within which two views' mean colours count as one colour (the
+# renders are pedestrians on black, 0.7-2.3 levels a view on average; a view's mean
+# reads back within ~0.02)
+PED_VIDEO_SAME_COLOUR = 0.25
+PLAN_MEMORY_CASES = ((2, 1), (1, 2))  # (dp, sp) of phase plan_memory
+PLAN_MEMORY_DEADLINE_S = 600
+
+
+def ped_video_layout(torch, renders, root):
+    """The pipeline's flat ``<stem>.png`` / ``<stem>_mask.png`` renders (900x1600, a
+    pair only where a camera saw a pedestrian) laid out as ``create_video_12hz``
+    reads them: ``root/rgb/<CAM>/fNNNNN.png`` and ``root/mask/<CAM>/...`` at 424x800
+    (PIL bicubic for RGB, nearest for masks), a black frame where a camera saw none.
+    Returns (rgb (NC, T, H, W, 3), mask (NC, T, H, W) uint8) as written."""
+    import numpy as np
+    from PIL import Image
+
+    from magicdrive_v2_tpu_torch.utils.video import CAMS
+    rgb = np.zeros((6, PED_FRAMES, HEIGHT, WIDTH, 3), np.uint8)
+    mask = np.zeros((6, PED_FRAMES, HEIGHT, WIDTH), np.uint8)
+    for ci, cam in enumerate(CAMS):
+        for kind in ("rgb", "mask"):
+            os.makedirs(os.path.join(root, kind, cam), exist_ok=True)
+        for f in range(PED_FRAMES):
+            stem = os.path.join(renders, f"frame{f:04d}_{cam}")
+            if os.path.isfile(stem + ".png"):
+                with Image.open(stem + ".png") as im:
+                    rgb[ci, f] = np.asarray(im.convert("RGB").resize((WIDTH, HEIGHT),
+                                                                     Image.BICUBIC))
+                with Image.open(stem + "_mask.png") as im:
+                    mask[ci, f] = np.asarray(im.convert("L").resize((WIDTH, HEIGHT),
+                                                                    Image.NEAREST))
+            Image.fromarray(rgb[ci, f]).save(os.path.join(root, "rgb", cam, f"f{f:05d}.png"))
+            Image.fromarray(mask[ci, f]).save(os.path.join(root, "mask", cam, f"f{f:05d}.png"))
+    return rgb, mask
+
+
+def held_against_written(views, rgb, mask):
+    """Views read back by a loader ((NC, 3, T, H, W) in [-1, 1] and (NC, 1, T, H, W)
+    0/1) against the frames written: each view's mean abs error in levels and over
+    its written mean level, each view's mean colour per channel (written, read),
+    each view's mask IoU (read against written, 1 where both are empty). Requires
+    each view within PED_VIDEO_RGB_LIMIT, each view with content within
+    PED_VIDEO_RGB_SHARE of its mean level, each mask IoU at PED_VIDEO_MASK_IOU or
+    more, pedestrians read back in exactly the views they were written to (one or
+    more), and each view's mean colour nearer its own written view's than any
+    written view of another colour (no view swapped; views of one colour, such as
+    black ones where a camera saw no pedestrian, cannot be told apart)."""
+    import numpy as np
+    imgs, masks = views
+    t = imgs.shape[2]
+    got = np.rint((imgs.transpose(0, 2, 3, 4, 1) + 1) * 127.5)  # (NC, T, H, W, 3)
+    want = rgb[:, :t].astype(np.float64)
+    err = np.abs(got - want).mean(axis=(1, 2, 3, 4))
+    level = want.mean(axis=(1, 2, 3, 4))
+    mean_got, mean_want = got.mean(axis=(1, 2, 3)), want.mean(axis=(1, 2, 3))
+    m_got, m_want = masks[:, 0] > 0.5, mask[:, :t] > 127
+    inter = (m_got & m_want).sum(axis=(1, 2, 3))
+    union = (m_got | m_want).sum(axis=(1, 2, 3))
+    iou = np.where(union > 0, inter / np.maximum(union, 1), 1.0)
+    with_ped = [v for v in range(len(err)) if m_want[v].any()]
+    require(bool((err <= PED_VIDEO_RGB_LIMIT).all()), ("rgb error", err))
+    require(all(err[v] <= PED_VIDEO_RGB_SHARE * level[v] for v in range(len(err))
+                if level[v] > 0), ("rgb error over the view's level", err, level))
+    require(bool((iou >= PED_VIDEO_MASK_IOU).all()), ("mask IoU", iou))
+    require(len(with_ped) > 0 and with_ped == [v for v in range(len(err)) if m_got[v].any()],
+            ("views with a pedestrian", with_ped))
+    distinct = 0
+    for v in range(len(err)):  # the written view nearest in mean colour has v's colour
+        near = int(np.abs(mean_want - mean_got[v]).max(axis=1).argmin())
+        require(np.abs(mean_want[near] - mean_want[v]).max() <= PED_VIDEO_SAME_COLOUR,
+                ("view swapped", v, near))
+        distinct += all(np.abs(mean_want[w] - mean_want[v]).max() > PED_VIDEO_SAME_COLOUR
+                        for w in range(len(err)) if w != v)
+    return dict(mean_abs_err_levels=err.tolist(), view_mean_levels=level.tolist(),
+                mask_iou=iou.tolist(), mask_pixels_written=m_want.sum(axis=(1, 2, 3)).tolist(),
+                views_with_pedestrians=with_ped, mean_rgb_written=mean_want.tolist(),
+                mean_rgb_read=mean_got.tolist(), views_told_apart=distinct)
+
+
+@contextlib.contextmanager
+def recorded_inpaint_inputs(record):
+    """Note the x_inpaint / mask_inpaint (host numpy) of every
+    ``MagicDrivePipeline.sample`` call, and whether the video it returned is
+    finite."""
+    import numpy as np
+    from magicdrive_v2_tpu_torch.pipelines import magicdrive as pipelines
+    real = pipelines.MagicDrivePipeline.sample
+
+    def sample(self, batch, *args, **kw):
+        out = real(self, batch, *args, **kw)
+        record.append(dict(x_inpaint=np.array(batch["x_inpaint"]),
+                           mask_inpaint=np.array(batch["mask_inpaint"]),
+                           finite=bool(out.isfinite().all()), shape=list(out.shape)))
+        return out
+
+    pipelines.MagicDrivePipeline.sample = sample
+    try:
+        yield record
+    finally:
+        pipelines.MagicDrivePipeline.sample = real
+
+
+def run_ped_video(torch, renders, sde_per_forward, encode_launches, held, before_app=None):
+    """Phase ped_video (see the module docstring): the pedestrian renders of phase
+    pedestrian into the two video layouts through the port's tools, read back by the
+    apps' loaders and held against the frames written, then (after ``before_app()``,
+    where given) the W-CODA app with ``--sde --ped-video-dir`` at full width on
+    them. Returns its launches."""
+    from magicdrive_v2_tpu_torch.scripts import test_magicdrive
+    from magicdrive_v2_tpu_torch.scripts.inference_magicdrive_brushnet import (
+        inpaint_batch_inputs, load_pedestrian_inputs)
+    from magicdrive_v2_tpu_torch.tools import create_video_12hz, img_folder2vid
+    from magicdrive_v2_tpu_torch.utils import video
+    from magicdrive_v2_tpu_torch.utils.inference_utils import read_png
+    t_phase = time.time()
+    backend = video.backend_report()
+    require(backend["ffmpeg"], backend)
+    root = tempfile.mkdtemp(prefix="chip_smoke_ped_video_")
+    out_dir = os.path.join("outputs", "chip_smoke_ped_video")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    try:
+        t0 = time.time()
+        rgb, mask = ped_video_layout(torch, renders, os.path.join(root, "layout"))
+        grid_dir, cam_dir = os.path.join(root, "grid", "0"), os.path.join(root, "cams")
+        made = [create_video_12hz.grid_video(os.path.join(root, "layout", "rgb"),
+                                             os.path.join(grid_dir, "videos.mp4")),
+                create_video_12hz.grid_video(os.path.join(root, "layout", "mask"),
+                                             os.path.join(grid_dir, "masks.mp4"))]
+        for cam in video.CAMS:
+            made.append(img_folder2vid.folder_to_video(
+                os.path.join(root, "layout", "rgb", cam), os.path.join(cam_dir, f"{cam}.mp4")))
+            made.append(img_folder2vid.folder_to_video(
+                os.path.join(root, "layout", "mask", cam),
+                os.path.join(cam_dir, f"{cam}_mask.mp4")))
+        require(all(n == PED_FRAMES for _, n in made), made)
+        write_s = time.time() - t0
+        t0 = time.time()
+        grid = (test_magicdrive.load_grid_video(os.path.join(grid_dir, "videos.mp4"),
+                                                PED_FRAMES, HEIGHT, WIDTH),
+                test_magicdrive.load_grid_video(os.path.join(grid_dir, "masks.mp4"),
+                                                PED_FRAMES, HEIGHT, WIDTH, grayscale=True))
+        cams = load_pedestrian_inputs(cam_dir, PED_FRAMES, HEIGHT, WIDTH)
+        read_s = time.time() - t0
+        held_grid = held_against_written(grid, rgb, mask)
+        held_cams = held_against_written(cams, rgb, mask)
+        files_s = time.time() - t_phase
+        t0 = time.time()
+        if before_app is not None:
+            before_app()
+        waited_s = time.time() - t0
+        free_gb_at_app = torch.cuda.mem_get_info()[0] / 1e9
+        # the W-CODA app on the grid videos: synthetic conditioning, sample index 0
+        config = os.path.join(root, "ped_video_config.py")
+        write_config(config, {
+            "_base_": os.path.abspath(BRUSHNET_CONFIG), "num_frames": PED_VIDEO_FRAMES,
+            "outputs": out_dir, "save_mode": "all-in-one", "post": WCODA_POST,
+            "scheduler": {"num_sampling_steps": PED_VIDEO_STEPS}})
+        record, seen = [], no_shapes()
+        reset_counters()
+        t0 = time.time()
+        with recorded_inpaint_inputs(record), recorded_shapes(seen):
+            saved = test_magicdrive.main([config, "--synthetic", "--num-samples", "1", "--sde",
+                                          "--ped-video-dir", os.path.dirname(grid_dir)])
+        app_s = time.time() - t0
+        got = read_counters()
+        from magicdrive_v2_tpu_torch.config.config import Config
+        passes = 2 if "slice" in Config.fromfile(config).scheduler.type else 1
+        want = {k: passes * (sde_per_forward[k] * PED_VIDEO_STEPS + encode_launches[k])
+                for k in sde_per_forward}
+        require(got == want, (got, want))
+        # the model was given the loader's arrays, bit for bit
+        x_want, m_want = inpaint_batch_inputs(
+            *(a[:, :, :PED_VIDEO_FRAMES] for a in grid))
+        require(len(record) == 1 and record[0]["finite"], [r["finite"] for r in record])
+        require((record[0]["x_inpaint"] == x_want).all()
+                and (record[0]["mask_inpaint"] == m_want).all(), "inpaint inputs")
+        cut = WCODA_POST["cut_length"]
+        require(len(saved) == 1, len(saved))
+        path, frames = saved[0]
+        names = sorted(os.listdir(path))
+        require(names == [f"{i:04d}.png" for i in range(cut)], names)
+        for i, name in enumerate(names):
+            require(bool((read_png(os.path.join(path, name)) == frames[i]).all()), name)
+        require(float(frames.std()) > 1.0, "constant frames")
+        cases = held.hold(seen, "ped_video")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(out_dir, ignore_errors=True)
+    emit("ped_video", cv2=backend, renders_hw=[PED_H, PED_W], video_hw=[HEIGHT, WIDTH],
+         frames=PED_FRAMES, videos=len(made), codec=video.FOURCC,
+         h264_read="not run: this machine's OpenCV encodes no H.264, so no H.264 file can "
+                   "be made here",
+         grid_vs_written=held_grid, cameras_vs_written=held_cams,
+         app=dict(config=BRUSHNET_CONFIG, argv=["--synthetic", "--sde", "--ped-video-dir"],
+                  frames=PED_VIDEO_FRAMES, steps=PED_VIDEO_STEPS, seconds=app_s,
+                  frame_shape=list(frames.shape[1:]), video_shape=record[0]["shape"],
+                  inpaint_inputs_equal_loader=True),
+         kernel_cases=len(cases), launches=got, write_videos_s=write_s,
+         read_videos_s=read_s, files_s=files_s, free_gb_at_app=free_gb_at_app,
+         seconds=time.time() - t_phase - waited_s, waited_for_plan_memory_s=waited_s)
+    return got
+
+
+def run_kernel_bench(torch, seed):
+    """Phase kernel_bench: ``tools/kernel_bench`` at its shape (K1 at G=60, N=1350,
+    H=16, D=72, bf16, J=1 and J=2): the kernel, the plain version and SDPA, chained
+    ms; the kernel held against the plain version on the tool's inputs within the
+    limits of ``compare``."""
+    from magicdrive_v2_tpu_torch.tools import kernel_bench as kb
+    t0 = time.time()
+    rows = kb.bench("cuda", seed=seed)
+    require({(r["route"], r["J"]) for r in rows}
+            == {(route, J) for route in kb.ROUTES for J in (1, 2)}, rows)
+    require(all(r["kernel_launches"] == (kb.LOOP + 1 if r["route"] == "kernel" else 0)
+                for r in rows), rows)
+    checks = []
+    for case in kb.kernel_cases(seed=seed):
+        err, ratio, rms_ratio, _ = compare(torch, case["kernel"], case["plain"],
+                                           2.0 ** -7 * case["abs_v"].float())
+        require(ratio <= 1.0 and rms_ratio <= 1.0, (case["J"], err, ratio, rms_ratio))
+        checks.append(dict(J=case["J"], max_abs_err=err, err_over_limit=ratio,
+                           rms_err_over_limit=rms_ratio))
+    ms = {(r["route"], r["J"]): r["ms"] for r in rows}
+    emit("kernel_bench", shape=kb.SHAPE, loop=kb.LOOP, rows=rows, kernel_vs_plain=checks,
+         kernel_over_sdpa={J: ms[("kernel", J)] / ms[("sdpa", J)] for J in (1, 2)},
+         seconds=time.time() - t0)
+    torch.cuda.empty_cache()
+
+
+PERF_LAB_CHAINED = 2
+PERF_LAB_SLACK = 0.02  # the profiled step's device time over the timed step's
+
+
+def run_perf_lab(torch, seed, per_forward):
+    """Phase perf_lab: ``tools/perf_lab`` ``time`` at ``chained`` PERF_LAB_CHAINED on
+    its step (XL/2 bf16, 6 x 424x800 x 17, batched CFG), then ``profile`` of one
+    chained call of 1 step and ``report`` of its trace: the three kernels among its
+    entries by their CUDA names (their places by device time), the summed device time within the timed step's
+    (PERF_LAB_SLACK), the device's busy share of the step. Returns the launches of
+    one timed call."""
+    from magicdrive_v2_tpu_torch.tools import perf_lab
+    t0 = time.time()
+    step = perf_lab.build_step(PERF_LAB_CHAINED, seed=seed)
+    step.encode()
+    reset_counters()
+    out = step()
+    torch.cuda.synchronize()
+    launches = read_counters()
+    want = {k: PERF_LAB_CHAINED * per_forward[k] for k in per_forward}
+    require(launches == want, (launches, want))
+    require(bool(out.isfinite().all()) and out.shape == step.z.shape, "perf_lab step output")
+    del out
+    timed = perf_lab.time_step(step, calls=3, warm=False)
+    trace_dir = tempfile.mkdtemp(prefix="chip_smoke_perf_lab_")
+    try:
+        step.chained = 1
+        t1 = time.time()
+        path = perf_lab.trace(step, trace_dir, "profile", warm=False)
+        trace_s = time.time() - t1
+        trace_mb = os.path.getsize(path) / 1e6
+        rep = perf_lab.report(trace_dir, top=None)
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    # each kernel's place among the entries by device time (K1 is its two launches)
+    names = [r["name"] for r in rep["top"]]
+    found = {k: next((i for i, n in enumerate(names) if k in n), None)
+             for k in ("k1_attention", "k1_tile_k", "adaln_rows", "k3_")}
+    require(all(i is not None for i in found.values()), (found, names[:40]))
+    step_ms = timed["p50_s"] * 1e3
+    require(rep["total_ms"] <= step_ms * (1 + PERF_LAB_SLACK), (rep["total_ms"], step_ms))
+    emit("perf_lab", command="time", chained=PERF_LAB_CHAINED, time=timed,
+         report=dict(total_device_ms=rep["total_ms"], span_ms=rep["span_ms"],
+                     events=rep["events"], entries=len(names), top=rep["top"][:15]),
+         device_busy_share=rep["total_ms"] / step_ms, kernel_places=found,
+         trace_s=trace_s, trace_mb=trace_mb, launches=launches, seconds=time.time() - t0)
+    del step
+    torch.cuda.empty_cache()
+    return launches
+
+
+def plan_memory_split_bytes(torch, dp, depth):
+    """The bytes a rank holds of the fp32 masters under ``parallel.fsdp``'s split
+    over ``dp`` (a split parameter's block, the others whole) and of the buffers
+    (whole), for XL/2 at ``depth`` (depth, control depth), counted on the meta
+    device."""
+    from magicdrive_v2_tpu_torch.models.magicdrive.stdit3 import MagicDriveSTDiT3
+    from magicdrive_v2_tpu_torch.parallel.fsdp import param_spec
+    from magicdrive_v2_tpu_torch.tools.perf_lab import flagship_config
+    with torch.device("meta"):
+        model = MagicDriveSTDiT3(flagship_config(torch.bfloat16, depth=depth[0],
+                                                 control_depth=depth[1]))
+    params = sum(p.numel() * 4 // (dp if param_spec(tuple(p.shape), dp) is not None else 1)
+                 for p in model.parameters())
+    return params, sum(b.numel() * b.element_size() for b in model.buffers())
+
+
+def plan_memory_args(case):
+    from magicdrive_v2_tpu_torch.tools import plan_memory
+    dp, sp = case
+    return plan_memory.parse_args([
+        "--dp", str(dp), "--sp", str(sp), "--depth", str(STAGE3_APP_DEPTH[0]),
+        "--control-depth", str(STAGE3_APP_DEPTH[1]), "--remat", "full",
+        "--deadline", str(PLAN_MEMORY_DEADLINE_S)])
+
+
+def start_plan_memory(torch, root):
+    """Phase plan_memory's ranks, started now, every case's at once: each imports
+    and then waits for its case's file ``root/go_<dp>_<sp>`` before it joins its
+    group and touches the card (this script's --plan-memory-worker). A thread lets
+    the cases run one after the other (their peaks together would not fit the card)
+    while this process goes on with other phases. Returns the run for
+    ``run_plan_memory``; ``close_plan_memory`` ends whatever still runs."""
+    from magicdrive_v2_tpu_torch.parallel.distributed import RankGroup
+    from magicdrive_v2_tpu_torch.tools import plan_memory
+    gc.collect()
+    torch.cuda.empty_cache()  # this process's cache back to the card for the ranks
+    run = dict(groups={}, outs={}, errors=[], t0=time.time())
+    try:
+        for case in PLAN_MEMORY_CASES:
+            args = plan_memory_args(case)
+            env, local_ranks, backend = plan_memory.launch_plan(args)
+            go = os.path.join(root, "go_%d_%d" % case)
+            # two host threads a rank: the phases beside them keep the host's cores
+            env = dict(env, MDV2_START_FILE=go, OMP_NUM_THREADS="2",
+                       MDV2_PLAN_ARGV=json.dumps(plan_memory.rank_argv(args)))
+            run["groups"][case] = (RankGroup(args.dp * args.sp,
+                                             [os.path.abspath(__file__),
+                                              "--plan-memory-worker"],
+                                             PLAN_MEMORY_DEADLINE_S, env=env,
+                                             local_ranks=local_ranks), backend, go)
+    except BaseException:
+        close_plan_memory(run)
+        raise
+
+    def cases_in_turn():
+        try:
+            for case in PLAN_MEMORY_CASES:
+                group, _, go = run["groups"][case]
+                open(go, "w").close()
+                run["outs"][case] = group.wait()
+        except BaseException as e:  # noqa: BLE001 -- raised again by run_plan_memory
+            run["errors"].append(e)
+
+    run["thread"] = threading.Thread(target=cases_in_turn, daemon=True)
+    run["thread"].start()
+    return run
+
+
+def close_plan_memory(run):
+    for group, _, _ in run["groups"].values():
+        group.close()
+
+
+def plan_memory_worker():
+    """One rank of phase plan_memory: imports the tool, waits for its case's start
+    file, then runs ``tools/plan_memory``'s rank worker on MDV2_PLAN_ARGV."""
+    from magicdrive_v2_tpu_torch.tools import perf_lab, plan_memory  # noqa: F401
+    await_go(PLAN_MEMORY_DEADLINE_S, "MDV2_START_FILE")
+    return plan_memory.main(json.loads(os.environ["MDV2_PLAN_ARGV"]) + ["--rank-worker"])
+
+
+def run_plan_memory(torch, run, beside):
+    """Phase plan_memory: ``tools/plan_memory`` at full width, 6 x 424x800 x 17, depth
+    STAGE3_APP_DEPTH, remat full, on (dp, sp) = PLAN_MEMORY_CASES (the ranks of
+    ``start_plan_memory``, each case's sharing the card over gloo, the phases
+    ``beside`` running meanwhile in this process): waits for them; each rank's
+    parameter and buffer bytes equal what the fsdp split gives it, finite loss and
+    grad norm equal on every rank, the peaks."""
+    from magicdrive_v2_tpu_torch.tools import plan_memory
+    t0 = time.time()
+    run["thread"].join(PLAN_MEMORY_DEADLINE_S)
+    require(not run["thread"].is_alive(), "plan_memory's ranks outlived their deadline")
+    if run["errors"]:
+        raise run["errors"][0]
+    wait_s = time.time() - t0
+    results = {}
+    for case in PLAN_MEMORY_CASES:
+        _, backend, _ = run["groups"][case]
+        results[case] = plan_memory.summarise(plan_memory_args(case), run["outs"][case],
+                                              backend)
+    rows = {}
+    for (dp, sp), res in results.items():
+        params, buffers = plan_memory_split_bytes(torch, dp, STAGE3_APP_DEPTH)
+        for r in res["ranks"]:
+            require((r["param_bytes"], r["buffer_bytes"]) == (params, buffers),
+                    (dp, sp, r, params, buffers))
+            require(r["finite"] and r["peak_bytes"] > 0, r)
+        require(len({(r["loss"], r["grad_norm"]) for r in res["ranks"]}) == 1, res["ranks"])
+        rows[f"dp{dp}_sp{sp}"] = {k: v for k, v in res.items() if k != "ranks"}
+        rows[f"dp{dp}_sp{sp}"]["ranks"] = [
+            {k: r[k] for k in ("rank", "param_bytes", "buffer_bytes", "batch_bytes",
+                               "peak_bytes", "step_s", "loss", "grad_norm")}
+            for r in res["ranks"]]
+    emit("plan_memory", depth=list(STAGE3_APP_DEPTH), shape=[NUM_FRAMES, HEIGHT, WIDTH],
+         plans=rows, beside=list(beside), seconds=time.time() - run["t0"], wait_s=wait_s)
+
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=5)
@@ -4412,6 +4856,7 @@ def main():
     ap.add_argument("--sp-train-worker", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--dp-train-worker", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--dp-app-worker", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--plan-memory-worker", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
@@ -4427,6 +4872,8 @@ def main():
         return dp_train_worker(torch, args.dp_train_worker, args.seed)
     if args.dp_app_worker:  # one rank of phase dp_app
         return dp_app_worker(torch, args.dp_app_worker)
+    if args.plan_memory_worker:  # one rank of phase plan_memory
+        return plan_memory_worker()
     t_start = time.time()
     from magicdrive_v2_tpu_torch.ops import _cuda_build
 
@@ -4535,8 +4982,23 @@ def main():
     finally:
         shutil.rmtree(data_root, ignore_errors=True)
     sde848_65f_launches = run_sde848_65f(torch, args.seed, encode_launches, held)
-    run_pedestrian(torch, args.seed)
-    run_extract_masks(torch, args.seed)
+    # plan_memory's ranks run beside pedestrian, extract_masks and ped_video's video
+    # files (host work and small launches), and end before ped_video's full-depth app
+    work = tempfile.mkdtemp(prefix="chip_smoke_ped_plan_")
+    renders = os.path.join(work, "card0")
+    plan_run = start_plan_memory(torch, work)
+    try:
+        run_pedestrian(torch, args.seed, keep_renders=renders)
+        run_extract_masks(torch, args.seed)
+        ped_video_launches = run_ped_video(
+            torch, renders, sde_per_forward, encode_launches, held,
+            before_app=lambda: run_plan_memory(
+                torch, plan_run, beside=("pedestrian", "extract_masks", "ped_video files")))
+    finally:
+        close_plan_memory(plan_run)
+        shutil.rmtree(work, ignore_errors=True)
+    run_kernel_bench(torch, args.seed)
+    perf_lab_launches = run_perf_lab(torch, args.seed, per_forward)
     for name, worst in held.worst.items():  # over every case held, later paths' too
         kernel_numbers[name]["max_abs_err"] = worst
 
@@ -4585,7 +5047,9 @@ def main():
                                       "app848_brushnet":
                                           inpaint848_launches["app848_brushnet"][name],
                                       "sde848_65f": sde848_65f_launches[name],
-                                      "block_bench": block_bench_launches[name]},
+                                      "block_bench": block_bench_launches[name],
+                                      "ped_video_app": ped_video_launches[name],
+                                      "perf_lab_step": perf_lab_launches[name]},
                     **meta[name], **kernel_numbers[name], backward=backward[name])
                for name in meta]
     for k in kernels:

@@ -1,9 +1,13 @@
 """BrushNet inpainting generation app of the port (counterpart of the JAX
 package's scripts/inference_magicdrive_brushnet.py): config -> pipeline with the
 BrushNet or SDE-BrushNet model -> optionally a reference torch checkpoint -> per
-sample: synthetic conditioning (seed = sample index), synthetic pedestrian
-frames and masks (numpy ``default_rng(sample index)``: frames first, then the
-0/1 masks), CFG sampling, VAE decode, the 2x3 six-view grid saved as PNG frames.
+sample: synthetic conditioning (seed = sample index), the pedestrian frames and
+masks, CFG sampling, VAE decode, the 2x3 six-view grid saved as PNG frames.
+
+Pedestrian inputs: with ``--ped-dir DIR`` the rendered pedestrians, one video per
+camera, ``DIR/<CAM>.mp4`` and ``DIR/<CAM>_mask.mp4`` (``load_pedestrian_inputs``,
+read through ``utils/video.py``); without it synthetic frames and masks (numpy
+``default_rng(sample index)``: frames first, then the 0/1 masks).
 
 The SDE variant (``--sde``, or an SDE model type in the config) takes the fixed
 inpaint timestep ``inpaint_noise_scale * num_timesteps`` (``--inpaint-noise-scale``,
@@ -11,16 +15,13 @@ else the scheduler's, else 0.2). Seeds: one CPU generator per sample, seeded
 1024 + sample index, draws the starting latents, then the normal draw the SDE
 model's structured noise is made from.
 
-Not ported: ``--ped-dir`` (the pedestrian renders are .mp4 files, and the port
-has no video reader; it raises ``NotImplementedError``).
-
 A config with ``sp_size`` > 1 runs sequence-parallel over that many processes
 (``torchrun --nproc_per_node N``), as ``inference_magicdrive`` does.
 
 Usage (from the repository root):
   python3 -m magicdrive_v2_tpu_torch.scripts.inference_magicdrive_brushnet \\
       configs/magicdrive/inference/XXX_brushnet.py --synthetic [--sde] \\
-      [--num-frames 17] [--num-samples 1] [--inpaint-noise-scale 0.2] \\
+      [--ped-dir DIR] [--num-frames 17] [--num-samples 1] [--inpaint-noise-scale 0.2] \\
       [--ckpt-path FILE] [--device cuda] [--cfg-options key=value ...]
 """
 from __future__ import annotations
@@ -32,10 +33,9 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-logger = logging.getLogger("inference_brushnet")
+from ..utils.video import CAMS, read_video
 
-PED_VIDEO_MISSING = ("reads pedestrian renders from .mp4 files, and the port has no video "
-                     "reader (imageio is not one of its dependencies); use --synthetic")
+logger = logging.getLogger("inference_brushnet")
 
 
 def synthetic_inpaint_inputs(seed: int, nc: int, num_frames: int, height: int, width: int):
@@ -47,14 +47,54 @@ def synthetic_inpaint_inputs(seed: int, nc: int, num_frames: int, height: int, w
     return x, mask
 
 
+def load_pedestrian_inputs(ped_dir: str, num_frames: int, height: int, width: int,
+                           nc: int = 6):
+    """The per-camera pedestrian renders and masks of ``ped_dir`` (the JAX app's
+    ``load_pedestrian_inputs``): ``<CAM>.mp4`` and ``<CAM>_mask.mp4`` for each of
+    the ``nc`` cameras in ``CAMS`` order, the first ``num_frames`` frames, each cut
+    to its top-left ``height`` x ``width``. Returns (imgs (NC, 3, T, H, W) in
+    [-1, 1], masks (NC, 1, T, H, W) of 0/1: channel 0 > 127), float32.
+
+    Where the JAX loader leaves a camera without a video at zero and stops at the
+    shorter of a video and its mask, this one raises ValueError: a missing file, or
+    one shorter than ``num_frames``, would feed black frames and empty masks."""
+    imgs = np.zeros((nc, 3, num_frames, height, width), np.float32)
+    masks = np.zeros((nc, 1, num_frames, height, width), np.float32)
+    for ci, cam in enumerate(CAMS[:nc]):
+        for path, out in ((os.path.join(ped_dir, f"{cam}.mp4"), imgs),
+                          (os.path.join(ped_dir, f"{cam}_mask.mp4"), masks)):
+            if not os.path.isfile(path):
+                raise ValueError(f"{path!r} is missing: every camera needs a pedestrian "
+                                 f"video and its mask")
+            frames = read_video(path)[:num_frames, :height, :width]
+            if len(frames) < num_frames or frames.shape[1:3] != (height, width):
+                raise ValueError(f"{path!r} gives {frames.shape[:3]} (frames, height, width) "
+                                 f"< the requested ({num_frames}, {height}, {width})")
+            if out is imgs:
+                out[ci] = np.transpose(frames / 127.5 - 1, (3, 0, 1, 2))
+            else:
+                out[ci, 0] = frames[..., 0] > 127
+    return imgs, masks
+
+
+def inpaint_batch_inputs(imgs: np.ndarray, masks: np.ndarray):
+    """Per-view pedestrian frames (NC, 3, T, H, W) and masks (NC, 1, T, H, W) as the
+    model takes them: x_inpaint (1, 3*NC, T, H, W) channel-major, as the latents
+    are, and mask_inpaint (1, NC, T, H, W)."""
+    nc, _, t, h, w = imgs.shape
+    return (np.ascontiguousarray(imgs.transpose(1, 0, 2, 3, 4).reshape(1, 3 * nc, t, h, w)),
+            masks.reshape(1, nc, t, h, w))
+
+
 def parse_args(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("config")
     p.add_argument("--cfg-options", nargs="*", default=[])
     p.add_argument("--synthetic", action="store_true",
-                   help="synthetic conditioning and pedestrian inputs (the only source)")
+                   help="synthetic conditioning (the only source)")
     p.add_argument("--sde", action="store_true", help="the SDE-BrushNet model")
-    p.add_argument("--ped-dir", default=None, help="pedestrian renders: " + PED_VIDEO_MISSING)
+    p.add_argument("--ped-dir", default=None,
+                   help="pedestrian renders: <CAM>.mp4 and <CAM>_mask.mp4 per camera")
     p.add_argument("--num-samples", type=int, default=None)
     p.add_argument("--num-frames", type=int, default=None)
     p.add_argument("--inpaint-noise-scale", type=float, default=None)
@@ -81,8 +121,6 @@ def main(argv: Optional[List[str]] = None) -> List[Tuple[str, np.ndarray]]:
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s %(message)s")
-    if args.ped_dir:
-        raise NotImplementedError(f"--ped-dir {PED_VIDEO_MISSING}")
     from ..parallel.distributed import app_process_group
 
     with app_process_group(args.device) as device:
@@ -120,12 +158,17 @@ def _main(args, device) -> List[Tuple[str, np.ndarray]]:
     mc = pipe.model_cfg
     noise_scale = (args.inpaint_noise_scale if args.inpaint_noise_scale is not None
                    else cfg.scheduler.get("inpaint_noise_scale", 0.2))
+    pedestrians = None
+    if args.ped_dir:
+        pedestrians = inpaint_batch_inputs(*load_pedestrian_inputs(
+            args.ped_dir, num_frames, height, width, mc.nc))
     saved = []
     for ns in range(args.num_samples or cfg.get("num_sample", 1)):
         batch = synthetic_batch(mc, num_frames, height, width,
                                 l_txt=pipe.text_encoder.model_max_length, seed=ns)
-        batch["x_inpaint"], batch["mask_inpaint"] = synthetic_inpaint_inputs(
-            ns, mc.nc, num_frames, height, width)
+        batch["x_inpaint"], batch["mask_inpaint"] = (
+            pedestrians if pedestrians is not None
+            else synthetic_inpaint_inputs(ns, mc.nc, num_frames, height, width))
         draw = torch_randn_stream(1024 + ns)
         lat_t, lat_h, lat_w = pipe.vae.get_latent_size([num_frames, height, width])
         z = draw((1, mc.in_channels * mc.nc, lat_t, lat_h, lat_w))

@@ -14,22 +14,22 @@ Like ``inference_magicdrive``, plus the benchmark's submission plumbing:
   starting latents across samples, the other the box latents;
 - ``num_frames = "full"``: every scene pads to one bucket and is trimmed back;
 - ``--brushnet`` / ``--sde`` (or a ``*-BrushNet`` model type): the inpainting
-  models, with synthetic pedestrian frames and masks (numpy ``default_rng(sample
-  index)``) and, for the SDE model, the inpaint timestep ``inpaint_noise_scale *
-  num_timesteps`` and its noise's normal draw from a CPU generator seeded 1024 +
-  sample index.
+  models, with the pedestrian frames and masks of ``--ped-video-dir DIR`` (per
+  sample ``DIR/<index>/videos.mp4`` and ``masks.mp4``, 2x3 camera grids as
+  ``tools/create_video_12hz`` writes them, read by ``load_grid_video``), else
+  synthetic ones (numpy ``default_rng(sample index)``), and, for the SDE model,
+  the inpaint timestep ``inpaint_noise_scale * num_timesteps`` and its noise's
+  normal draw from a CPU generator seeded 1024 + sample index.
 
 A config with ``sp_size`` > 1 (the 848x1600 ones) runs sequence-parallel over
-that many processes (``torchrun --nproc_per_node N``): every rank samples, rank 0
-alone back-transforms and writes.
-
-Not ported: ``--ped-video-dir`` (pedestrian grid videos are .mp4 files, and the
-port has no video reader; it raises ``NotImplementedError``).
+that many processes (``torchrun --nproc_per_node N``): every rank reads the same
+pedestrian videos and samples, rank 0 alone back-transforms and writes.
 
 Usage (from the repository root):
   python3 -m magicdrive_v2_tpu_torch.scripts.test_magicdrive \\
       configs/magicdrive/test/XXX.py [--synthetic] [--save-mode all-in-one] \\
       [--num-frames 17] [--num-samples 1] [--ckpt-path FILE] [--device cuda] \\
+      [--brushnet | --sde] [--ped-video-dir DIR] \\
       [--cfg-options key=value ...]
 """
 from __future__ import annotations
@@ -44,7 +44,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from .inference_magicdrive_brushnet import (PED_VIDEO_MISSING, set_model_type,
+from .inference_magicdrive_brushnet import (inpaint_batch_inputs, set_model_type,
                                             synthetic_inpaint_inputs)
 
 logger = logging.getLogger("test")
@@ -71,6 +71,32 @@ def back_transform(vid: np.ndarray, resize_hw, padding) -> np.ndarray:
     return out
 
 
+def load_grid_video(path: str, num_frames: int, height: int, width: int,
+                    grayscale: bool = False) -> np.ndarray:
+    """The first ``num_frames`` frames of a 2-row x 3-column camera-grid video
+    (``tools/create_video_12hz``'s layout) as per-view (NC, C, T, H, W) float32: in
+    [-1, 1] (C = 3), or with ``grayscale`` a 0/1 mask (C = 1: channel 0 > 127).
+    The view order is row-major, [FL, F, FR, BR, B, BL], as ``concat_6_views``
+    lays them out; each view is the top-left ``height`` x ``width`` of its cell.
+    Raises ValueError when the video has fewer frames than ``num_frames`` or is
+    smaller than the grid (a zero fill would feed black frames and empty masks)."""
+    from ..utils.video import read_video
+    frames = read_video(path)[:num_frames]
+    if len(frames) < num_frames:
+        raise ValueError(
+            f"{path!r} has {len(frames)} frames < requested {num_frames}; "
+            "regenerate the pedestrian grid video for this clip length")
+    if frames.shape[1] < 2 * height or frames.shape[2] < 3 * width:
+        raise ValueError(f"{path!r} has {frames.shape[1]}x{frames.shape[2]} frames, less "
+                         f"than the 2x3 grid of {height}x{width} views")
+    # (T, 2, H, 3, W, ch) -> (row, col, ch, T, H, W) -> (6, ch, T, H, W)
+    tiles = frames[:, :2 * height, :3 * width].reshape(num_frames, 2, height, 3, width, 3)
+    tiles = tiles.transpose(1, 3, 5, 0, 2, 4).reshape(6, 3, num_frames, height, width)
+    if grayscale:
+        return (tiles[:, :1] > 127).astype(np.float32)
+    return (tiles / 127.5 - 1).astype(np.float32)
+
+
 def parse_args(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("config")
@@ -85,7 +111,7 @@ def parse_args(argv=None):
     p.add_argument("--brushnet", action="store_true", help="the BrushNet model")
     p.add_argument("--sde", action="store_true", help="the SDE-BrushNet model")
     p.add_argument("--ped-video-dir", default=None,
-                   help="pedestrian grid videos: " + PED_VIDEO_MISSING)
+                   help="pedestrian 2x3 grid videos: <dir>/<index>/videos.mp4 and masks.mp4")
     p.add_argument("--inpaint-noise-scale", type=float, default=None,
                    help="the SDE model's inpaint timestep over num_timesteps")
     return p.parse_args(argv)
@@ -98,8 +124,6 @@ def main(argv: Optional[List[str]] = None) -> List[Tuple[str, np.ndarray]]:
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s %(message)s")
-    if args.ped_video_dir:
-        raise NotImplementedError(f"--ped-video-dir {PED_VIDEO_MISSING}")
     from ..parallel.distributed import app_process_group
 
     with app_process_group(args.device) as device:
@@ -187,8 +211,16 @@ def _main(args, device) -> List[Tuple[str, np.ndarray]]:
         lat_t, lat_h, lat_w = pipe.vae.get_latent_size([num_frames, height, width])
         z = draw_z((1, mc.in_channels * mc.nc, lat_t, lat_h, lat_w))
         if inpaint:
-            batch["x_inpaint"], batch["mask_inpaint"] = synthetic_inpaint_inputs(
-                ns, mc.nc, num_frames, height, width)
+            if args.ped_video_dir:  # the same files on every rank
+                vdir = os.path.join(args.ped_video_dir, str(index))
+                batch["x_inpaint"], batch["mask_inpaint"] = inpaint_batch_inputs(
+                    load_grid_video(os.path.join(vdir, "videos.mp4"), num_frames, height,
+                                    width),
+                    load_grid_video(os.path.join(vdir, "masks.mp4"), num_frames, height,
+                                    width, grayscale=True))
+            else:
+                batch["x_inpaint"], batch["mask_inpaint"] = synthetic_inpaint_inputs(
+                    ns, mc.nc, num_frames, height, width)
             if mc.sde_inpaint:
                 batch["t_inpaint"] = np.full(
                     (1,), noise_scale * pipe.scheduler.num_timesteps, np.float32)

@@ -142,34 +142,19 @@ def training_loss(model: MagicDriveSTDiT3, scheduler: RFLOW, batch: Dict, *,
     return out["loss"].mean(), out["t"]
 
 
-def make_train_step(scheduler: RFLOW, *, height: float, width: float, num_frames: int,
-                    dtype=torch.bfloat16, ema_decay: float = 0.99,
-                    ema_mask: Optional[Dict[str, bool]] = None, seed: int = 0,
-                    simulate_sp: Optional[int] = None) -> Callable:
-    """The step for one (height, width, num_frames) bucket, of the base model and
-    of the BrushNet variants (the JAX package's ``make_train_step`` and
-    ``make_brushnet_train_step``): ``train_step(state, batch, **draws) -> (state,
-    metrics)``, batch on the model's device; a BrushNet batch also carries
-    x_inpaint (b, 3*NC, T_img, H, W) and mask_inpaint (b, NC, T_img, H, W).
-    Metrics: ``loss``, ``grad_norm`` (before the clip, trainable parameters only)
-    and ``t_mean``, as 0-dim tensors.
+def make_grad_step(scheduler: RFLOW, *, height: float, width: float, num_frames: int,
+                   dtype=torch.bfloat16, seed: int = 0,
+                   simulate_sp: Optional[int] = None) -> Callable:
+    """The part of ``make_train_step``'s step before the update:
+    ``grad_step(state, batch, **draws) -> metrics`` zeroes the grads, runs the loss
+    and its backward, and under a mesh reduces the grads (dp mean, then the sp sum)
+    and the metrics (``loss``, ``t_mean``, as 0-dim tensors). It leaves the grads
+    of the parameters that require grad ready for the clip; ``state.step`` picks
+    the draws and is not advanced. The measurement tools (``tools/perf_lab``,
+    ``tools/plan_memory``) run it with the grad norm in place of the update.
+    Arguments and draws as ``make_train_step``'s."""
 
-    What ``draws`` does not hand in is drawn: ``t`` and ``noise`` (and, for the
-    SDE-BrushNet model, ``t_inpaint``) from ``step_generator(seed, step)`` in the
-    order t, t_inpaint, noise; the SDE model's ``cutoff_radius`` and
-    ``inpaint_input_noise`` from ``step_generator(seed, step, 1)``, cutoff first
-    (the JAX step splits its key into the loss's and the model's). All of them
-    are drawn for the global batch, before the model splits anything, so they are
-    the same on every rank of an sp group, and each dp row keeps its rows (draws
-    handed in are the global batch's too). ``simulate_sp``: the training-time H
-    pad of that sp size (the JAX step's; each value is a step of its own).
-
-    Under a mesh (``parallel.use_mesh``) the grads of the parameters that require
-    grad are averaged over dp (the state must be split over the mesh's dp:
-    ``TrainState.sharding``), then summed over the sp group, before the clip; the
-    loss and t_mean are the global batch's (averaged over dp)."""
-
-    def train_step(state: TrainState, batch: Dict, **draws):
+    def grad_step(state: TrainState, batch: Dict, **draws) -> Dict[str, torch.Tensor]:
         sde = getattr(state.model.cfg, "sde_inpaint", False)
         loss_draws = ("t", "noise", "t_inpaint") if sde else ("t", "noise")
         model_draws = ("cutoff_radius", "inpaint_input_noise") if sde else ()
@@ -207,6 +192,44 @@ def make_train_step(scheduler: RFLOW, *, height: float, width: float, num_frames
                 v.div_(mesh.dp)
         if mesh is not None and mesh.sp > 1:
             reduce_sp_grads([p for _, p in trainable], mesh.sp_group)
+        return metrics
+
+    return grad_step
+
+
+def make_train_step(scheduler: RFLOW, *, height: float, width: float, num_frames: int,
+                    dtype=torch.bfloat16, ema_decay: float = 0.99,
+                    ema_mask: Optional[Dict[str, bool]] = None, seed: int = 0,
+                    simulate_sp: Optional[int] = None) -> Callable:
+    """The step for one (height, width, num_frames) bucket, of the base model and
+    of the BrushNet variants (the JAX package's ``make_train_step`` and
+    ``make_brushnet_train_step``): ``train_step(state, batch, **draws) -> (state,
+    metrics)``, batch on the model's device; a BrushNet batch also carries
+    x_inpaint (b, 3*NC, T_img, H, W) and mask_inpaint (b, NC, T_img, H, W).
+    Metrics: ``loss``, ``grad_norm`` (before the clip, trainable parameters only)
+    and ``t_mean``, as 0-dim tensors. The grads come from ``make_grad_step``; the
+    clip, AdamW and the EMA follow.
+
+    What ``draws`` does not hand in is drawn: ``t`` and ``noise`` (and, for the
+    SDE-BrushNet model, ``t_inpaint``) from ``step_generator(seed, step)`` in the
+    order t, t_inpaint, noise; the SDE model's ``cutoff_radius`` and
+    ``inpaint_input_noise`` from ``step_generator(seed, step, 1)``, cutoff first
+    (the JAX step splits its key into the loss's and the model's). All of them
+    are drawn for the global batch, before the model splits anything, so they are
+    the same on every rank of an sp group, and each dp row keeps its rows (draws
+    handed in are the global batch's too). ``simulate_sp``: the training-time H
+    pad of that sp size (the JAX step's; each value is a step of its own).
+
+    Under a mesh (``parallel.use_mesh``) the grads of the parameters that require
+    grad are averaged over dp (the state must be split over the mesh's dp:
+    ``TrainState.sharding``), then summed over the sp group, before the clip; the
+    loss and t_mean are the global batch's (averaged over dp)."""
+    grad_step = make_grad_step(scheduler, height=height, width=width,
+                               num_frames=num_frames, dtype=dtype, seed=seed,
+                               simulate_sp=simulate_sp)
+
+    def train_step(state: TrainState, batch: Dict, **draws):
+        metrics = grad_step(state, batch, **draws)
         metrics["grad_norm"] = state.optimizer.step().detach()
         if state.ema is not None:
             update_ema(state.ema, state.model, ema_decay, ema_mask)

@@ -21,6 +21,7 @@ within 2 levels everywhere and 0.05 on average.
 import dataclasses
 import json
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -29,6 +30,7 @@ import torch
 from helpers_mini_nuscenes import generate
 from test_torch_brushnet import brush_configs
 from test_torch_common import fill_tree, np_tree, random_params
+from test_torch_video import spy_inpaint_inputs, stand_in_imageio_module, write_ped_dir
 from test_torch_wcoda_app import (TINY_VAE, Recorder, compare_frames, compare_latents,
                                   loaded_keys_message, run_jax_app, write_config)
 
@@ -155,8 +157,45 @@ def test_brushnet_app_matches_jax(brush_assets, tmp_path, monkeypatch, caplog):
     compare_latents(rec)
     assert len(saved) == 2
     check_saved(saved, rec, NF, (2 * HH, 3 * WW, 3))
-    with pytest.raises(NotImplementedError, match="video reader"):
-        app.main([cfg, "--ped-dir", str(tmp_path), "--device", "cpu"])
+
+
+def test_brushnet_app_ped_dir_matches_jax(brush_assets, tmp_path, monkeypatch, caplog):
+    """``--sde --ped-dir``: per camera ``<CAM>.mp4`` and ``<CAM>_mask.mp4`` (mp4v,
+    written by the port, a frame longer and 4 pixels larger than the clip: both
+    apps cut them), the JAX app reading them through a stand-in ``imageio`` that
+    hands it the port's decoded frames, one sample. Both apps give the model the
+    x_inpaint / mask_inpaint of ``load_pedestrian_inputs``, bit for bit, and the
+    latents and frames agree as in ``test_brushnet_app_matches_jax``."""
+    from magicdrive_v2_tpu_torch.scripts import inference_magicdrive_brushnet as app
+    ped = str(tmp_path / "ped")
+    write_ped_dir(ped, HH + 4, WW + 4, NF + 1)
+    monkeypatch.setitem(sys.modules, "imageio", stand_in_imageio_module())
+    got = spy_inpaint_inputs(monkeypatch)
+    rec = Recorder(monkeypatch)
+    cfg = write_config(tmp_path / "cfg.py", tmp_path / "out", brush_assets["ann"],
+                       brush_assets["vae_dir"], NF, [0])
+    argv = [cfg, "--synthetic", "--sde", "--inpaint-noise-scale", "0.3", "--num-samples", "1",
+            "--ckpt-path", brush_assets["ckpts"]["sde"], "--ped-dir", ped]
+    run_jax_app("inference_magicdrive_brushnet", argv, monkeypatch)
+    noise_shape = (2 * 6 * 16 * 3, 3, 5)
+    left = hand_over(monkeypatch, {1024: [
+        jax_normal(jax.random.split(jax.random.PRNGKey(1024))[0], LATENT),
+        jax_normal(jax.random.PRNGKey(1024), noise_shape)]})
+    saved = app.main(argv + ["--device", "cpu"])
+    assert left() == {}
+    compare_latents(rec)
+    check_saved(saved, rec, NF, (2 * HH, 3 * WW, 3))
+    imgs, masks = app.load_pedestrian_inputs(ped, NF, HH, WW)
+    assert len(got["port"]) == len(got["jax"]) == 1
+    np.testing.assert_array_equal(got["port"][0]["x_inpaint"], imgs.transpose(
+        1, 0, 2, 3, 4).reshape(1, 18, NF, HH, WW))
+    np.testing.assert_array_equal(got["port"][0]["mask_inpaint"], masks.reshape(1, 6, NF, HH, WW))
+    for k in got["port"][0]:
+        np.testing.assert_array_equal(got["port"][0][k], got["jax"][0][k])
+    # a camera's mask missing: the port refuses where the JAX loader would zero-fill
+    os.remove(os.path.join(ped, "CAM_BACK_mask.mp4"))
+    with pytest.raises(ValueError, match="CAM_BACK_mask.mp4' is missing"):
+        app.main(argv + ["--device", "cpu"])
 
 
 def test_repaint_app_matches_jax(brush_assets, tmp_path, monkeypatch, caplog):

@@ -10,11 +10,13 @@ sample's key (1024 + sample); the port from ``torch_randn_stream(1024 + sample)`
 which the test replaces by a stream handing over JAX's draw.
 """
 import os
+import sys
 
 import numpy as np
 import pytest
 
 from test_torch_brushnet_apps import brush_assets, hand_over, jax_normal  # noqa: F401
+from test_torch_video import spy_inpaint_inputs, stand_in_imageio_module, write_grid_dirs
 from test_torch_wcoda_app import (Recorder, compare_frames, compare_latents,
                                   loaded_keys_message, run_jax_app, write_config)
 
@@ -71,8 +73,7 @@ def test_brushnet_model_type_and_wrappers_reach_the_same_app(brush_assets, tmp_p
     """``--brushnet``, a BrushNet model type in the config and the
     ``test_magicdrive_brushnet`` wrapper give the same frames; ``--sde`` and the
     ``test_magicdrive_sde_brushnet`` wrapper too, and they differ from BrushNet's
-    (another model: the inpaint timestep layers). ``--ped-video-dir`` needs a
-    video reader the port does not have."""
+    (another model: the inpaint timestep layers)."""
     from magicdrive_v2_tpu_torch.scripts import (test_magicdrive, test_magicdrive_brushnet,
                                                  test_magicdrive_sde_brushnet)
     cfg = write_config(tmp_path / "cfg.py", tmp_path / "out", brush_assets["ann"],
@@ -93,5 +94,31 @@ def test_brushnet_model_type_and_wrappers_reach_the_same_app(brush_assets, tmp_p
     ref_sde = frames(test_magicdrive.main(sde + ["--sde"]))
     np.testing.assert_array_equal(frames(test_magicdrive_sde_brushnet.main(sde)), ref_sde)
     assert np.abs(ref_sde.astype(int) - ref.astype(int)).max() > 2
-    with pytest.raises(NotImplementedError, match="video reader"):
-        test_magicdrive.main(base + ["--brushnet", "--ped-video-dir", str(tmp_path)])
+
+
+def test_wcoda_app_ped_video_dir_matches_jax(brush_assets, tmp_path, monkeypatch, caplog):
+    """``--brushnet --ped-video-dir``: per clip (validation indices 0 and 1) the 2x3
+    grid videos ``<dir>/<index>/videos.mp4`` and ``masks.mp4`` (mp4v, written by the
+    port), the JAX app reading them through a stand-in ``imageio`` that hands it the
+    port's decoded frames. Both apps give the model the same x_inpaint /
+    mask_inpaint, bit for bit (those of ``load_grid_video``), and the latents and
+    frames agree as in ``check_wcoda_app``."""
+    from magicdrive_v2_tpu_torch.scripts.test_magicdrive import load_grid_video
+    ped = tmp_path / "ped"
+    write_grid_dirs(str(ped), (0, 1), 24, 40, NF)
+    monkeypatch.setitem(sys.modules, "imageio", stand_in_imageio_module())
+    got = spy_inpaint_inputs(monkeypatch)
+    cfg = write_config(tmp_path / "cfg.py", tmp_path / "out", brush_assets["ann"],
+                       brush_assets["vae_dir"], NF, [0, 1])
+    check_wcoda_app(cfg, ["--brushnet", "--ped-video-dir", str(ped)],
+                    brush_assets["ckpts"]["brushnet"], False, NOISE_SHAPE, monkeypatch, caplog)
+    assert len(got["jax"]) == len(got["port"]) == 2
+    for i, (a, b) in enumerate(zip(got["port"], got["jax"])):
+        imgs = load_grid_video(str(ped / str(i) / "videos.mp4"), NF, 24, 40)
+        masks = load_grid_video(str(ped / str(i) / "masks.mp4"), NF, 24, 40, grayscale=True)
+        np.testing.assert_array_equal(a["x_inpaint"], imgs.transpose(1, 0, 2, 3, 4).reshape(
+            1, 18, NF, 24, 40))
+        np.testing.assert_array_equal(a["mask_inpaint"], masks.reshape(1, 6, NF, 24, 40))
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k])
+    assert not np.array_equal(got["port"][0]["x_inpaint"], got["port"][1]["x_inpaint"])

@@ -374,11 +374,17 @@ def test_port_runs_without_importing_jax_or_the_jax_package():
 
 
 def test_port_sources_name_no_jax_import():
+    """No port file and not chip_smoke.py imports JAX, its libraries, scipy or cv2,
+    or names the JAX package; the one exception is ``cv2`` in ``utils/video.py``,
+    the port's video container I/O (what it may reach of cv2:
+    tests/test_torch_video.py)."""
     import re
     pat = re.compile(r"import (jax|flax|optax|orbax|scipy|cv2)"
                      r"|from (jax|flax|optax|orbax|scipy|cv2)|magicdrive_v2_tpu[^_]")
+    cv2_pat = re.compile(r"import cv2|from cv2")
+    video = os.path.join(REPO, "magicdrive_v2_tpu_torch", "utils", "video.py")
     roots = [os.path.join(REPO, "magicdrive_v2_tpu_torch"), os.path.join(REPO, "chip_smoke.py")]
-    hits = []
+    hits, video_cv2 = [], 0
     for root in roots:
         files = [root] if os.path.isfile(root) else [
             os.path.join(d, f) for d, _, fs in os.walk(root) for f in fs
@@ -386,7 +392,13 @@ def test_port_sources_name_no_jax_import():
         for path in files:
             with open(path) as fh:
                 for n, line in enumerate(fh, 1):
-                    if pat.search(line):
-                        hits.append(f"{path}:{n}: {line.strip()}")
+                    if not pat.search(line):
+                        continue
+                    if path == video and cv2_pat.search(line) and not pat.search(
+                            cv2_pat.sub("", line)):
+                        video_cv2 += 1
+                        continue
+                    hits.append(f"{path}:{n}: {line.strip()}")
     assert os.path.isfile(roots[1]), "chip_smoke.py is missing"
     assert not hits, hits
+    assert video_cv2 > 0, "utils/video.py no longer imports cv2: drop the exception"

@@ -270,16 +270,33 @@ def test_wcoda_test_app_matches_jax(assets, tmp_path, monkeypatch, caplog, save_
         assert rec.latents["port"][0].shape[2] == 5  # the 17-frame bucket's latents
 
 
-def test_wcoda_test_app_refuses_what_is_not_ported(tmp_path, assets):
-    """What the app does not do: read pedestrian grid videos (no video reader), a
-    checkpoint that is not there. The inpainting options run
-    (tests/test_torch_brushnet_wcoda.py), and so does sequence parallelism
-    (tests/test_torch_sp_pipeline.py)."""
+def test_wcoda_test_app_refuses_what_is_not_ported(tmp_path, assets, monkeypatch):
+    """What the app refuses: a pedestrian grid video shorter than the clip (a zero
+    fill would feed black frames), a checkpoint that is not there. With
+    ``--ped-video-dir`` the grid videos of the clip's index reach the model as
+    ``load_grid_video`` reads them (against the JAX app:
+    tests/test_torch_brushnet_wcoda.py); the inpainting options run there too, and
+    sequence parallelism in tests/test_torch_sp_pipeline.py."""
     from magicdrive_v2_tpu_torch.scripts import test_magicdrive
+    from test_torch_video import grid_frames, spy_inpaint_inputs, write_grid_dirs
+    from magicdrive_v2_tpu_torch.utils.video import write_video
     cfg = write_config(tmp_path / "cfg.py", tmp_path / "out", assets["ann"],
-                       assets["vae_dir"], 9, [0])
-    with pytest.raises(NotImplementedError, match="video reader"):
-        test_magicdrive.main([cfg, "--device", "cpu", "--sde", "--ped-video-dir",
-                              str(tmp_path)])
+                       assets["vae_dir"], 9, [3])
+    ped = tmp_path / "ped"
+    write_grid_dirs(str(ped), [3], 24, 40, 9)
+    got = spy_inpaint_inputs(monkeypatch)
+    saved = test_magicdrive.main([cfg, "--device", "cpu", "--sde", "--ped-video-dir",
+                                  str(ped), "--save-mode", "all-in-one"])
+    assert len(saved) == 1 and saved[0][1].shape == (7, 2 * 52, 3 * 80, 3)
+    imgs = test_magicdrive.load_grid_video(str(ped / "3" / "videos.mp4"), 9, 24, 40)
+    masks = test_magicdrive.load_grid_video(str(ped / "3" / "masks.mp4"), 9, 24, 40,
+                                            grayscale=True)
+    assert len(got["port"]) == 1
+    np.testing.assert_array_equal(got["port"][0]["x_inpaint"],
+                                  imgs.transpose(1, 0, 2, 3, 4).reshape(1, 18, 9, 24, 40))
+    np.testing.assert_array_equal(got["port"][0]["mask_inpaint"], masks.reshape(1, 6, 9, 24, 40))
+    write_video(str(ped / "3" / "masks.mp4"), grid_frames(24, 40, 5, mask=True))
+    with pytest.raises(ValueError, match="5 frames < requested 9"):
+        test_magicdrive.main([cfg, "--device", "cpu", "--sde", "--ped-video-dir", str(ped)])
     with pytest.raises(FileNotFoundError, match="ckpt_path"):
         test_magicdrive.main([cfg, "--device", "cpu", "--ckpt-path", str(tmp_path / "no.pt")])
