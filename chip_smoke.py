@@ -7,8 +7,8 @@ card. It imports only ``magicdrive_v2_tpu_torch`` and
 1. ``device``   reads the card's name and power limit, builds the three CUDA
                 kernels from ``magicdrive_v2_tpu_torch/csrc`` with ``nvcc``, checks
                 that ptxas spilled no register of the bf16 K1 and K3 kernels, and
-                records whether PIL, transformers, imageio, scipy, cv2 and hmr2
-                import;
+                records whether PIL, transformers, imageio, scipy, cv2, hmr2 and
+                tensorboard import;
 2. ``shapes``   builds the model of phase 3, counts each kernel's launches over
                 ``encode_conditions`` and over one denoiser forward, and notes,
                 over a sample of one Euler step, every distinct shape and type
@@ -86,6 +86,21 @@ card. It imports only ``magicdrive_v2_tpu_torch`` and
                 width, depth 7 / control 4, the 224-400-12-33 bucket at its batch of 4, 2
                 steps: each step's pick, s/step, peak memory, the metrics read
                 back, launches;
+7e. ``stage1``  the stage-1 image path, XL/2 at full width and depth without
+                temporal blocks (``with_temp_block=False``, ``control_skip_temporal``),
+                6 views of 224x400 at 1 frame, bf16, seeded random weights:
+                ``stage1_serving`` the noTemp inference config through
+                ``from_config``, one request of its batch of 4 (batched CFG 2.0,
+                48 views a forward) over its 20 steps with the decode, then the
+                inference app on it, 4 samples and the first again, bit-equal, its
+                PNGs read back; ``stage1_train`` the train app on the stage-1 config
+                (``--synthetic``, the (1, 224, 400) bucket, b=32: 67,200 tokens a
+                step, remat full, AdamW, EMA), 2 steps: s/step, samples/s, tokens/s,
+                peak memory, launches and backwards equal to the remat layout's,
+                every shape either path handed a wrapper held against its plain
+                version and each Function against autograd through it, K1's plain
+                backward within its 2 GiB a pass; ``stage1_k1_timing`` K1 at G = 48
+                and 192, N = 350, J = 1 and 2: kernel, plain, SDPA, bound;
 7c. ``dp_train`` data-parallel training with the fp32 state split over dp
                 (``parallel/fsdp.py``): XL/2 at full width, depth 2 /
                 control 1, from the stage-2 config (bf16 over fp32 masters, remat
@@ -102,8 +117,8 @@ card. It imports only ``magicdrive_v2_tpu_torch`` and
                 one-process references run, then take their steps one mesh after
                 the other (as ``sp_train``'s ranks wait for its reference);
 7d. ``dp_app``  the train app on 2 ranks at sp_size 1 (dp=2) on the stage-2
-                config, 2 rows a rank: XL/2 at full depth for 2 steps (each rank's
-                peak memory beside one process's), then at depth 2 for 2 steps with
+                config, 2 rows a rank: XL/2 at full width, depth 4 / control 2, for 2
+                steps (each rank's peak memory), then at depth 2 for 2 steps with
                 a checkpoint: rank 0 alone writes the metrics and ``global_step2``,
                 which one process loads exactly (the ranks' blocks, joined);
 8. ``decode_vs_cpu``  the VAE decode on the card against the CPU's (fp32, TF32 off,
@@ -157,13 +172,13 @@ card. It imports only ``magicdrive_v2_tpu_torch`` and
                 from the graph;
 18. ``brushnet_train``  the BrushNet trainer at full width in the stage-2
                 bucket and settings (b=4, remat, bf16 over fp32 masters, AdamW, EMA
-                0.99): XL/2-SDEBrushNet at depth 14 / control depth 7, 2 steps (the
+                0.99): XL/2-SDEBrushNet at depth 7 / control depth 4, 2 steps (the
                 SDE loss, the cutoff jitter), then ``brushnet_train_plain``: the
                 BrushNet type at depth 7 / control depth 4, 2 steps;
                 the frozen base and its EMA bit-equal after the steps, every branch
                 tensor moved, the EMA identity, launches and backwards as derived;
                 s/step, tokens/s, peak memory;
-19. ``remat``   base XL/2 at depth 14 / control depth 7, stage-2 bucket, b=1:
+19. ``remat``   base XL/2 at depth 7 / control depth 4, stage-2 bucket, b=1:
                 forward and backward under each
                 remat policy (``full``, ``dots``, ``offload_carry``) over the same
                 state on the card, one untimed and 2 timed (median, spread); grads
@@ -173,7 +188,7 @@ card. It imports only ``magicdrive_v2_tpu_torch`` and
 21. ``app848``  (after phase 12) the W-CODA app on the 848x1600 config
                 (``configs/magicdrive/test/17-16x848x1600_map0_fsp4_cfg2.0.py``,
                 rflow-slice) over the generated set through the 848x1600 dataset
-                yaml, 9 frames, 1 step, ``image_filename`` frames read back; launch
+                yaml, 5 frames, 1 step, ``image_filename`` frames read back; launch
                 counters;
                 every shape it handed a wrapper held against its plain version as
                 in phase 3 (``app848_kernel_cases``);
@@ -192,13 +207,13 @@ card. It imports only ``magicdrive_v2_tpu_torch`` and
 21a. ``app848_sde``, ``app848_brushnet`` (after ``app848``) the W-CODA app on the
                 17-16 848x1600 SDE-BrushNet config at full depth (28 + 28 BrushNet
                 blocks, control 13) and on the BrushNet one at depth 7 / control 4
-                (``--cfg-options``), as ``app848`` runs them: 9 frames, 1 step, the
+                (``--cfg-options``), as ``app848`` runs them: 5 frames, 1 step, the
                 frames read back, launch counters (SDE: K1 97, K2 304, K3 82 a
                 forward), every shape held against its plain version;
 21b. ``sde848_65f`` the 65-frame 848x1600 SDE-BrushNet config through
                 ``MagicDrivePipeline.from_config`` in one process (sp_size 4 runs
-                unsharded; 5300 tokens a frame, 540,600 a forward): full width and
-                depth, 1 step of rflow-sdebrushnet-slice, ``sample(decode=False)``,
+                unsharded; 5300 tokens a frame, 540,600 a forward): full width, depth
+                14 / control 7, 1 step of rflow-sdebrushnet-slice, ``sample(decode=False)``,
                 the pedestrian frames and masks drawn on the card; then one view's 17
                 latent frames through the tiled decode (65 frames); s/step, peak
                 memory, launches, every shape held;
@@ -229,8 +244,8 @@ card. It imports only ``magicdrive_v2_tpu_torch`` and
                 ``report`` of its trace: the three kernels found by their CUDA names,
                 the device time summed over kernels within the timed step's, the
                 device's busy share;
-27. ``plan_memory`` ``tools.plan_memory`` at full width, 6 x 424x800 x 17, depth 7 /
-                control 4, remat full, on (dp, sp) = (2, 1), then (1, 2) (each case's
+27. ``plan_memory`` ``tools.plan_memory`` at full width, 6 x 424x800 x 17, depth 4 /
+                control 2, remat full, on (dp, sp) = (2, 1), then (1, 2) (each case's
                 ranks share the card over gloo; they run beside phases pedestrian,
                 extract_masks and ped_video's host part, whose seconds they lengthen,
                 and end before ped_video's app runs): each rank's parameter and
@@ -276,6 +291,9 @@ NUM_FRAMES, HEIGHT, WIDTH = 17, 424, 800
 # frames of the apps' runs (app, brushnet_apps, test_app, brushnet_test_app, app848):
 # cut from 17 to keep the script inside its time; the samplers' phases keep 17
 APP_FRAMES = 9
+# frames of the 848x1600 W-CODA runs (app848, app848_sde, app848_brushnet): cut from 9
+# (two latent frames, so their temporal attention still mixes frames)
+APP848_FRAMES = 5
 APP_CONFIG = "configs/magicdrive/inference/fullx424x800_stdit3_CogVAE_boxTDS_wCT_xCE_wSST.py"
 TRAIN_CONFIG = "configs/magicdrive/train/stage2_17x224x400.py"
 TRAIN_APP_CONFIG = "configs/magicdrive/train/smoke_tiny.py"
@@ -296,12 +314,14 @@ CAMERA_NEIGHBORS = ((5, 1), (0, 2), (1, 3), (2, 4), (3, 5), (4, 0))
 def optional_packages():
     """Version of each package outside torch / numpy that the port uses or a later
     slice may want (image decoding, dataset yamls, map caches, a real T5 or SegFormer,
-    video files), or that the JAX package's host code used and the port does without
-    (scipy, cv2), or that a real HMR2 fitter needs (hmr2); or why it does not import.
+    video files, the train app's TensorBoard scalars), or that the JAX package's host
+    code used and the port does without (scipy, cv2), or that a real HMR2 fitter needs
+    (hmr2); or why it does not import.
     A record, not a gate."""
     import importlib
     found = {}
-    for name in ("PIL", "yaml", "h5py", "transformers", "imageio", "scipy", "cv2", "hmr2"):
+    for name in ("PIL", "yaml", "h5py", "transformers", "imageio", "scipy", "cv2", "hmr2",
+                 "tensorboard"):
         try:
             found[name] = getattr(importlib.import_module(name), "__version__", "no __version__")
         except Exception as e:  # a record of what the machine has, whatever the error
@@ -559,6 +579,37 @@ class HeldCases:
         return self.cases[first:]
 
 
+def k1_timing_row(torch, held, G, N, H, J, iters, plain_chunk):
+    """K1 in bf16 at (G, N, H, 72) with J sources (J=2: the cross-view permutation of
+    G // 6 view groups), kernel and plain version (``plain_chunk`` groups a pass)
+    timed, beside SDPA on the q/k/v views (for J=2 two calls on the sources' k/v,
+    summed), the bound and the achieved TFLOP/s."""
+    import torch.nn.functional as F
+    from magicdrive_v2_tpu_torch.ops import fused_qkv_attention, fused_qkv_attention_plain
+    D = 72
+    qkv = held.randn(G, N, 3, H, D, dtype=torch.bfloat16)
+    qw = (torch.randn(D, generator=held.gen) * 0.1 + 1).cuda()
+    perm = None if J == 1 else torch.from_numpy(cross_view_perm(G // 6)).cuda()
+    row = dict(shape=[G, N, H, D], J=J,
+               ms=time_ms(torch, lambda: fused_qkv_attention(qkv, qw, qw, perm), iters),
+               plain_ms=time_ms(torch, lambda: fused_qkv_attention_plain(
+                   qkv, qw, qw, perm, group_chunk=plain_chunk), 1))
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    if perm is None:
+        row["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v),
+                                    iters)
+    else:
+        src = [(k[perm[j].long()], v[perm[j].long()]) for j in range(J)]
+        row["library_ms"] = time_ms(
+            torch, lambda: F.scaled_dot_product_attention(q, *src[0])
+            + F.scaled_dot_product_attention(q, *src[1]), iters)
+    flops = J * 4.0 * G * H * N * N * D
+    row["bound_ms"], row["bound_by"] = bound(flops, 2.0 * (qkv.numel() + G * N * H * D),
+                                             PEAK_BF16)
+    row["tflops"] = flops / (row["ms"] * 1e9)
+    return row
+
+
 def check_kernels(torch, seen, l_cond):
     """``seen``: what ``recorded_shapes`` noted on the main path; the 848x1600
     path's shapes (``sp848_shapes``) are held too. Returns the timings and the
@@ -649,29 +700,9 @@ def check_kernels(torch, seen, l_cond):
     # the blocked regime (K1b / K1c) on the 848x1600 path: G = 30, N = 5600, the heads
     # of one rank at sp = 1, 2, 4; cross-view at 16 heads
     k1["n5600_g30"] = {}
-    perm30 = torch.from_numpy(cross_view_perm(5)).to(dev)
-    for heads, p30 in ((16, None), (8, None), (4, None), (16, perm30)):
-        qkv_s = randn(30, 5600, 3, heads, D, dtype=torch.bfloat16)
-        J = 1 if p30 is None else 2
-        row = dict(ms=time_ms(torch, lambda: fused_qkv_attention(qkv_s, qw, qw, p30), 2),
-                   plain_ms=time_ms(torch, lambda: fused_qkv_attention_plain(
-                       qkv_s, qw, qw, p30, group_chunk=1), 1))
-        qs, ks, vs = (qkv_s[:, :, i].transpose(1, 2) for i in range(3))
-        if p30 is None:
-            row["library_ms"] = time_ms(
-                torch, lambda: F.scaled_dot_product_attention(qs, ks, vs), 2)
-        else:
-            src = [(ks[p30[j].long()], vs[p30[j].long()]) for j in range(2)]
-            row["library_ms"] = time_ms(
-                torch, lambda: F.scaled_dot_product_attention(qs, *src[0])
-                + F.scaled_dot_product_attention(qs, *src[1]), 2)
-            del src
-        fl = J * 4.0 * 30 * heads * 5600 * 5600 * D
-        row["bound_ms"], row["bound_by"] = bound(
-            fl, 2.0 * (qkv_s.numel() + 30 * 5600 * heads * D), PEAK_BF16)
-        row["tflops"] = fl / (row["ms"] * 1e9)
-        k1["n5600_g30"][f"h{heads}" + ("_cross_view" if J == 2 else "")] = row
-        del qkv_s, qs, ks, vs
+    for heads, J in ((16, 1), (8, 1), (4, 1), (16, 2)):
+        k1["n5600_g30"][f"h{heads}" + ("_cross_view" if J == 2 else "")] = k1_timing_row(
+            torch, held, 30, 5600, heads, J, iters=2, plain_chunk=1)
 
     # ---- K2 adaLN modulate
     B, n, C = 12, 6750, 1152
@@ -1471,7 +1502,7 @@ GRAD_BF16_RMS_LIMIT = 2.0 ** -6
 FN_FP32_LIMIT = 1e-5         # per grad: max|g_function - g_autograd| / max|g_autograd|
 FN_BF16_LIMIT = 2.0 ** -7    # the same in bf16 (one ulp of the largest element)
 REMAT_REPS = 2               # timed forward+backward runs a remat policy
-REMAT_DEPTH = (14, 7)        # depth and control depth (cut from 28 / 13, as below)
+REMAT_DEPTH = (7, 4)         # depth and control depth (cut from 28 / 13, as below)
 
 
 def train_config(torch):
@@ -1522,7 +1553,10 @@ def check_functions(torch, seen):
         x = torch.randn(*shape, generator=gen, device="cuda") * scale + shift
         return x.to(dtype).requires_grad_()
 
-    def judge(kernel, out, inputs, plain_out, what):
+    def judge(kernel, out, inputs, plain_out, what, zero=()):
+        """``zero``: the positions in ``inputs`` whose grad the arithmetic makes
+        exactly zero (q's with one key: a softmax over one key is constant); those
+        must be zero on both sides."""
         require(type(out.grad_fn).__name__ == "PlainVJPFunctionBackward",
                 f"{kernel}: output not from PlainVJPFunction: {out.grad_fn}")
         g = torch.randn(out.shape, generator=gen, device="cuda").to(out.dtype)
@@ -1530,10 +1564,14 @@ def check_functions(torch, seen):
         want = torch.autograd.grad(plain_out, inputs, g)
         limit = FN_FP32_LIMIT if out.dtype == torch.float32 else FN_BF16_LIMIT
         ratios = []
-        for a, b in zip(got, want):
+        for i, (a, b) in enumerate(zip(got, want)):
             require(a is not None and b is not None, f"{kernel}: a grad is missing")
             a, b = a.float(), b.float()
             require(bool(a.isfinite().all()), f"{kernel}: grad not finite")
+            if i in zero:
+                require(not bool((a != 0).any()) and not bool((b != 0).any()),
+                        f"{kernel}: input {i}'s grad is not zero")
+                continue
             scale = float(b.abs().max())
             require(scale > 0 and bool((a != 0).any()), f"{kernel}: zero grad")
             ratios.append(float((a - b).abs().max()) / (limit * scale))
@@ -1562,7 +1600,8 @@ def check_functions(torch, seen):
         kv = randn(B, M, 2, H, D, dtype=dtype)  # k and v: strided views of one tensor
         k, v = kv[:, :, 0], kv[:, :, 1]
         judge("flash_attention", flash_attention(q, k, v), [q, kv],
-              flash_attention_plain(q, k, v), dict(q=list(qshape), M=M))
+              flash_attention_plain(q, k, v), dict(q=list(qshape), M=M),
+              zero=(0,) if M == 1 else ())
     return cases
 
 
@@ -2242,6 +2281,236 @@ def run_stage3_app(torch, encode_launches):
 
 
 # ---------------------------------------------------------------------------
+# phase 7e: the stage-1 image path (no temporal blocks, 1 frame)
+# ---------------------------------------------------------------------------
+
+NOTEMP_CONFIG = "configs/magicdrive/inference/1x224x400_stdit3_CogVAE_noTemp_xCE_wSST.py"
+STAGE1_CONFIG = "configs/magicdrive/train/stage1_1x224x400.py"
+STAGE1_BUCKET = (1, 224, 400)  # the stage-1 configs' (frames, height, width)
+STAGE1_TRAIN_STEPS = 2
+
+
+def stage1_model_checks(cfg):
+    """XL/2 at full width and depth in the stage-1 layout: no temporal block."""
+    require(not cfg.with_temp_block and cfg.control_skip_temporal and cfg.depth == 28
+            and cfg.control_depth == 13 and cfg.hidden_size == 1152 and cfg.num_heads == 16,
+            cfg)
+
+
+def run_stage1_serving(torch, held):
+    """The noTemp inference config at full width and depth in bf16, seeded random
+    weights, ``t5-dummy``: ``MagicDrivePipeline.from_config`` and one request of the
+    config's batch (4 samples, batched CFG 2.0: 48 views a forward, 350 tokens a
+    view) over its 20 steps with the VAE decode; then the inference app on the
+    config, 4 samples (one at a time, as the JAX app samples them), and its first
+    sample again, bit-equal. Launches, PNGs read back, the shapes each wrapper was
+    handed held against the plain versions. Returns (launches of the request, of the
+    app's 4 samples, the launches of ``encode_conditions`` at 1 frame)."""
+    import numpy as np
+    from magicdrive_v2_tpu_torch.config.config import Config
+    from magicdrive_v2_tpu_torch.config.presets import rflow
+    from magicdrive_v2_tpu_torch.pipelines.magicdrive import MagicDrivePipeline, synthetic_batch
+    from magicdrive_v2_tpu_torch.schedulers.rf import build_scheduler
+    from magicdrive_v2_tpu_torch.scripts import inference_magicdrive
+    from magicdrive_v2_tpu_torch.utils.inference_utils import read_png
+    t_phase = time.time()
+    cfg = Config.fromfile(NOTEMP_CONFIG)
+    nf, h, w = STAGE1_BUCKET
+    b, steps = cfg.batch_size, cfg.scheduler["num_sampling_steps"]
+    guidance = cfg.scheduler["cfg_scale"]
+    require((b, steps, guidance, cfg.num_frames, tuple(cfg.image_size)) == (4, 20, 2.0, nf,
+                                                                          (h, w)), cfg)
+    before = torch.cuda.memory_allocated()
+    t0 = time.time()
+    pipe = MagicDrivePipeline.from_config(cfg, device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    mc = pipe.model_cfg
+    stage1_model_checks(mc)
+    require(mc.dtype == torch.bfloat16 and len(pipe.model.base_blocks_t) == 0
+            and len(pipe.model.control_blocks_t) == 0, mc)
+    per_forward = expected_launches(mc)
+    batch = synthetic_batch(mc, nf, h, w, l_box=L_BOX, l_txt=pipe.text_encoder.model_max_length,
+                            b=b)
+    with torch.no_grad():
+        dev = to_card(torch, batch)
+        reset_counters()
+        cache = pipe.model.encode_conditions(tuple(dev["x"].shape), dev["y"], dev["maps"],
+                                             dev["bbox"], dev["cams"], dev["rel_pos"])
+        encode = read_counters()
+        reset_counters()
+        out = pipe.model(**dev, cond_cache=cache)
+        torch.cuda.synchronize()
+        require(read_counters() == per_forward, (read_counters(), per_forward))
+        require(out.shape == dev["x"].shape and bool(out.isfinite().all()), out.shape)
+        del out, cache, dev
+    cond = {k: batch[k] for k in ("y", "maps", "bbox", "cams", "rel_pos", "fps")}
+    # one step without the decode notes the request's shapes, and one view's decode
+    # warms cuDNN's calls at these shapes up
+    seen = no_shapes()
+    scheduler, pipe.scheduler = pipe.scheduler, build_scheduler(rflow(num_sampling_steps=1))
+    with recorded_shapes(seen):
+        pipe.sample(cond, num_frames=nf, height=h, width=w, guidance_scale=guidance,
+                    torch_seed=1024, decode=False)
+    pipe.scheduler = scheduler
+    with torch.no_grad():
+        pipe.vae.decode(torch.zeros((1, 16, 1, h // 8, w // 8), device="cuda",
+                                    dtype=pipe.vae.dtype))
+    video, seconds, decode_s, latents, got, peak = timed_sample(
+        torch, pipe, cond, height=h, width=w, num_frames=nf, guidance_scale=guidance,
+        torch_seed=1024)
+    del pipe.decode
+    want = {k: per_forward[k] * steps + encode[k] for k in per_forward}
+    require(got == want, (got, want))
+    require(tuple(latents.shape) == (b, 96, 1, h // 8, w // 8)
+            and bool(latents.isfinite().all()), latents.shape)
+    require(tuple(video.shape) == (b, 6, 3, nf, h, w) and bool(video.isfinite().all()),
+            video.shape)
+    require(float((video[0] - video[1]).abs().max()) > 1e-3, "two samples of a batch alike")
+    sampling = seconds - decode_s
+    request = dict(batch=b, views_per_forward=2 * b * 6, tokens_per_forward=2 * b * 6 * 350,
+                   setup_seconds=setup_s, seconds_per_step=sampling / steps,
+                   decode_seconds=decode_s, seconds_per_request_with_decode=seconds,
+                   seconds_per_sample_with_decode=seconds / b, peak_memory_bytes=peak,
+                   allocated_before_bytes=before,
+                   launches=got, video_abs_mean=float(video.abs().mean()),
+                   kernel_cases=len(held.hold(seen, "stage1_sample")))
+    del pipe, video, latents
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the app: the config's 4 samples, then the first again
+    out_dir = os.path.join("outputs", "chip_smoke_stage1_app")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    seen_app = no_shapes()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.time()
+    with recorded_shapes(seen_app):
+        saved = inference_magicdrive.main([NOTEMP_CONFIG, "--synthetic", "--num-samples",
+                                           str(b), "--cfg-options", f"outputs={out_dir}"])
+    app_s = time.time() - t0
+    app_peak = torch.cuda.max_memory_allocated()
+    app_launches = read_counters()
+    want = {k: b * (per_forward[k] * steps + encode[k]) for k in per_forward}
+    require(app_launches == want, (app_launches, want))
+    require(len(saved) == b, len(saved))
+    for path, frames in saved:
+        require(path.endswith(".png") and frames.shape == (1, 2 * h, 3 * w, 3), (path,
+                                                                               frames.shape))
+        require(bool((read_png(path) == frames[0]).all()), path)
+        require(float(frames.std()) > 1.0, f"{path}: constant frame")
+    require(not np.array_equal(saved[0][1], saved[1][1]), "two samples alike")
+    again = inference_magicdrive.main([NOTEMP_CONFIG, "--synthetic", "--num-samples", "1",
+                                       "--cfg-options", f"outputs={out_dir}_again"])
+    require(np.array_equal(again[0][1], saved[0][1]), "two runs of one seed differ (frames)")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    shutil.rmtree(f"{out_dir}_again", ignore_errors=True)
+    emit("stage1_serving", config=NOTEMP_CONFIG, model="MagicDriveSTDiT3-XL/2 (no temporal)",
+         dtype="bfloat16", views=6, frames=nf, height=h, width=w, steps=steps,
+         cfg_scale=guidance, launches_per_forward=per_forward,
+         launches_encode_conditions=encode, request=request,
+         app=dict(samples=b, seconds=app_s, seconds_per_sample=app_s / b,
+                  peak_memory_bytes=app_peak, launches=app_launches,
+                  frame_shape=[2 * h, 3 * w, 3],
+                  rerun_bit_equal=True, kernel_cases=len(held.hold(seen_app, "stage1_app"))),
+         seconds=time.time() - t_phase)
+    torch.cuda.empty_cache()
+    return got, app_launches, encode
+
+
+def run_stage1_train(torch, held, encode_launches, seed):
+    """The train app on the stage-1 config: XL/2 at full width and depth without
+    temporal blocks, ``--synthetic`` at the stage-1 bucket (1, 224, 400) and its batch
+    of 32 (67,200 tokens a step), remat full, bf16 over fp32 masters, AdamW, EMA, 2
+    steps, no checkpoint: s/step, samples/s, tokens/s, peak memory, the metrics read
+    back, launches and backwards equal to the remat layout's, every shape each
+    wrapper was handed held against the plain versions and its autograd Function
+    against autograd through the plain version; K1's plain backward at the step's
+    shape within its 2 GiB of fp32 logits a pass."""
+    from magicdrive_v2_tpu_torch.config.config import Config
+    from magicdrive_v2_tpu_torch.ops import flash_fused, fused_qkv_attention_plain
+    from magicdrive_v2_tpu_torch.scripts import train_magicdrive
+    t_phase = time.time()
+    cfg = Config.fromfile(STAGE1_CONFIG)
+    nf, h, w = STAGE1_BUCKET
+    b = cfg.batch_size
+    require((b, cfg.num_frames, tuple(cfg.image_size), cfg.grad_checkpoint)
+            == (32, nf, (h, w), True), cfg)
+    model_cfg = train_model_config(torch, cfg, torch.bfloat16)
+    stage1_model_checks(model_cfg)
+    tokens = b * model_cfg.nc * (h // 16) * (w // 16)
+
+    out_dir = os.path.join("outputs", "chip_smoke_stage1_train")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    argv = [STAGE1_CONFIG, "--synthetic", "--max-steps", str(STAGE1_TRAIN_STEPS),
+            "--cfg-options", f"outputs={out_dir}", f"synthetic_buckets=[({nf},{h},{w})]",
+            f"batch_size={b}", "ckpt_every=0", "log_every=1", "record_time=True"]
+    seen = no_shapes()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    reset_backward_calls()
+    with recorded_shapes(seen):
+        lines = train_magicdrive.main(argv)
+    got, backwards = read_counters(), read_backward_calls()
+    peak = torch.cuda.max_memory_allocated()
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        read_back = [json.loads(line) for line in f]
+    shutil.rmtree(out_dir, ignore_errors=True)
+    require([x["step"] for x in read_back] == list(range(1, STAGE1_TRAIN_STEPS + 1)),
+            read_back)
+    require(all(math.isfinite(x["loss"]) and math.isfinite(x["grad_norm"])
+                and x["grad_norm"] > 0 for x in read_back), read_back)
+    require([(x["loss"], x["grad_norm"]) for x in lines]
+            == [(x["loss"], x["grad_norm"]) for x in read_back], (lines, read_back))
+    # remat: the forward and the recompute each launch every group's kernels; the
+    # backward recomputes the plain version once for each call of the forward
+    per_forward = expected_launches(model_cfg, x_mask=True)
+    want = {k: STAGE1_TRAIN_STEPS * (2 * per_forward[k] + encode_launches[k])
+            for k in per_forward}
+    want_backward = {k: STAGE1_TRAIN_STEPS * (per_forward[k] + encode_launches[k])
+                     for k in per_forward}
+    require(got == want and backwards == want_backward, (got, want, backwards, want_backward))
+    cases = held.hold(seen, "stage1_train")
+    fn_cases = check_functions(torch, seen)
+    # K1's plain backward at the step's largest shape: passes of fp32 logits
+    G, N, _, H, _ = max(k[0] for k in seen["fused_qkv_attention"])
+    require((G, N, H) == (b * 6, 350, 16), (G, N, H))
+    group_step = fused_qkv_attention_plain.backward_group_step(
+        torch.empty((G, N, 3, H, 72), device="meta")) or G
+    logits_bytes = group_step * H * N * N * 4
+    require(logits_bytes <= flash_fused.BACKWARD_LOGITS_BYTES, (group_step, logits_bytes))
+    timed = [x["step_s"] for x in read_back[1:]]
+    s_step = sum(timed) / len(timed)
+    emit("stage1_train", config=STAGE1_CONFIG, model="MagicDriveSTDiT3-XL/2 (no temporal)",
+         dtype="bfloat16 compute, float32 masters",
+         batch=b, bucket=list(STAGE1_BUCKET), tokens_per_step=tokens, remat="full",
+         metrics=read_back, seconds_per_step=[x["step_s"] for x in read_back],
+         seconds_per_step_timed_mean=s_step, samples_per_second=b / s_step,
+         tokens_per_second=tokens / s_step, peak_memory_bytes=peak,
+         launches=got, backward_calls=backwards,
+         k1_backward=dict(qkv=[G, N, 3, H, 72], groups_a_pass=group_step,
+                          logits_bytes_a_pass=logits_bytes,
+                          limit=flash_fused.BACKWARD_LOGITS_BYTES),
+         kernel_cases=len(cases), function_cases=fn_cases, seconds=time.time() - t_phase)
+    return got
+
+
+def run_stage1(torch, held, seed):
+    """Phase stage1: serving, then training, then K1 timed at the two paths' shapes
+    (G = 48 and 192 groups of N = 350, J = 1 and 2). Returns the launches of each
+    path and the timing rows."""
+    sample_launches, app_launches, encode = run_stage1_serving(torch, held)
+    train_launches = run_stage1_train(torch, held, encode, seed)
+    rows = {f"g{G}_n350" + ("_cross_view" if J == 2 else ""): k1_timing_row(
+        torch, held, G, 350, 16, J, iters=10, plain_chunk=G)
+        for G in (48, 192) for J in (1, 2)}
+    emit("stage1_k1_timing", rows=rows)
+    torch.cuda.empty_cache()
+    return dict(sample=sample_launches, app=app_launches, train=train_launches), rows
+
+
+# ---------------------------------------------------------------------------
 # phases 7c and 7d: data-parallel training
 # ---------------------------------------------------------------------------
 
@@ -2255,6 +2524,9 @@ DP_TRAIN_MESHES = {
 }
 DP_APP_RANKS = 2
 DP_APP_ROWS = 2          # a rank's rows: the global batch is the stage-2 config's 4
+# depth and control depth of dp_app's first run (cut from 28 / 13 to keep the script
+# in time; its second run, with the checkpoint, is at 2 / 1)
+DP_APP_DEPTH = (4, 2)
 DP_APP_DEADLINE_S = 900
 
 
@@ -2654,14 +2926,13 @@ def spawn_dp_app(torch, argvs):
 def run_dp_app(torch, encode_launches):
     """The train app on 2 ranks of the card at sp_size 1, so dp=2, on the stage-2
     config (2 rows a rank: its global batch of 4), synthetic: first XL/2 at full
-    width and depth, 2 steps (the second with the AdamW moments in place), no
-    checkpoint (an XL/2 one is 33 GB): each rank's peak memory (phase train's at b=4
-    is one process's; two ranks with unsplit state would need about twice that, more
-    than the card), s/step, launches; then at depth 2 / control depth 1, 2 steps
+    width, depth DP_APP_DEPTH, 2 steps (the second with the AdamW moments in place),
+    no checkpoint: each rank's peak memory, s/step, launches; then at depth 2 /
+    control depth 1, 2 steps
     with a checkpoint at step 2: rank 0 alone writes
     ``metrics.jsonl`` (one line a step) and ``global_step2``, and one process loads
     that checkpoint (model, EMA, AdamW moments) exactly into an unsplit state: the
-    whole of the ranks' blocks. Returns the launches of a rank over the full-depth
+    whole of the ranks' blocks. Returns the launches of a rank over the first run's
     steps."""
     from magicdrive_v2_tpu_torch.models.magicdrive.stdit3 import MagicDriveSTDiT3
     from magicdrive_v2_tpu_torch.schedulers.rf import build_scheduler
@@ -2676,13 +2947,16 @@ def run_dp_app(torch, encode_launches):
             f"synthetic_buckets=[({TRAIN_FRAMES},{TRAIN_HEIGHT},{TRAIN_WIDTH})]"]
     runs = {}
     try:
-        full_dir, small_dir = os.path.join(out_root, "full"), os.path.join(out_root, "small")
+        large = f"depth{DP_APP_DEPTH[0]}"
+        full_dir, small_dir = os.path.join(out_root, "large"), os.path.join(out_root, "small")
         (full, small), backend = spawn_dp_app(torch, [
-            [TRAIN_CONFIG, "--max-steps", "2"] + base + [f"outputs={full_dir}", "ckpt_every=0"],
+            [TRAIN_CONFIG, "--max-steps", "2"] + base + [
+                f"outputs={full_dir}", "ckpt_every=0", f"model.depth={DP_APP_DEPTH[0]}",
+                f"model.control_depth={DP_APP_DEPTH[1]}"],
             [TRAIN_CONFIG, "--max-steps", "2"] + base + [f"outputs={small_dir}", "ckpt_every=2",
                                                          "model.depth=2",
                                                          "model.control_depth=1"]])
-        for key, res, d, steps in (("full_depth", full, full_dir, 2),
+        for key, res, d, steps in ((large, full, full_dir, 2),
                                    ("depth2", small, small_dir, 2)):
             with open(os.path.join(d, "metrics.jsonl")) as f:
                 read_back = [json.loads(line) for line in f]
@@ -2694,7 +2968,8 @@ def run_dp_app(torch, encode_launches):
             runs[key] = dict(metrics=read_back, seconds=[r["seconds"] for r in res],
                              peak_memory_bytes=[r["peak_memory_bytes"] for r in res],
                              launches_rank0=res[0]["launches"])
-        model_cfg = train_model_config(torch, cfg, torch.bfloat16)
+        model_cfg = train_model_config(torch, cfg, torch.bfloat16, depth=DP_APP_DEPTH[0],
+                                       control_depth=DP_APP_DEPTH[1])
         per_forward = expected_launches(model_cfg, x_mask=True)
         want = {k: 2 * (2 * per_forward[k] + encode_launches[k]) for k in per_forward}
         require(all(r["launches"] == want for r in full), ([r["launches"] for r in full], want))
@@ -2727,14 +3002,15 @@ def run_dp_app(torch, encode_launches):
         torch.cuda.empty_cache()
     finally:
         shutil.rmtree(out_root, ignore_errors=True)
-    peaks = runs["full_depth"]["peak_memory_bytes"]
+    peaks = runs[large]["peak_memory_bytes"]
     emit("dp_app", config=TRAIN_CONFIG, ranks=DP_APP_RANKS, mesh=[DP_APP_RANKS, 1],
          backend=backend, rows_per_rank=DP_APP_ROWS, global_batch=DP_APP_RANKS * DP_APP_ROWS,
+         depth=list(DP_APP_DEPTH),
          runs=runs, peak_memory_gb_each_rank=[p / 1e9 for p in peaks],
          peak_memory_gb_both_ranks=sum(peaks) / 1e9,
          checkpoint_loaded_in_one_process="global_step2 (depth 2): params and EMA equal the "
          "ranks' blocks joined, moments and step loaded", seconds=time.time() - t_phase)
-    return runs["full_depth"]["launches_rank0"]
+    return runs[large]["launches_rank0"]
 
 
 DECODE_FP32_LIMIT = 1e-4  # absolute, frames of order 1: fp32 in another summation order
@@ -3042,23 +3318,24 @@ TEST_APP_STEPS = 1
 
 def run_test_app(torch, per_forward, encode_launches, ann, root, base_config=APP_CONFIG,
                  extra_argv=(), phase="test_app", data_yaml=DATA_YAML_424,
-                 save_mode="all-in-one", seen=None):
+                 save_mode="all-in-one", seen=None, frames=APP_FRAMES):
     """The W-CODA test app on the config ``base_config`` with a dataset on the
     generated set through ``data_yaml``, ``extra_argv`` added to its command line;
-    its frames (APP_FRAMES, cut to one less) are written under outputs/ in the
-    checkout in ``save_mode``, read back and removed. TEST_APP_STEPS steps, two forwards a step under the config's
-    rflow-slice. With
-    ``seen``, the shapes each wrapper was handed are noted there."""
+    its ``frames`` frames (cut to one less) are written under outputs/ in the
+    checkout in ``save_mode``, read back and removed. TEST_APP_STEPS steps, two
+    forwards a step under the config's rflow-slice. With ``seen``, the shapes each
+    wrapper was handed are noted there."""
     from magicdrive_v2_tpu_torch.config.presets import img_collate_param
     from magicdrive_v2_tpu_torch.scripts import test_magicdrive
     from magicdrive_v2_tpu_torch.utils.inference_utils import read_png
     out_dir = os.path.join("outputs", f"chip_smoke_{phase}")
     shutil.rmtree(out_dir, ignore_errors=True)
     config = os.path.join(root, f"{phase}_config.py")
+    post = dict(WCODA_POST, cut_length=frames - 1)
     write_config(config, {
-        "_base_": os.path.abspath(base_config), "num_frames": APP_FRAMES,
+        "_base_": os.path.abspath(base_config), "num_frames": frames,
         "validation_index": [0], "outputs": out_dir, "save_mode": save_mode,
-        "post": WCODA_POST, "scheduler": {"num_sampling_steps": TEST_APP_STEPS},
+        "post": post, "scheduler": {"num_sampling_steps": TEST_APP_STEPS},
         "dataset": dict(dataset_config(data_yaml, ann, "val",
                                        img_collate_param("all-xyz", is_train=False)))})
     messages = []
@@ -3081,9 +3358,9 @@ def run_test_app(torch, per_forward, encode_launches, ann, root, base_config=APP
     want = {k: passes * (per_forward[k] * TEST_APP_STEPS + encode_launches[k])
             for k in per_forward}
     require(got == want, (got, want))
-    cut = WCODA_POST["cut_length"]
-    out_h = WCODA_POST["resize"][0] + WCODA_POST["padding"][1] + WCODA_POST["padding"][3]
-    out_w = WCODA_POST["resize"][1] + WCODA_POST["padding"][0] + WCODA_POST["padding"][2]
+    cut = post["cut_length"]
+    out_h = post["resize"][0] + post["padding"][1] + post["padding"][3]
+    out_w = post["resize"][1] + post["padding"][0] + post["padding"][2]
     grid = save_mode == "all-in-one"  # else one video a view
     require(len(saved) == (1 if grid else 6), len(saved))
     t1 = time.time()
@@ -3096,7 +3373,7 @@ def run_test_app(torch, per_forward, encode_launches, ann, root, base_config=APP
             require(bool((read_png(os.path.join(path, name)) == frames[i]).all()), name)
         require(float(frames.std()) > 1.0, "constant frames")
         # the zero padding of [-1, 1] frames is mid-grey in the written frames
-        require(bool((frames[:, :WCODA_POST["padding"][1]] == 128).all()), "top padding")
+        require(bool((frames[:, :post["padding"][1]] == 128).all()), "top padding")
     read_s = time.time() - t1
     shutil.rmtree(out_dir, ignore_errors=True)
     timings = json.loads(next(m for m in messages if m.startswith("timings "))[8:])
@@ -3281,7 +3558,7 @@ def brushnet_pipeline(torch, model_type, scheduler_type, steps, seed):
     return pipe, time.time() - t0
 
 
-def timed_sample(torch, pipe, cond, height=HEIGHT, width=WIDTH, **kw):
+def timed_sample(torch, pipe, cond, height=HEIGHT, width=WIDTH, num_frames=NUM_FRAMES, **kw):
     """One sample with decode: (video, seconds in all, seconds of the decode,
     latents, launch counts, peak memory). The decode is timed inside
     ``sample(decode=True)`` by a wrapper on the instance that reaches the pipeline
@@ -3305,7 +3582,7 @@ def timed_sample(torch, pipe, cond, height=HEIGHT, width=WIDTH, **kw):
     reset_counters()
     torch.cuda.synchronize()
     t0 = time.time()
-    video = pipe.sample(cond, num_frames=NUM_FRAMES, height=height, width=width, **kw)
+    video = pipe.sample(cond, num_frames=num_frames, height=height, width=width, **kw)
     torch.cuda.synchronize()
     return (video, time.time() - t0, timing["decode"], timing["latents"], read_counters(),
             torch.cuda.max_memory_allocated())
@@ -3553,6 +3830,9 @@ SDE848_65F_CONFIG = ("configs/magicdrive/inference/"
 # depth / control depth of app848_brushnet: app848_sde runs the full-depth blocks,
 # brushnet_plain the plain type at full depth
 APP848_BRUSHNET_DEPTH = (7, 4)
+# depth / control depth of sde848_65f (cut from 28 / 13 to keep the script in time;
+# at full depth it peaked at 48.4 GB, PERF.md)
+SDE848_65F_DEPTH = (14, 7)
 
 
 def run_app848_inpainting(torch, encode_launches, ann, root, held):
@@ -3577,7 +3857,7 @@ def run_app848_inpainting(torch, encode_launches, ann, root, held):
         out[phase] = run_test_app(torch, per_forward, encode_launches, ann, root,
                                   base_config=config, extra_argv=argv, phase=phase,
                                   data_yaml=DATA_YAML_848, save_mode="image_filename",
-                                  seen=seen)
+                                  seen=seen, frames=APP848_FRAMES)
         emit(f"{phase}_kernel_cases", per_forward=per_forward,
              cases=held.hold(seen, phase), shapes=shape_record(seen))
         torch.cuda.empty_cache()
@@ -3597,21 +3877,22 @@ def shape_record(seen):
 def run_sde848_65f(torch, seed, encode_launches, held):
     """The 65-frame 848x1600 SDE-BrushNet config through ``from_config`` in one
     process of an NCCL group of one (sp_size 4 on one rank: unsharded; 5300 tokens a
-    frame divide 4, so the fsp4 pad adds none): XL/2-SDEBrushNet at full width and
-    depth, bf16, rflow-sdebrushnet-slice (two forwards of b=1 a step), 6 views of 65
+    frame divide 4, so the fsp4 pad adds none): XL/2-SDEBrushNet at full width, depth
+    SDE848_65F_DEPTH, bf16, rflow-sdebrushnet-slice (two forwards of b=1 a step), 6 views of 65
     frames (17 latent frames: 540,600 tokens a forward), 1 step,
     ``sample(decode=False)``, the pedestrian frames and masks drawn on the card; then
     one view's 17 latent frames through the tiled VAE decode (65 frames). s/step,
-    peak memory (one card holds it unsharded: 48.4 GB on an H100 80GB HBM3 at 700 W,
-    PERF.md), launches; every shape the path handed a wrapper held against its plain
-    version (``held``). Returns the launches."""
+    peak memory, launches; every shape the path handed a wrapper held against its
+    plain version (``held``). Returns the launches."""
     import torch.distributed as dist
     from magicdrive_v2_tpu_torch.config.config import Config, merge_dot_options
     from magicdrive_v2_tpu_torch.parallel.distributed import free_port
     from magicdrive_v2_tpu_torch.pipelines.magicdrive import MagicDrivePipeline, synthetic_batch
     from magicdrive_v2_tpu_torch.utils.inference_utils import resolve_num_frames
     cfg = Config.fromfile(SDE848_65F_CONFIG)
-    merge_dot_options(cfg, ["scheduler.num_sampling_steps=1", f"seed={seed}"])
+    merge_dot_options(cfg, ["scheduler.num_sampling_steps=1", f"seed={seed}",
+                            f"model.depth={SDE848_65F_DEPTH[0]}",
+                            f"model.control_depth={SDE848_65F_DEPTH[1]}"])
     dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
                             world_size=1, rank=0, device_id=torch.device("cuda", 0))
     try:
@@ -3622,14 +3903,13 @@ def run_sde848_65f(torch, seed, encode_launches, held):
     finally:
         dist.destroy_process_group()
     mc = pipe.model_cfg
-    require(pipe.mesh is None and mc.sde_inpaint and mc.depth == 28 and mc.control_depth == 13
+    require(pipe.mesh is None and mc.sde_inpaint
+            and (mc.depth, mc.control_depth) == SDE848_65F_DEPTH
             and mc.hidden_size == 1152 and mc.force_pad_h_for_sp_size == 4
             and pipe.scheduler.slice_cfg and pipe.vae.tiling, (pipe.mesh, mc))
     frames = resolve_num_frames(cfg)
     require(frames == 65, frames)
     per_forward = expected_launches(mc)
-    require(per_forward == {"fused_qkv_attention": 97, "adaln_modulate": 304,
-                            "flash_attention": 82}, per_forward)
     # 53 x 100 token rows and columns: 5300 tokens a frame divide 4, so the fsp4 pad
     # adds none (it pads where H * W does not divide 4)
     H, W = -(-H848 // 16), -(-W848 // 16)
@@ -3680,7 +3960,8 @@ def run_sde848_65f(torch, seed, encode_launches, held):
     cases = held.hold(seen, "sde848_65f")
     tokens = 6 * T * S
     emit("sde848_65f", config=SDE848_65F_CONFIG, model=SDE_BRUSHNET, dtype="bfloat16",
-         sp_config=int(cfg.sp_size), sp_run=1, force_pad_h_for_sp_size=4,
+         depth=list(SDE848_65F_DEPTH), sp_config=int(cfg.sp_size), sp_run=1,
+         force_pad_h_for_sp_size=4,
          scheduler="rflow-sdebrushnet-slice", views=6, frames=frames, latent_frames=T,
          height=H848, width=W848, tokens_per_view=S, tokens_per_forward=tokens,
          steps=1, setup_seconds=setup_s, seconds_per_step=seconds, peak_memory_bytes=peak,
@@ -3739,7 +4020,7 @@ BRUSH_TRAIN_APP_CONFIG = "configs/magicdrive/train/brushnet_smoke.py"
 BRUSHNET_STEPS_TRAIN, PLAIN_BRUSHNET_STEPS_TRAIN = 2, 2
 # depth / control depth of the SDE and the plain BrushNet types' steps, cut from 28 /
 # 13 to keep the script inside its time (PERF.md keeps the full-depth numbers)
-SDE_BRUSHNET_TRAIN_DEPTH = (14, 7)
+SDE_BRUSHNET_TRAIN_DEPTH = (7, 4)
 PLAIN_BRUSHNET_TRAIN_DEPTH = (7, 4)
 
 
@@ -4450,6 +4731,8 @@ PED_VIDEO_MASK_IOU = 0.99        # a view's mask read back over the one written
 # reads back within ~0.02)
 PED_VIDEO_SAME_COLOUR = 0.25
 PLAN_MEMORY_CASES = ((2, 1), (1, 2))  # (dp, sp) of phase plan_memory
+# its depth and control depth (cut from 7 / 4 to keep the script in time)
+PLAN_MEMORY_DEPTH = (4, 2)
 PLAN_MEMORY_DEADLINE_S = 600
 
 
@@ -4746,8 +5029,8 @@ def plan_memory_args(case):
     from magicdrive_v2_tpu_torch.tools import plan_memory
     dp, sp = case
     return plan_memory.parse_args([
-        "--dp", str(dp), "--sp", str(sp), "--depth", str(STAGE3_APP_DEPTH[0]),
-        "--control-depth", str(STAGE3_APP_DEPTH[1]), "--remat", "full",
+        "--dp", str(dp), "--sp", str(sp), "--depth", str(PLAN_MEMORY_DEPTH[0]),
+        "--control-depth", str(PLAN_MEMORY_DEPTH[1]), "--remat", "full",
         "--deadline", str(PLAN_MEMORY_DEADLINE_S)])
 
 
@@ -4809,7 +5092,7 @@ def plan_memory_worker():
 
 def run_plan_memory(torch, run, beside):
     """Phase plan_memory: ``tools/plan_memory`` at full width, 6 x 424x800 x 17, depth
-    STAGE3_APP_DEPTH, remat full, on (dp, sp) = PLAN_MEMORY_CASES (the ranks of
+    PLAN_MEMORY_DEPTH, remat full, on (dp, sp) = PLAN_MEMORY_CASES (the ranks of
     ``start_plan_memory``, each case's sharing the card over gloo, the phases
     ``beside`` running meanwhile in this process): waits for them; each rank's
     parameter and buffer bytes equal what the fsdp split gives it, finite loss and
@@ -4828,7 +5111,7 @@ def run_plan_memory(torch, run, beside):
                                               backend)
     rows = {}
     for (dp, sp), res in results.items():
-        params, buffers = plan_memory_split_bytes(torch, dp, STAGE3_APP_DEPTH)
+        params, buffers = plan_memory_split_bytes(torch, dp, PLAN_MEMORY_DEPTH)
         for r in res["ranks"]:
             require((r["param_bytes"], r["buffer_bytes"]) == (params, buffers),
                     (dp, sp, r, params, buffers))
@@ -4839,7 +5122,7 @@ def run_plan_memory(torch, run, beside):
             {k: r[k] for k in ("rank", "param_bytes", "buffer_bytes", "batch_bytes",
                                "peak_bytes", "step_s", "loss", "grad_norm")}
             for r in res["ranks"]]
-    emit("plan_memory", depth=list(STAGE3_APP_DEPTH), shape=[NUM_FRAMES, HEIGHT, WIDTH],
+    emit("plan_memory", depth=list(PLAN_MEMORY_DEPTH), shape=[NUM_FRAMES, HEIGHT, WIDTH],
          plans=rows, beside=list(beside), seconds=time.time() - run["t0"], wait_s=wait_s)
 
 
@@ -4938,10 +5221,11 @@ def main():
     sp_train_launches = run_sp_train(torch, args.seed, encode_launches, held)
     stage3_launches = run_stage3_app(torch, encode_launches)
     torch.cuda.empty_cache()
+    stage1_launches, stage1_k1_rows = run_stage1(torch, held, args.seed)
     dp_train_launches = run_dp_train(torch, args.seed, encode_launches, held)
-    # dp_app's two full-depth ranks need ~58 GB of the card: this process gives back
-    # what its allocator still holds from dp_train's references (a rank ran out of
-    # memory beside ~20 GB of it on an H100 80GB HBM3)
+    # dp_app's two ranks need much of the card (~58 GB at full depth): this process
+    # gives back what its allocator still holds from dp_train's references (a rank ran
+    # out of memory beside ~20 GB of it on an H100 80GB HBM3)
     gc.collect()
     torch.cuda.empty_cache()
     dp_app_launches = run_dp_app(torch, encode_launches)
@@ -4975,7 +5259,7 @@ def main():
         app848_launches = run_test_app(
             torch, per_forward, encode_launches, ann, data_root, base_config=APP848_CONFIG,
             phase="app848", data_yaml=DATA_YAML_848, save_mode="image_filename",
-            seen=seen848)
+            seen=seen848, frames=APP848_FRAMES)
         emit("app848_kernel_cases", cases=held.hold(seen848, "app848"))
         inpaint848_launches = run_app848_inpainting(torch, encode_launches, ann, data_root,
                                                     held)
@@ -5001,6 +5285,7 @@ def main():
     perf_lab_launches = run_perf_lab(torch, args.seed, per_forward)
     for name, worst in held.worst.items():  # over every case held, later paths' too
         kernel_numbers[name]["max_abs_err"] = worst
+    kernel_numbers["fused_qkv_attention"]["stage1_n350"] = stage1_k1_rows
 
     # where the Pallas kernels sit in the JAX package (a path only: nothing of that
     # package is imported)
@@ -5049,7 +5334,10 @@ def main():
                                       "sde848_65f": sde848_65f_launches[name],
                                       "block_bench": block_bench_launches[name],
                                       "ped_video_app": ped_video_launches[name],
-                                      "perf_lab_step": perf_lab_launches[name]},
+                                      "perf_lab_step": perf_lab_launches[name],
+                                      "stage1_sample_b4": stage1_launches["sample"][name],
+                                      "stage1_app": stage1_launches["app"][name],
+                                      "stage1_train": stage1_launches["train"][name]},
                     **meta[name], **kernel_numbers[name], backward=backward[name])
                for name in meta]
     for k in kernels:

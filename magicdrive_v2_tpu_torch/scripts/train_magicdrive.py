@@ -52,9 +52,11 @@ from salt 4 (each offset by d * 7919, as the JAX app offsets its per-rank draws)
 t and noise from (seed + 1, step) for the global batch; each dataset item from
 (seed, epoch, index), the dp rows splitting the sampler's batches.
 
-Not ported: TensorBoard scalars (the JAX app only tries them; ``metrics.jsonl``
-holds the same numbers). With ``record_time`` each metrics line also has the
-step's seconds, the seconds it waited on the loader and those of the VAE encode.
+Rank 0 also writes each logged step's ``loss`` and ``grad_norm`` as TensorBoard
+scalars under ``outputs/tb`` when ``torch.utils.tensorboard`` imports (as the JAX
+app tries to); without it ``metrics.jsonl`` alone holds them. With
+``record_time`` each metrics line also has the step's seconds, the seconds it
+waited on the loader and those of the VAE encode.
 """
 from __future__ import annotations
 
@@ -119,6 +121,25 @@ class SyntheticLoader:
                 seed=int(np.random.default_rng((self.seed, gi)).integers(1 << 31)))
             batch["num_frames"] = t_img
             yield batch
+
+
+def open_tensorboard(exp_dir: str):
+    """A ``SummaryWriter`` on ``exp_dir/tb``, or None when TensorBoard does not
+    import or the writer cannot be made (the run keeps ``metrics.jsonl``).
+    TensorBoard runs without TensorFlow (its ``tensorboard.compat.notf`` switch: a
+    module of that name makes it use its own stub): writing scalars needs none of
+    it, and a TensorFlow install would import JAX into the port's process."""
+    import sys
+    import types
+    name = "tensorboard.compat.notf"
+    sys.modules.setdefault(name, types.ModuleType(name))
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+        return SummaryWriter(os.path.join(exp_dir, "tb"))
+    except (ImportError, OSError) as e:
+        logger.warning("no TensorBoard scalars (%s: %s); metrics.jsonl holds them",
+                       type(e).__name__, e)
+        return None
 
 
 def build_dataloader(cfg, seed: int, dp: int = 1, dp_row: int = 0):
@@ -429,51 +450,60 @@ def _main(args, device) -> List[dict]:
     def done():
         return args.max_steps is not None and step - start_step >= args.max_steps
 
-    for epoch in range(pos["epoch"], cfg.get("epochs", 1)):
-        if done():
-            break
-        pos["epoch"] = epoch
-        if sampler is not None:
-            sampler.set_epoch(epoch)
-            dataset.set_epoch(epoch)
-        for batch in loader:
+    tb = open_tensorboard(exp_dir) if is_main_process() else None
+    try:
+        for epoch in range(pos["epoch"], cfg.get("epochs", 1)):
             if done():
                 break
-            batch, (t_img, h, w) = step_inputs(batch, cfg, mask_gen, seed0, step, dp_row)
-            simu_sp = (step_rng(seed0, 2, step).choice(simu_sp_list)
-                       if simu_sp_list else None)
-            step_fn = get_step(h, w, t_img, simulate_sp=simu_sp)
-            t_step = time.time()
-            with use_mesh(mesh):
-                state, metrics = step_fn(state, to_device(batch, device))
-            step += 1
-            pos["epoch_step"] += 1
-            step_holder["step"] = step
-            if step % log_every == 0:
-                loss = float(metrics["loss"])
-                line = {"step": step, "loss": loss, "grad_norm": float(metrics["grad_norm"]),
-                        "elapsed_s": round(time.time() - t_start, 1)}
-                if simu_sp_list:
-                    line["simulate_sp"] = simu_sp
-                if record_time:
-                    line["step_s"] = round(time.time() - t_step, 3)
-                    line.update({k: round(v, 3) for k, v in getattr(loader, "timing",
-                                                                   {}).items()})
-                logger.info("%s", line)
-                if is_main_process():
-                    with open(metrics_path, "a") as f:
-                        f.write(json.dumps(line) + "\n")
-                logged.append(line)
-                if not np.isfinite(loss):
-                    raise FloatingPointError(f"NaN loss at step {step}")
-            if ckpt_every > 0 and step % ckpt_every == 0:
-                checkpoint(step)
-            maybe_validate(step, (t_img, int(h), int(w)))
-        else:  # the epoch ran to its end
-            pos.update(epoch=epoch + 1, epoch_step=0)
+            pos["epoch"] = epoch
+            if sampler is not None:
+                sampler.set_epoch(epoch)
+                dataset.set_epoch(epoch)
+            for batch in loader:
+                if done():
+                    break
+                batch, (t_img, h, w) = step_inputs(batch, cfg, mask_gen, seed0, step, dp_row)
+                simu_sp = (step_rng(seed0, 2, step).choice(simu_sp_list)
+                           if simu_sp_list else None)
+                step_fn = get_step(h, w, t_img, simulate_sp=simu_sp)
+                t_step = time.time()
+                with use_mesh(mesh):
+                    state, metrics = step_fn(state, to_device(batch, device))
+                step += 1
+                pos["epoch_step"] += 1
+                step_holder["step"] = step
+                if step % log_every == 0:
+                    loss = float(metrics["loss"])
+                    line = {"step": step, "loss": loss,
+                            "grad_norm": float(metrics["grad_norm"]),
+                            "elapsed_s": round(time.time() - t_start, 1)}
+                    if simu_sp_list:
+                        line["simulate_sp"] = simu_sp
+                    if record_time:
+                        line["step_s"] = round(time.time() - t_step, 3)
+                        line.update({k: round(v, 3) for k, v in getattr(loader, "timing",
+                                                                       {}).items()})
+                    logger.info("%s", line)
+                    if is_main_process():
+                        with open(metrics_path, "a") as f:
+                            f.write(json.dumps(line) + "\n")
+                    if tb is not None:
+                        tb.add_scalar("loss", loss, step)
+                        tb.add_scalar("grad_norm", line["grad_norm"], step)
+                    logged.append(line)
+                    if not np.isfinite(loss):
+                        raise FloatingPointError(f"NaN loss at step {step}")
+                if ckpt_every > 0 and step % ckpt_every == 0:
+                    checkpoint(step)
+                maybe_validate(step, (t_img, int(h), int(w)))
+            else:  # the epoch ran to its end
+                pos.update(epoch=epoch + 1, epoch_step=0)
 
-    if ckpt_every > 0 and step % ckpt_every:  # else the loop has just saved this step
-        checkpoint(step)
+        if ckpt_every > 0 and step % ckpt_every:  # else the loop has just saved this step
+            checkpoint(step)
+    finally:
+        if tb is not None:
+            tb.close()
     logger.info("done at step %d", step)
     return logged
 

@@ -40,6 +40,8 @@ stands in its place) and ``compile_s`` (nothing is compiled ahead).
 Usage (from the repository root; XL/2's flagship case on 8 ranks):
   python3 -m magicdrive_v2_tpu_torch.tools.plan_memory --sp 4 --dp 2 --remat full
   python3 -m magicdrive_v2_tpu_torch.tools.plan_memory --sp 2 --infer
+  python3 -m magicdrive_v2_tpu_torch.tools.plan_memory --dp 1 --sp 1 --rows 32 \\
+      --height 224 --width 400 --frames 1 --no-temporal    # the stage-1 config's step
   python3 -m magicdrive_v2_tpu_torch.tools.plan_memory --tiny --dp 2 --sp 2 \\
       --height 64 --width 80 --frames 9 --device cpu
 """
@@ -75,6 +77,9 @@ def parse_args(argv=None):
     ap.add_argument("--rows", type=int, default=1, help="samples per dp row")
     ap.add_argument("--depth", type=int, default=None, help="cut the depth (full: 28)")
     ap.add_argument("--control-depth", type=int, default=None, help="(full: 13)")
+    ap.add_argument("--no-temporal", action="store_true",
+                    help="the stage-1 image model: no temporal blocks (with_temp_block off, "
+                         "control_skip_temporal on)")
     ap.add_argument("--simulate-sp", type=int, default=None,
                     help="the training-time H pad of that sp size (a stage-3 config's "
                          "simulate_sp_size)")
@@ -88,8 +93,11 @@ def parse_args(argv=None):
 
 
 def _overrides(args) -> Dict:
-    return {k: v for k, v in (("depth", args.depth), ("control_depth", args.control_depth))
-            if v is not None}
+    out = {k: v for k, v in (("depth", args.depth), ("control_depth", args.control_depth))
+           if v is not None}
+    if args.no_temporal:
+        out.update(with_temp_block=False, control_skip_temporal=True)
+    return out
 
 
 def _nbytes(tensors) -> int:
@@ -211,7 +219,8 @@ def summarise(args, outs: List[str], backend: str) -> Dict:
     return dict(
         shape=f"{args.rows * args.dp}x6view {args.height}x{args.width}x{args.frames}f "
               f"{mode} dp={args.dp} sp={args.sp}" + (" tiny" if args.tiny else "")
-              + (f" depth={args.depth}/{args.control_depth}" if args.depth else ""),
+              + (f" depth={args.depth}/{args.control_depth}" if args.depth else "")
+              + (" no-temporal" if args.no_temporal else ""),
         **({} if args.infer else {"remat": args.remat}),
         backend=f"{'cuda' if on_card else 'cpu'}/{backend}",
         device=card_label() if on_card else "cpu",
@@ -246,7 +255,8 @@ def rank_argv(args) -> List[str]:
                     ("--simulate-sp", args.simulate_sp)):
         if v is not None:
             out += [flag, str(v)]
-    return out + ["--tiny"] * args.tiny + ["--infer"] * args.infer
+    return (out + ["--tiny"] * args.tiny + ["--infer"] * args.infer
+            + ["--no-temporal"] * args.no_temporal)
 
 
 def main(argv=None):

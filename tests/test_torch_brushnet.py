@@ -65,13 +65,16 @@ def tree(v, conv):
 
 
 _MODELS = {}
+# the stage-1 layout: no temporal block in the base and control streams (the JAX
+# BrushNet keeps a temporal block in each control group, none in the plain ones)
+NO_TEMPORAL = dict(with_temp_block=False, control_skip_temporal=True)
 
 
-def models(sde):
-    """(JAX cfg, port cfg, JAX model, params, port model, batch), one per variant
-    and test module."""
-    if sde not in _MODELS:
-        jcfg, tcfg = brush_configs(sde)
+def models(sde, temporal=True):
+    """(JAX cfg, port cfg, JAX model, params, port model, batch), one per variant,
+    layout and test module."""
+    if (sde, temporal) not in _MODELS:
+        jcfg, tcfg = brush_configs(sde, **({} if temporal else NO_TEMPORAL))
         batch = synthetic_batch(tcfg, NF, HH, WW, l_txt=8, map_size=(8, 40, 40))
         batch["x_inpaint"], batch["mask_inpaint"] = inpaint_inputs(tcfg.nc)
         if sde:
@@ -81,8 +84,8 @@ def models(sde):
         params = random_params(jmodel, **tree(batch, j), **extra)
         tmodel = load_into(TB.MagicDriveSTDiT3BrushNet(tcfg), params,
                            control_depth=tcfg.control_depth)
-        _MODELS[sde] = (jcfg, tcfg, jmodel, params, tmodel, batch)
-    return _MODELS[sde]
+        _MODELS[sde, temporal] = (jcfg, tcfg, jmodel, params, tmodel, batch)
+    return _MODELS[sde, temporal]
 
 
 def input_noise(key, tcfg, b):
@@ -176,15 +179,21 @@ def test_from_jax_params_equals_export_for_brushnet_trees(sde):
     assert "brushnet_blocks_s.0.cross_attn.q_linear.weight" not in mine
 
 
-@pytest.mark.parametrize("case", ["plain", "x_mask", "frame_valid", "cond_cache"])
+@pytest.mark.parametrize("case", ["plain", "x_mask", "frame_valid", "cond_cache",
+                                  "no_temporal"])
 @pytest.mark.parametrize("sde", [False, True], ids=["brushnet", "sde"])
 def test_brushnet_forward_matches(sde, case):
     """Both variants: no frame mask; a frame mask (the t0 modulations, and for the
     SDE model the t0 path of its combined timestep); a clip padded with
     ``frame_valid`` (zero inpaint frames in the pad); conditions from
-    ``encode_conditions`` passed as ``cond_cache``. The SDE noise is the draw the
-    JAX model makes from its key, handed to the port."""
-    jcfg, tcfg, jmodel, params, tmodel, batch = models(sde)
+    ``encode_conditions`` passed as ``cond_cache``; the model built without
+    temporal blocks (``with_temp_block=False``, ``control_skip_temporal=True``: a
+    BrushNet temporal block in each control group only). The SDE noise is the draw
+    the JAX model makes from its key, handed to the port."""
+    jcfg, tcfg, jmodel, params, tmodel, batch = models(sde, temporal=case != "no_temporal")
+    if case == "no_temporal":
+        assert len(tmodel.base_blocks_t) == len(tmodel.control_blocks_t) == 0
+        assert len(tmodel.brushnet_blocks_t) == tcfg.control_depth < tcfg.depth
     jkw, tkw = {}, {}
     batch = dict(batch)
     if case == "x_mask":

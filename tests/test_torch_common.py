@@ -8,6 +8,7 @@ comparison vacuous). JAX runs on the CPU with matmul precision "highest"
 (tests/conftest.py); the port runs in fp32 on ``device="cpu"``.
 """
 import dataclasses
+import glob
 import os
 import sys
 
@@ -132,3 +133,15 @@ def spawn_ranks(n, argv, deadline_s, env=None, cwd=None):
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     return spawn(n, argv, deadline_s, env=dict(OMP_NUM_THREADS="1", **(env or {})),
                  cwd=cwd or repo)
+
+
+def read_scalars(tb_dir):
+    """{tag: [(step, value), ...]} of the one TensorBoard event file under
+    ``tb_dir``, read by TensorBoard's own reader."""
+    from tensorboard.backend.event_processing import event_accumulator
+    files = glob.glob(os.path.join(tb_dir, "events.out.tfevents.*"))
+    assert len(files) == 1, files
+    acc = event_accumulator.EventAccumulator(tb_dir)
+    acc.Reload()
+    return {tag: [(e.step, e.value) for e in acc.Scalars(tag)]
+            for tag in acc.Tags()["scalars"]}

@@ -316,7 +316,9 @@ with tempfile.TemporaryDirectory() as d:
     lines = train_magicdrive.main(["configs/magicdrive/train/smoke_tiny.py", "--synthetic",
                                    "--device", "cpu", "--max-steps", "1",
                                    "--cfg-options", f"outputs={d}"])
+    tb_files = os.listdir(os.path.join(d, "tb"))  # its TensorBoard scalars
 assert [x["step"] for x in lines] == [1], lines
+assert len(tb_files) == 1, tb_files
 # one step of the BrushNet train app, SDE-BrushNet (LoRA mask, train switch)
 from magicdrive_v2_tpu_torch.scripts import train_brushnet
 with tempfile.TemporaryDirectory() as d:

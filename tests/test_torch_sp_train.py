@@ -32,7 +32,7 @@ import pytest
 import torch
 
 from test_torch_common import (assert_close, j, load_into, np_tree, random_params,
-                               spawn_ranks, t, tiny_configs)
+                               read_scalars, spawn_ranks, t, tiny_configs)
 from torch_sp_train_worker import run_steps
 
 import jax
@@ -453,6 +453,10 @@ def test_train_app_sp4_on_two_ranks_resumes_in_one_process(ranks, tmp_path, capl
     assert [x["simulate_sp"] for x in sharded] == [4.0, 8.0]
     with open(os.path.join(app_dir, "metrics.jsonl")) as f:
         assert len(f.readlines()) == 2  # rank 0's lines only
+    # rank 0's TensorBoard scalars only: one event file, rank 0's values
+    assert read_scalars(os.path.join(app_dir, "tb")) == {
+        k: [(x["step"], float(np.float32(x[k]))) for x in sharded]
+        for k in ("loss", "grad_norm")}
     opts = ["--cfg-options", "sp_size=4", "simulate_sp_size=[4,8]", "seed=1"]
     with caplog.at_level("INFO", logger="train"):
         resumed = _app(["--max-steps", "2"] + opts + [f"outputs={app_dir}"])

@@ -1,7 +1,9 @@
 """PyTorch port, the denoiser: MagicDriveSTDiT3 at the tiny flagship config
 (hidden 64, 4 heads, depth 2 / control depth 1), 9 frames 64x80, against the JAX
 model on the CPU in fp32, weights through ``from_jax_params`` +
-``load_state_dict(strict=True)`` with every leaf random.
+``load_state_dict(strict=True)`` with every leaf random. The forward is also held
+in the stage-1 image model's layout (``with_temp_block=False``,
+``control_skip_temporal=True``: no temporal block at all) at 1 frame.
 
 Tolerance 1e-4 absolute on outputs of order 0.1-1: fp32 rounding through ~10
 blocks of GEMMs that the two libraries sum in different orders.
@@ -40,14 +42,38 @@ def _to_jax(v):
     return j(v) if isinstance(v, np.ndarray) else v
 
 
-@pytest.fixture(scope="module")
-def setup():
-    jcfg, tcfg = tiny_configs()
-    batch = synthetic_batch(tcfg, NF, HH, WW, l_txt=60)
+# (with_temp_block, control_skip_temporal, frames) of the layouts held against JAX
+LAYOUTS = {"temporal": (True, False, NF), "stage1": (False, True, 1)}
+
+
+def build_setup(layout):
+    temp, skip_t, nf = LAYOUTS[layout]
+    jcfg, tcfg = tiny_configs(with_temp_block=temp, control_skip_temporal=skip_t)
+    batch = synthetic_batch(tcfg, nf, HH, WW, l_txt=60)
     jmodel = JModel(jcfg)
     params = random_params(jmodel, **_to_jax(batch))
     tmodel = load_into(TModel(tcfg), params, control_depth=tcfg.control_depth)
     return jcfg, tcfg, jmodel, params, tmodel, batch
+
+
+@pytest.fixture(scope="module")
+def setup():
+    return build_setup("temporal")
+
+
+@pytest.fixture(scope="module")
+def stage1_setup():
+    return build_setup("stage1")
+
+
+def test_stage1_tree_has_no_temporal_blocks(stage1_setup):
+    """The no-temporal tree loads strictly (done by the fixture) with both lists of
+    temporal blocks empty, and its keys are the JAX exporter's."""
+    _, tcfg, _, params, tmodel, _ = stage1_setup
+    names = set(tmodel.state_dict())
+    assert len(tmodel.base_blocks_t) == len(tmodel.control_blocks_t) == 0
+    assert not any(n.startswith(("base_blocks_t.", "control_blocks_t.")) for n in names)
+    assert names == set(export_torch_state_dict(np_tree(params), tcfg.control_depth))
 
 
 def test_synthetic_batch_equals_the_jax_package(setup):
@@ -86,11 +112,15 @@ def test_from_jax_params_equals_export_torch_state_dict(setup):
 
 
 @pytest.mark.heavy  # ~35 s with a cold XLA compile cache
-@pytest.mark.parametrize("jax_kernels", [False, True], ids=["jax_xla", "jax_pallas_interpret"])
-def test_forward_matches(setup, monkeypatch, jax_kernels):
+@pytest.mark.parametrize("layout,jax_kernels", [
+    ("temporal", False), ("temporal", True), ("stage1", False), ("stage1", True)],
+    ids=["jax_xla", "jax_pallas_interpret", "stage1-jax_xla", "stage1-jax_pallas_interpret"])
+def test_forward_matches(request, monkeypatch, layout, jax_kernels):
     """Once against the JAX model's default composition and once with the JAX side
-    forced through its three Pallas kernels (interpret mode)."""
-    jcfg, tcfg, jmodel, params, tmodel, batch = setup
+    forced through its three Pallas kernels (interpret mode); in the default layout
+    (9 frames) and in stage 1's (no temporal blocks, 1 frame)."""
+    fixture = "setup" if layout == "temporal" else "stage1_setup"
+    jcfg, tcfg, jmodel, params, tmodel, batch = request.getfixturevalue(fixture)
     from magicdrive_v2_tpu.models.layers import blocks as JB
     from magicdrive_v2_tpu.models.magicdrive import stdit3 as JS
     calls = {"fused": 0, "adaln": 0}

@@ -168,6 +168,26 @@ def _jax_bytes_by_device(cfg, port_params):
     return mesh, on, buffer_whole
 
 
+def test_plan_memory_measures_the_stage1_model_with_no_temporal():
+    """``--no-temporal`` plans the stage-1 image model's step (no temporal blocks): one
+    rank holds that model's parameters, the temporal blocks' fewer, and the step
+    runs at 1 frame."""
+    from magicdrive_v2_tpu_torch.models.magicdrive.stdit3 import MagicDriveSTDiT3
+    res = plan_memory.main(["--tiny", "--dp", "1", "--sp", "1", "--height", "64",
+                            "--width", "80", "--frames", "1", "--no-temporal", "--device",
+                            "cpu", "--deadline", "600"])
+    assert res["shape"].endswith("tiny no-temporal"), res["shape"]
+    (rank,) = res["ranks"]
+    assert rank["finite"]
+    sizes = {}
+    for name, flags in (("stage1", dict(with_temp_block=False, control_skip_temporal=True)),
+                        ("temporal", {})):
+        with torch.device("meta"):
+            model = MagicDriveSTDiT3(tiny_configs(**flags)[1])
+        sizes[name] = sum(p.numel() * 4 for p in model.parameters())
+    assert rank["param_bytes"] == sizes["stage1"] < sizes["temporal"]
+
+
 def test_plan_memory_tiny_on_a_2x2_cpu_mesh_holds_what_jax_shards():
     """Four gloo ranks, (dp, sp) = (2, 2): each rank's parameter bytes equal the
     bytes JAX ``shard_params`` places on its device of the leaves the port keeps as

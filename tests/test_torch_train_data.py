@@ -76,7 +76,7 @@ vae_out_channels = 16
 img_collate_param_train = dict(img_collate_param(bbox_mode, is_train={is_train}),
                                template="A driving scene image at {{location}}. {{description}}.")
 
-model = xl2_model(bbox_mode=bbox_mode, control_skip_temporal=False)
+model = xl2_model(bbox_mode=bbox_mode, {model_flags})
 model.update(depth=2, control_depth=1, hidden_size=64, num_heads=4)
 model["bbox_embedder_param"].update(class_token_dim=64, proj_dims=[64, 32, 32, 64],
                                     num_heads=4)
@@ -111,7 +111,7 @@ batch_size = {batch_size}
 epochs = 2
 ckpt_every = 100
 log_every = 1
-mask_ratios = dict(image_head=0.5)
+mask_ratios = {mask_ratios}
 drop_cond_ratio = 0.5
 drop_cond_ratio_t = 0.4
 num_workers = 2
@@ -145,12 +145,20 @@ def assets(tmp_path_factory):
     return dict(root=root, ann=ann, vae_dir=str(vae_dir), vae_cfg=cfg, vae_params=vparams)
 
 
-def write_config(path, assets, is_train=False, batch_size=2, report_every=None, long=True):
+def write_config(path, assets, is_train=False, batch_size=2, report_every=None, long=True,
+                 stage1=False):
+    """The config of these tests; ``stage1``: the stage-1 image model (no temporal
+    blocks), clips of 1 frame and no frame mask, as
+    ``configs/magicdrive/train/stage1_1x224x400.py`` has them."""
     path.write_text(CFG.format(seed=SEED, out_dir=str(path.parent / "out"),
                                ann_file=assets["ann"]["long" if long else "short"],
-                               num_frames=9 if long else 3, vae_dir=assets["vae_dir"],
+                               num_frames=1 if stage1 else 9 if long else 3,
+                               vae_dir=assets["vae_dir"],
                                is_train=is_train, batch_size=batch_size,
                                report_every=report_every,
+                               model_flags=("with_temp_block=False, control_skip_temporal=True"
+                                            if stage1 else "control_skip_temporal=False"),
+                               mask_ratios="{}" if stage1 else "dict(image_head=0.5)",
                                yaml_path=os.path.join(REPO, "configs/dataset/Nuscenes.yaml")))
     return str(path)
 
@@ -182,9 +190,15 @@ def test_encode_stage_and_two_train_steps_match_jax(assets, tmp_path):
     within 2e-5 of the JAX VAE's, and its latents are those moments' sample with
     the noise the port drew (from (seed + 7, step)); then two steps of the port's
     trainer on those batches against two of JAX's."""
+    encode_and_train_against_jax(assets, tmp_path)
+
+
+def encode_and_train_against_jax(assets, tmp_path, stage1=False):
+    """The checks of ``test_encode_stage_and_two_train_steps_match_jax`` on the
+    config ``write_config(..., stage1=stage1)`` writes; returns the clips' frames."""
     from magicdrive_v2_tpu_torch.pipelines.magicdrive import build_text_encoder, build_vae
     from magicdrive_v2_tpu_torch.scripts import train_magicdrive as app
-    path = write_config(tmp_path / "cfg.py", assets)
+    path = write_config(tmp_path / "cfg.py", assets, stage1=stage1)
     jcfg, tcfg = JConfig.fromfile(path), Config.fromfile(path)
     jloader, _ = jax_train_script().build_dataloader(jcfg, 1)
     tloader, _, _ = app.build_dataloader(tcfg, SEED)
@@ -285,6 +299,7 @@ def test_encode_stage_and_two_train_steps_match_jax(assets, tmp_path):
             err = np.abs(p.detach().numpy() - ref[name])
             assert float(err.max()) <= flip, (name, float(err.max()))
             np.testing.assert_array_less(err[~weak[name].numpy()], 2e-6, err_msg=name)
+    return nf
 
 
 def _app(cfg, steps, *extra):

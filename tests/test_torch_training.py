@@ -49,7 +49,7 @@ from magicdrive_v2_tpu_torch.utils.ckpt import (find_latest, from_jax_params, in
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NF, HH, WW, B = 9, 64, 80, 2
 SMOKE = os.path.join(REPO, "configs/magicdrive/train/smoke_tiny.py")
-SCHED = rflow(sample_method="logit-normal")  # the stage-2 configs' scheduler
+SCHED = rflow(sample_method="logit-normal")  # the stage-1 and stage-2 configs' scheduler
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -68,16 +68,24 @@ def _jax_batch(batch):
             for k, v in batch.items()}
 
 
-@pytest.fixture(scope="module")
-def setup():
+# (with_temp_block, control_skip_temporal, frames, frame mask): the default layout
+# and the stage-1 image model's (no temporal block, 1 frame, no frame mask: the
+# stage-1 config's mask_ratios are empty)
+LAYOUTS = {"temporal": (True, False, NF, [[1, 0, 1], [0, 1, 1]]),
+           "stage1": (False, True, 1, [[1], [1]])}
+
+
+def make_setup(layout):
     """JAX and port models with the same random weights, one batch of 2 samples
     with a frame mask; remat off on both sides (remat changes no value, tested
     apart below, and keeps the JAX compiles short)."""
-    jcfg, tcfg = tiny_configs(grad_checkpoint=False)
-    batch = synthetic_batch(tcfg, NF, HH, WW, l_txt=16, b=B, seed=5)
+    temp, skip_t, nf, mask = LAYOUTS[layout]
+    jcfg, tcfg = tiny_configs(grad_checkpoint=False, with_temp_block=temp,
+                              control_skip_temporal=skip_t)
+    batch = synthetic_batch(tcfg, nf, HH, WW, l_txt=16, b=B, seed=5)
     for k in ("timestep", "height", "width"):
         batch.pop(k)
-    batch["mask"] = np.array([[1, 0, 1], [0, 1, 1]], np.float32)
+    batch["mask"] = np.array(mask, np.float32)
     # ego poses that differ from frame to frame (the synthetic batch's are all one
     # matrix, which leaves the frame embedder's attention rows uniform and its q/k
     # grads zero but for rounding)
@@ -88,6 +96,16 @@ def setup():
                                       if k != "mask"}, timestep=jnp.full((B,), 500.0),
                            height=float(HH), width=float(WW))
     return jcfg, tcfg, jmodel, params, batch
+
+
+@pytest.fixture(scope="module")
+def setup():
+    return make_setup("temporal")
+
+
+@pytest.fixture(scope="module")
+def stage1_setup():
+    return make_setup("stage1")
 
 
 def _port_model(tcfg, params):
@@ -103,12 +121,23 @@ def _jax_model_fn(jmodel, params, batch):
     return model_fn
 
 
-HW = dict(height=np.full((B,), float(HH), np.float32), width=np.full((B,), float(WW), np.float32),
-          num_frames=np.full((B,), float(NF), np.float32))
+def hw(nf):
+    return dict(height=np.full((B,), float(HH), np.float32),
+                width=np.full((B,), float(WW), np.float32),
+                num_frames=np.full((B,), float(nf), np.float32))
 
 
-def test_loss_and_every_grad_match_jax(setup):
-    jcfg, tcfg, jmodel, params, batch = setup
+HW = hw(NF)
+
+
+@pytest.mark.parametrize("layout", ["temporal", "stage1"])
+def test_loss_and_every_grad_match_jax(request, layout):
+    """The loss and every parameter's grad, in the default layout (9 frames) and in
+    stage 1's (no temporal blocks, 1 frame: the timestep shift's one-frame branch),
+    both with the stage-2 / stage-1 configs' scheduler (logit-normal t)."""
+    nf = LAYOUTS[layout][2]
+    jcfg, tcfg, jmodel, params, batch = request.getfixturevalue(
+        "setup" if layout == "temporal" else "stage1_setup")
     rng = np.random.default_rng(0)
     tt = np.array([321.0, 777.0], np.float32)
     noise = rng.standard_normal(batch["x"].shape).astype(np.float32)
@@ -117,14 +146,14 @@ def test_loss_and_every_grad_match_jax(setup):
     def loss_fn(p):
         out = sched.training_losses(_jax_model_fn(jmodel, p, batch), jax.random.PRNGKey(0),
                                     j(batch["x"]), mask=j(batch["mask"]), t=j(tt),
-                                    noise=j(noise), **{k: j(v) for k, v in HW.items()})
+                                    noise=j(noise), **{k: j(v) for k, v in hw(nf).items()})
         return out["loss"].mean()
 
     jloss, jgrads = jax.jit(jax.value_and_grad(loss_fn))(params)
     model = _port_model(tcfg, params)
     loss, t_used = TT.training_loss(model, TR.build_scheduler(SCHED),
                                     to_device(batch, "cpu"), height=HH, width=WW,
-                                    num_frames=NF, dtype=torch.float32, t=t(tt), noise=t(noise))
+                                    num_frames=nf, dtype=torch.float32, t=t(tt), noise=t(noise))
     loss.backward()
     np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=1e-5)
     np.testing.assert_array_equal(t_used.numpy(), tt)
