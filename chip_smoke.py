@@ -5,8 +5,9 @@ Run ``python3 chip_smoke.py`` from the repository root on a machine with one
 card. It imports only ``magicdrive_v2_tpu_torch`` and
 
 1. ``device``   reads the card's name and power limit, builds the three CUDA
-                kernels from ``magicdrive_v2_tpu_torch/csrc`` with ``nvcc``, checks
-                that ptxas spilled no register of the bf16 K1 and K3 kernels, and
+                kernels and their backwards from ``magicdrive_v2_tpu_torch/csrc``
+                with ``nvcc``, checks that ptxas spilled no register of the bf16 K1
+                and K3 kernels nor of any backward kernel (bf16 and fp32), and
                 records whether PIL, transformers, imageio, scipy, cv2, hmr2 and
                 tensorboard import;
 2. ``shapes``   builds the model of phase 3, counts each kernel's launches over
@@ -62,8 +63,13 @@ card. It imports only ``magicdrive_v2_tpu_torch`` and
                 ``training_loss`` backward through the kernels against one through
                 their plain versions, in fp32 (TF32 off) and in bf16 (casts of fp32
                 masters); no parameter may lose its grad; then each kernel's
-                ``autograd.Function`` against autograd through its plain version at
-                every shape the step hands it, and each backward's time;
+                ``autograd.Function`` (forward and backward kernels) against
+                autograd through its plain version in fp32 at every shape the step
+                hands it (and K1 at N=5300 with 8 heads, ``sp_train``'s), each bf16
+                grad within 2**-7 of the largest plus the plain bf16 grad's own
+                distance; two backwards at the stage-2 shapes bit-equal; each
+                backward kernel's time beside the plain recompute's, its bound
+                and the library's forward+backward;
 7. ``train``    the trainer: XL/2 at full width and depth from the stage-2 config
                 (``configs/magicdrive/train/stage2_17x224x400.py``: batch 4, remat,
                 bf16 over fp32 masters, AdamW, EMA 0.99), 2 steps, the first one
@@ -98,8 +104,8 @@ card. It imports only ``magicdrive_v2_tpu_torch`` and
                 step, remat full, AdamW, EMA), 2 steps: s/step, samples/s, tokens/s,
                 peak memory, launches and backwards equal to the remat layout's,
                 every shape either path handed a wrapper held against its plain
-                version and each Function against autograd through it, K1's plain
-                backward within its 2 GiB a pass; ``stage1_k1_timing`` K1 at G = 48
+                version and each Function against autograd through it as in phase
+                ``grads``; ``stage1_k1_timing`` K1 at G = 48
                 and 192, N = 350, J = 1 and 2: kernel, plain, SDPA, bound;
 7c. ``dp_train`` data-parallel training with the fp32 state split over dp
                 (``parallel/fsdp.py``): XL/2 at full width, depth 2 /
@@ -496,6 +502,7 @@ class HeldCases:
         self.worst = {"fused_qkv_attention": 0.0, "adaln_modulate": 0.0,
                       "flash_attention": 0.0}
         self.held = {name: set() for name in self.worst}
+        self.backward_worst = dict.fromkeys(self.worst, 0.0)  # check_functions'
 
     def randn(self, *shape, dtype):
         return self.torch.randn(*shape, generator=self.card_gen, device="cuda").to(dtype)
@@ -903,7 +910,7 @@ def counters():
 
 def reset_counters():
     for fn in counters().values():
-        fn.launches = 0
+        fn.launches = fn.backward_launches = 0
 
 
 def read_counters():
@@ -911,15 +918,23 @@ def read_counters():
 
 
 def reset_backward_calls():
-    from magicdrive_v2_tpu_torch.ops.plain_vjp import backward_calls
+    from magicdrive_v2_tpu_torch.ops.kernel_vjp import backward_calls
     backward_calls.clear()
 
 
+def read_backward_launches():
+    """Launches of each kernel's backward kernels, counted by its wrapper where it
+    launches them (the forward's counters count none of them)."""
+    return {name: fn.backward_launches for name, fn in counters().items()}
+
+
 def read_backward_calls():
-    """Backwards of each kernel's ``PlainVJPFunction`` (each a recompute through
-    the plain version: no launch)."""
-    from magicdrive_v2_tpu_torch.ops.plain_vjp import backward_calls
-    return {name: backward_calls.get(name, 0) for name in counters()}
+    """Backwards of each kernel's ``KernelFunction``; fails unless each ran the
+    backward kernels, as many times as the wrapper launched them."""
+    from magicdrive_v2_tpu_torch.ops.kernel_vjp import backward_calls
+    calls = {name: backward_calls.get(name, 0) for name in counters()}
+    require(calls == read_backward_launches(), (calls, read_backward_launches()))
+    return calls
 
 
 def profiled(torch, what, fn):
@@ -1500,7 +1515,7 @@ GRAD_FP32_LIMIT = 1e-3       # per tensor: max|g_kernels - g_plain| / max|g_plai
 # the plain versions, so their grads may differ by up to rounding's own reach
 GRAD_BF16_RMS_LIMIT = 2.0 ** -6
 FN_FP32_LIMIT = 1e-5         # per grad: max|g_function - g_autograd| / max|g_autograd|
-FN_BF16_LIMIT = 2.0 ** -7    # the same in bf16 (one ulp of the largest element)
+FN_BF16_LIMIT = 2.0 ** -7    # bf16: of max|g_fp32|, beside the plain bf16 grad's own error
 REMAT_REPS = 2               # timed forward+backward runs a remat policy
 REMAT_DEPTH = (7, 4)         # depth and control depth (cut from 28 / 13, as below)
 
@@ -1538,11 +1553,21 @@ def train_batches(cfg, model_cfg, seed, dp_row=0):
         yield step_inputs(batch, cfg, mask_gen, seed, step, dp_row)
 
 
-def check_functions(torch, seen):
-    """Each kernel's autograd.Function (forward on the card, backward the plain
-    version's, recomputed) against autograd through the plain version, at every
-    shape and type ``seen`` noted on the training path, including K1 with two
-    sources and K3 on strided k/v views at head dims 72 and 144."""
+# K1 at sp_train's shape after the all-to-all (N = 5300, 8 heads), cut to 2 groups:
+# one source, and two through a perm that reads group 1 twice and group 0 never
+SP_TRAIN_K1 = {((2, 5300, 3, 8, 72), None), ((2, 5300, 3, 8, 72), ((1, 0), (1, 1)))}
+
+
+def check_functions(torch, seen, held, with_sp_train=False):
+    """Each kernel's autograd.Function (its forward and backward kernels) against
+    autograd through the plain version in fp32 on the same inputs, at every shape
+    and type ``seen`` noted on the training path, including K1 with two sources and
+    K3 on strided k/v views at head dims 72 and 144 (and, ``with_sp_train``, K1 at
+    ``SP_TRAIN_K1`` in bf16): per grad, fp32 max|err| <= ``FN_FP32_LIMIT`` *
+    max|g_fp32|; bf16 max|err| <= ``FN_BF16_LIMIT`` * max|g_fp32| + max|g_plain_bf16
+    - g_fp32|. Every backward runs twice and must give the same bits, and the
+    forward gives the same bits with and without autograd. Each kernel's largest
+    |grad - g_fp32| goes into ``held.backward_worst``."""
     from magicdrive_v2_tpu_torch.ops import (adaln_modulate, adaln_modulate_plain,
                                              flash_attention, flash_attention_plain,
                                              fused_qkv_attention, fused_qkv_attention_plain)
@@ -1553,55 +1578,75 @@ def check_functions(torch, seen):
         x = torch.randn(*shape, generator=gen, device="cuda") * scale + shift
         return x.to(dtype).requires_grad_()
 
-    def judge(kernel, out, inputs, plain_out, what, zero=()):
+    def judge(kernel, fn, plain, inputs, what, zero=()):
         """``zero``: the positions in ``inputs`` whose grad the arithmetic makes
         exactly zero (q's with one key: a softmax over one key is constant); those
         must be zero on both sides."""
-        require(type(out.grad_fn).__name__ == "PlainVJPFunctionBackward",
-                f"{kernel}: output not from PlainVJPFunction: {out.grad_fn}")
+        out = fn(*inputs)
+        require(type(out.grad_fn).__name__ == "KernelFunctionBackward",
+                f"{kernel}: output not from KernelFunction: {out.grad_fn}")
+        with torch.no_grad():  # saving the statistics leaves the forward's bits alone
+            require(torch.equal(out, fn(*inputs)), f"{kernel}: forward moved under autograd")
         g = torch.randn(out.shape, generator=gen, device="cuda").to(out.dtype)
-        got = torch.autograd.grad(out, inputs, g)
-        want = torch.autograd.grad(plain_out, inputs, g)
-        limit = FN_FP32_LIMIT if out.dtype == torch.float32 else FN_BF16_LIMIT
-        ratios = []
-        for i, (a, b) in enumerate(zip(got, want)):
-            require(a is not None and b is not None, f"{kernel}: a grad is missing")
-            a, b = a.float(), b.float()
+        got = torch.autograd.grad(out, inputs, g, retain_graph=True)
+        bit_equal = all(torch.equal(a, b) for a, b in
+                        zip(got, torch.autograd.grad(out, inputs, g)))
+        del out
+        bf16 = inputs[0].dtype == torch.bfloat16
+        ins32 = [x.detach().float().requires_grad_() for x in inputs]
+        ref = torch.autograd.grad(plain(*ins32), ins32, g.float())
+        rounding = torch.autograd.grad(plain(*inputs), inputs, g) if bf16 else None
+        ratios, worst = [], 0.0
+        for i, (a, r) in enumerate(zip(got, ref)):
+            require(a is not None and r is not None, f"{kernel}: a grad is missing")
+            a = a.float()
             require(bool(a.isfinite().all()), f"{kernel}: grad not finite")
             if i in zero:
-                require(not bool((a != 0).any()) and not bool((b != 0).any()),
+                require(not bool((a != 0).any()) and not bool((r != 0).any()),
                         f"{kernel}: input {i}'s grad is not zero")
                 continue
-            scale = float(b.abs().max())
+            scale = float(r.abs().max())
             require(scale > 0 and bool((a != 0).any()), f"{kernel}: zero grad")
-            ratios.append(float((a - b).abs().max()) / (limit * scale))
-        cases.append(dict(kernel=kernel, dtype=str(out.dtype), **what,
-                          err_over_limit=max(ratios)))
-        require(max(ratios) <= 1.0, cases[-1])
+            err = float((a - r).abs().max())
+            limit = (FN_BF16_LIMIT * scale + float((rounding[i].float() - r).abs().max())
+                     if bf16 else FN_FP32_LIMIT * scale)
+            ratios.append(err / limit)
+            worst = max(worst, err)
+        held.backward_worst[kernel] = max(held.backward_worst[kernel], worst)
+        cases.append(dict(kernel=kernel, dtype=str(inputs[0].dtype), **what,
+                          err_over_limit=max(ratios), max_abs_err=worst,
+                          backward_bit_equal=bit_equal))
+        require(max(ratios) <= 1.0 and bit_equal, cases[-1])
 
-    for (shape, dtype, norm, J), perm in sorted(seen["fused_qkv_attention"].items(), key=str):
+    k1_cases = [(shape, dtype, norm, perm) for (shape, dtype, norm, _), perm
+                in sorted(seen["fused_qkv_attention"].items(), key=str)]
+    if with_sp_train:
+        k1_cases += [(shape, torch.bfloat16, True, perm) for shape, perm in sorted(SP_TRAIN_K1,
+                                                                                   key=str)]
+    for shape, dtype, norm, perm in k1_cases:
         qkv = randn(*shape, dtype=dtype)
-        inputs, qw, kw = [qkv], None, None
         if norm:
-            qw = randn(shape[-1], dtype=torch.float32, scale=0.1, shift=1.0)
-            kw = randn(shape[-1], dtype=torch.float32, scale=0.1, shift=1.0)
-            inputs += [qw, kw]
-        judge("fused_qkv_attention",
-              fused_qkv_attention(qkv, qw, kw, perm), inputs,
-              fused_qkv_attention_plain(qkv, qw, kw, perm), dict(qkv=list(shape), J=J))
+            ws = [randn(shape[-1], dtype=torch.float32, scale=0.1, shift=1.0) for _ in range(2)]
+            judge("fused_qkv_attention", lambda x, a, b: fused_qkv_attention(x, a, b, perm),
+                  lambda x, a, b: fused_qkv_attention_plain(x, a, b, perm), [qkv] + ws,
+                  dict(qkv=list(shape), J=perm_sources(perm), norm=True))
+        else:
+            judge("fused_qkv_attention", lambda x: fused_qkv_attention(x, None, None, perm),
+                  lambda x: fused_qkv_attention_plain(x, None, None, perm), [qkv],
+                  dict(qkv=list(shape), J=perm_sources(perm), norm=False))
     for shape, dtype in sorted(seen["adaln_modulate"], key=str):
         x = randn(*shape, dtype=dtype, scale=3.0, shift=0.5)
         sh, sc = randn(shape[0], shape[2], dtype=dtype), randn(shape[0], shape[2], dtype=dtype)
-        judge("adaln_modulate", adaln_modulate(x, sh, sc),
-              [x, sh, sc], adaln_modulate_plain(x, sh, sc), dict(x=list(shape)))
+        judge("adaln_modulate", adaln_modulate, adaln_modulate_plain, [x, sh, sc],
+              dict(x=list(shape)))
     for qshape, M, dtype in sorted(seen["flash_attention"], key=str):
         B, N, H, D = qshape
         q = randn(*qshape, dtype=dtype)
         kv = randn(B, M, 2, H, D, dtype=dtype)  # k and v: strided views of one tensor
-        k, v = kv[:, :, 0], kv[:, :, 1]
-        judge("flash_attention", flash_attention(q, k, v), [q, kv],
-              flash_attention_plain(q, k, v), dict(q=list(qshape), M=M),
-              zero=(0,) if M == 1 else ())
+        judge("flash_attention", lambda a, b: flash_attention(a, b[:, :, 0], b[:, :, 1]),
+              lambda a, b: flash_attention_plain(a, b[:, :, 0], b[:, :, 1]), [q, kv],
+              dict(q=list(qshape), M=M), zero=(0,) if M == 1 else ())
+    torch.cuda.empty_cache()
     return cases
 
 
@@ -1639,10 +1684,11 @@ def compare_grads(torch, got_by_name, ref_by_name, fp32_ref=None):
     return worst, with_grad, roundings
 
 
-def run_grads(torch, seed):
+def run_grads(torch, seed, held):
     """Grads of one training loss through the kernels against those through their
-    plain versions, XL/2 at full width, depth 2/1, the stage-2 bucket; returns the
-    shapes the bf16 step handed to each wrapper."""
+    plain versions, XL/2 at full width, depth 2/1, the stage-2 bucket, then each
+    Function at the step's shapes (``check_functions``); returns the shapes the
+    step handed to each wrapper."""
     from magicdrive_v2_tpu_torch.models.magicdrive.stdit3 import MagicDriveSTDiT3
     from magicdrive_v2_tpu_torch.schedulers.rf import build_scheduler
     from magicdrive_v2_tpu_torch.training.trainer import step_generator, training_loss
@@ -1703,24 +1749,30 @@ def run_grads(torch, seed):
         del gk, gp
     del model, dev
     torch.cuda.empty_cache()
-    cases = check_functions(torch, seen)
+    cases = check_functions(torch, seen, held, with_sp_train=True)
     emit("grads", model="MagicDriveSTDiT3-XL/2", depth=model_cfg.depth,
          control_depth=model_cfg.control_depth, batch=b, frames=nf, height=h,
          width=w, x_shape=list(batch["x"].shape), fp32_limit=f"per tensor max|err| <= "
          f"{GRAD_FP32_LIMIT} * max|g_plain|", bf16_limit=f"per tensor rms(err) <= "
          f"2**{math.log2(GRAD_BF16_RMS_LIMIT):g} * rms(g_plain) + rms(g_plain - g_plain_fp32)",
          by_dtype=result,
-         function_limit=f"per grad max|err| <= {FN_FP32_LIMIT} (fp32) / "
-         f"2**{math.log2(FN_BF16_LIMIT):g} (bf16) * max|g_plain|", function_cases=cases)
+         function_limit=f"per grad, against autograd through the plain version in fp32: "
+         f"max|err| <= {FN_FP32_LIMIT} * max|g_fp32| (fp32), "
+         f"2**{math.log2(FN_BF16_LIMIT):g} * max|g_fp32| + max|g_plain_bf16 - g_fp32| "
+         f"(bf16); two backwards bit-equal", function_cases=cases)
     return seen
 
 
 def time_backwards(torch, seen, per_step):
-    """ms of one backward of each Function at the training step's bf16 shapes (a
-    recompute through the plain version), its bound, and the forward+backward of
-    the nearest PyTorch call at the same shape as the yardstick."""
+    """ms of one backward of each Function (its backward kernels) at the training
+    step's bf16 shapes, beside the plain recompute (the plain version's forward and
+    backward, the backward of the wrappers before there were backward kernels), its
+    bound, and the forward+backward of the nearest PyTorch call at the same shape as
+    the yardstick."""
     import torch.nn.functional as F
-    from magicdrive_v2_tpu_torch.ops import adaln_modulate, flash_attention, fused_qkv_attention
+    from magicdrive_v2_tpu_torch.ops import (adaln_modulate, adaln_modulate_plain,
+                                             flash_attention, flash_attention_plain,
+                                             fused_qkv_attention, fused_qkv_attention_plain)
     gen = torch.Generator(device="cuda").manual_seed(2)
     bf16 = torch.bfloat16
 
@@ -1730,12 +1782,12 @@ def time_backwards(torch, seen, per_step):
     def backward_ms(out, inputs):
         g = torch.randn(out.shape, generator=gen, device="cuda").to(out.dtype)
         return time_ms(torch, lambda: torch.autograd.grad(out, inputs, g, retain_graph=True),
-                       3)
+                       10)
 
-    def fwd_bwd_ms(fn, inputs):
+    def fwd_bwd_ms(fn, inputs, iters=3):
         out = fn()
         g = torch.randn(out.shape, generator=gen, device="cuda").to(out.dtype)
-        return time_ms(torch, lambda: torch.autograd.grad(fn(), inputs, g), 3)
+        return time_ms(torch, lambda: torch.autograd.grad(fn(), inputs, g), iters)
 
     rows = {}
     k1 = {J: (shape, perm) for (shape, dtype, norm, J), perm in
@@ -1745,6 +1797,7 @@ def time_backwards(torch, seen, per_step):
         qkv = randn(*shape)
         qw = (torch.randn(D, generator=gen, device="cuda") * 0.1 + 1).requires_grad_()
         ms = backward_ms(fused_qkv_attention(qkv, qw, qw, perm), [qkv, qw])
+        plain = fwd_bwd_ms(lambda: fused_qkv_attention_plain(qkv, qw, qw, perm), [qkv, qw], 2)
         # the yardstick: one SDPA a source on its own k/v leaves, outputs summed
         q = randn(G, H, N, D)
         kvs = [(randn(G, H, N, D), randn(G, H, N, D)) for _ in range(J)]
@@ -1754,17 +1807,18 @@ def time_backwards(torch, seen, per_step):
         nbytes = 2.0 * (2 * qkv.numel() + G * N * H * D)
         bound_ms, by = bound(flops, nbytes, PEAK_BF16)
         rows["K1 spatial" if J == 1 else "K1 cross-view"] = dict(
-            qkv=list(shape), J=J, plain_backward_ms=ms, bound_ms=bound_ms, bound_by=by,
-            library_fwd_bwd_ms=lib, library="scaled_dot_product_attention fwd+bwd"
+            qkv=list(shape), J=J, ms=ms, plain_ms=plain, bound_ms=bound_ms, bound_by=by,
+            library_ms=lib, library="scaled_dot_product_attention fwd+bwd"
             + (" x2 summed" if J > 1 else ""))
     x_shape = max(sh for sh, dtype in seen["adaln_modulate"] if dtype == bf16)
     x = randn(*x_shape)
     sh, sc = randn(x_shape[0], x_shape[2]), randn(x_shape[0], x_shape[2])
     C = x_shape[2]
     rows["K2"] = dict(
-        x=list(x_shape), plain_backward_ms=backward_ms(adaln_modulate(x, sh, sc), [x, sh, sc]),
-        library_fwd_bwd_ms=fwd_bwd_ms(lambda: F.layer_norm(x, (C,), eps=1e-6)
-                                      * (1 + sc[:, None]) + sh[:, None], [x, sh, sc]),
+        x=list(x_shape), ms=backward_ms(adaln_modulate(x, sh, sc), [x, sh, sc]),
+        plain_ms=fwd_bwd_ms(lambda: adaln_modulate_plain(x, sh, sc), [x, sh, sc]),
+        library_ms=fwd_bwd_ms(lambda: F.layer_norm(x, (C,), eps=1e-6)
+                              * (1 + sc[:, None]) + sh[:, None], [x, sh, sc]),
         library="layer_norm + modulate fwd+bwd")
     rows["K2"]["bound_ms"], rows["K2"]["bound_by"] = bound(
         10.0 * x.numel(), 2.0 * (3 * x.numel() + 4 * sh.numel()), PEAK_FP32)
@@ -1773,15 +1827,18 @@ def time_backwards(torch, seen, per_step):
     B, N, H, D = qshape
     q, kv = randn(*qshape), randn(B, M, 2, H, D)
     ms = backward_ms(flash_attention(q, kv[:, :, 0], kv[:, :, 1]), [q, kv])
+    plain = fwd_bwd_ms(lambda: flash_attention_plain(q, kv[:, :, 0], kv[:, :, 1]), [q, kv])
     qt, kt, vt = randn(B, H, N, D), randn(B, H, M, D), randn(B, H, M, D)
     lib = fwd_bwd_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), [qt, kt, vt])
     bound_ms, by = bound(2.5 * 4.0 * B * H * N * M * D,
                          2.0 * (2 * q.numel() + 2 * kv.numel() + q.numel()), PEAK_BF16)
-    rows["K3"] = dict(q=list(qshape), M=M, plain_backward_ms=ms, bound_ms=bound_ms,
-                      bound_by=by, library_fwd_bwd_ms=lib,
+    rows["K3"] = dict(q=list(qshape), M=M, ms=ms, plain_ms=plain, bound_ms=bound_ms,
+                      bound_by=by, library_ms=lib,
                       library="scaled_dot_product_attention fwd+bwd")
     for name, row in rows.items():
         row["backward_calls_per_step"] = per_step[name]
+        row["seconds_per_step"] = row["ms"] * per_step[name] / 1e3
+        row["plain_seconds_per_step"] = row["plain_ms"] * per_step[name] / 1e3
     torch.cuda.empty_cache()
     return rows
 
@@ -1789,7 +1846,8 @@ def time_backwards(torch, seen, per_step):
 def run_train(torch, seed, seen, encode_launches, steps=2, with_profile=False):
     """The trainer at full width and depth from the stage-2 config: ``steps``
     steps, the first untimed (with ``with_profile``, two more, the second under
-    torch.profiler); then the Functions' backward times."""
+    torch.profiler); then the Functions' backward times. Returns the launches and
+    the backwards of a step, the backward rows and s/step."""
     from magicdrive_v2_tpu_torch.models.magicdrive.stdit3 import MagicDriveSTDiT3
     from magicdrive_v2_tpu_torch.schedulers.rf import build_scheduler
     from magicdrive_v2_tpu_torch.training.trainer import build_training
@@ -1814,13 +1872,15 @@ def run_train(torch, seed, seen, encode_launches, steps=2, with_profile=False):
     state_bytes = torch.cuda.memory_allocated()
     n_params = sum(p.numel() for p in model.parameters())
     # remat: the forward and the recompute each launch every layer group's kernels,
-    # the backward launches none; encode_conditions runs once, outside the groups
+    # the backward kernels run once a call; encode_conditions runs once, outside the
+    # groups
     per_forward = expected_launches(model_cfg, x_mask=True)
     want = {k: 2 * per_forward[k] + encode_launches[k] for k in per_forward}
     want_backward = {k: per_forward[k] + encode_launches[k] for k in per_forward}
     name = "base_blocks_s.27.attn.qkv.weight"
     param, ema = dict(model.named_parameters())[name], dict(state.ema.named_parameters())[name]
     seconds, losses, grad_norms, t_means, launches = [], [], [], [], None
+    backward_launches = None
     batches = train_batches(cfg, model_cfg, seed)
     tokens = None
     for i in range(steps):
@@ -1840,7 +1900,7 @@ def run_train(torch, seed, seen, encode_launches, steps=2, with_profile=False):
         got, backwards = read_counters(), read_backward_calls()
         require(got == want and backwards == want_backward, (got, want, backwards,
                                                              want_backward))
-        launches = got
+        launches, backward_launches = got, read_backward_launches()
         loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
         require(math.isfinite(loss) and math.isfinite(gnorm) and gnorm > 0, (loss, gnorm))
         losses.append(loss)
@@ -1875,8 +1935,9 @@ def run_train(torch, seed, seen, encode_launches, steps=2, with_profile=False):
          samples_per_second=batch_size / s_step, tokens_per_second=tokens / s_step,
          peak_memory_bytes=peak, losses=losses, grad_norms=grad_norms, t_means=t_means,
          launches_per_step=launches, backward_calls_per_step=want_backward,
-         ema_identity=True, backward=backward_rows)
-    return launches, backward_rows, s_step
+         backward_launches_per_step=backward_launches, ema_identity=True,
+         backward=backward_rows)
+    return launches, backward_launches, backward_rows, s_step
 
 
 def run_train_app(torch):
@@ -2227,10 +2288,10 @@ def run_sp_train(torch, seed, encode_launches, held):
     return {k: sum(row["launches"][k] for row in rows0) for k in per_forward}
 
 
-def run_stage3_app(torch, encode_launches):
+def run_stage3_app(torch, encode_launches, depth=STAGE3_APP_DEPTH):
     """The train app on the stage-3 config (sp_size 4, simulate_sp_size [4, 8]) in
     one process: sp = min(4, 1) = 1, so the simulate pick alone pads H (14 -> 16
-    for either pick). XL/2 at full width, depth STAGE3_APP_DEPTH, the 224-400-12-33
+    for either pick). XL/2 at full width, ``depth`` (depth, control depth), the 224-400-12-33
     bucket at its batch of 4, synthetic, 2 steps, no checkpoint; each step's pick,
     s/step, peak memory, the metrics read back, the launches of 2 remat steps."""
     import random
@@ -2245,7 +2306,7 @@ def run_stage3_app(torch, encode_launches):
     argv = [STAGE3_CONFIG, "--synthetic", "--max-steps", str(STAGE3_APP_STEPS),
             "--cfg-options", f"outputs={out_dir}", f"synthetic_buckets=[({nf},{h},{w})]",
             f"batch_size={b}", "ckpt_every=0", "log_every=1", "record_time=True",
-            f"model.depth={STAGE3_APP_DEPTH[0]}", f"model.control_depth={STAGE3_APP_DEPTH[1]}"]
+            f"model.depth={depth[0]}", f"model.control_depth={depth[1]}"]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_counters()
@@ -2263,8 +2324,8 @@ def run_stage3_app(torch, encode_launches):
                 for line in read_back), read_back)
     require([(x["loss"], x["grad_norm"]) for x in lines]
             == [(x["loss"], x["grad_norm"]) for x in read_back], (lines, read_back))
-    model_cfg = train_model_config(torch, cfg, torch.bfloat16, depth=STAGE3_APP_DEPTH[0],
-                                   control_depth=STAGE3_APP_DEPTH[1])
+    model_cfg = train_model_config(torch, cfg, torch.bfloat16, depth=depth[0],
+                                   control_depth=depth[1])
     require(model_cfg.hidden_size == 1152, model_cfg)
     per_forward = expected_launches(model_cfg, x_mask=True)
     want = {k: STAGE3_APP_STEPS * (2 * per_forward[k] + encode_launches[k])
@@ -2272,7 +2333,7 @@ def run_stage3_app(torch, encode_launches):
     require(got == want, (got, want))
     T, H, W = (nf - 1) // 4 + 1, h // 16, w // 16
     emit("stage3_app", config=STAGE3_CONFIG, bucket=f"{h}-{w}-12-{nf}", batch=b,
-         depth=list(STAGE3_APP_DEPTH), sp=1,
+         depth=list(depth), sp=1,
          simulate_sp_choices=list(cfg.simulate_sp_size), picks=picks,
          h_tokens=[H, 16], tokens_unpadded=b * 6 * T * H * W, tokens_padded=b * 6 * T * 16 * W,
          seconds_per_step=[x["step_s"] for x in read_back], metrics=read_back,
@@ -2426,10 +2487,8 @@ def run_stage1_train(torch, held, encode_launches, seed):
     steps, no checkpoint: s/step, samples/s, tokens/s, peak memory, the metrics read
     back, launches and backwards equal to the remat layout's, every shape each
     wrapper was handed held against the plain versions and its autograd Function
-    against autograd through the plain version; K1's plain backward at the step's
-    shape within its 2 GiB of fp32 logits a pass."""
+    against autograd through the plain version."""
     from magicdrive_v2_tpu_torch.config.config import Config
-    from magicdrive_v2_tpu_torch.ops import flash_fused, fused_qkv_attention_plain
     from magicdrive_v2_tpu_torch.scripts import train_magicdrive
     t_phase = time.time()
     cfg = Config.fromfile(STAGE1_CONFIG)
@@ -2464,7 +2523,7 @@ def run_stage1_train(torch, held, encode_launches, seed):
     require([(x["loss"], x["grad_norm"]) for x in lines]
             == [(x["loss"], x["grad_norm"]) for x in read_back], (lines, read_back))
     # remat: the forward and the recompute each launch every group's kernels; the
-    # backward recomputes the plain version once for each call of the forward
+    # backward kernels run once for each call of the forward
     per_forward = expected_launches(model_cfg, x_mask=True)
     want = {k: STAGE1_TRAIN_STEPS * (2 * per_forward[k] + encode_launches[k])
             for k in per_forward}
@@ -2472,14 +2531,9 @@ def run_stage1_train(torch, held, encode_launches, seed):
                      for k in per_forward}
     require(got == want and backwards == want_backward, (got, want, backwards, want_backward))
     cases = held.hold(seen, "stage1_train")
-    fn_cases = check_functions(torch, seen)
-    # K1's plain backward at the step's largest shape: passes of fp32 logits
+    fn_cases = check_functions(torch, seen, held)
     G, N, _, H, _ = max(k[0] for k in seen["fused_qkv_attention"])
     require((G, N, H) == (b * 6, 350, 16), (G, N, H))
-    group_step = fused_qkv_attention_plain.backward_group_step(
-        torch.empty((G, N, 3, H, 72), device="meta")) or G
-    logits_bytes = group_step * H * N * N * 4
-    require(logits_bytes <= flash_fused.BACKWARD_LOGITS_BYTES, (group_step, logits_bytes))
     timed = [x["step_s"] for x in read_back[1:]]
     s_step = sum(timed) / len(timed)
     emit("stage1_train", config=STAGE1_CONFIG, model="MagicDriveSTDiT3-XL/2 (no temporal)",
@@ -2489,9 +2543,6 @@ def run_stage1_train(torch, held, encode_launches, seed):
          seconds_per_step_timed_mean=s_step, samples_per_second=b / s_step,
          tokens_per_second=tokens / s_step, peak_memory_bytes=peak,
          launches=got, backward_calls=backwards,
-         k1_backward=dict(qkv=[G, N, 3, H, 72], groups_a_pass=group_step,
-                          logits_bytes_a_pass=logits_bytes,
-                          limit=flash_fused.BACKWARD_LOGITS_BYTES),
          kernel_cases=len(cases), function_cases=fn_cases, seconds=time.time() - t_phase)
     return got
 
@@ -5180,12 +5231,21 @@ def main():
                  if "k3_" in r["function"]]
     require(len(k3_bodies) == 8 and all(r["spill_stores"] == 0 and r["spill_loads"] == 0
                                         for r in k3_bodies), k3_bodies)
+    # the backward kernels, bf16 and fp32: K1's and K3's (attn_bwd_sm90.cuh, built into
+    # both libraries at their head dims) and K2's
+    bwd_bodies = {name: [r for r in _cuda_build.ptxas_report(name)
+                         if "attn_bwd_" in r["function"] or "adaln_bwd_" in r["function"]]
+                  for name in _cuda_build.SOURCES}
+    require([len(v) for v in bwd_bodies.values()] == [17, 17, 4] and all(
+        r["spill_stores"] == 0 and r["spill_loads"] == 0
+        for v in bwd_bodies.values() for r in v), bwd_bodies)
     from magicdrive_v2_tpu_torch import native
     fill = native.library_path()
     probe.join()
     emit("device", nvidia_smi=smi, python=sys.version.split()[0], torch=torch.__version__,
          cuda=torch.version.cuda, build_seconds=_cuda_build.build_seconds,
-         k1_ptxas=k1_bodies, k3_ptxas=k3_bodies, optional_packages=packages,
+         k1_ptxas=k1_bodies, k3_ptxas=k3_bodies, backward_ptxas=bwd_bodies,
+         optional_packages=packages,
          polygon_fill=dict(kind="native", library=fill,
                            committed_library=fill == str(native.COMMITTED)))
 
@@ -5213,8 +5273,8 @@ def main():
         if sp_ranks:
             sp_ranks[0].close()
         shutil.rmtree(sp_dir, ignore_errors=True)
-    seen_train = run_grads(torch, args.seed)
-    train_launches, backward_rows, synthetic_s_step = run_train(
+    seen_train = run_grads(torch, args.seed, held)
+    train_launches, train_backwards, backward_rows, synthetic_s_step = run_train(
         torch, args.seed, seen_train, encode_launches, with_profile=args.profile)
     run_train_app(torch)
     torch.cuda.empty_cache()
@@ -5308,10 +5368,6 @@ def main():
                      "magicdrive_v2_tpu_torch/csrc/attn_core.cuh (fp32 body)"],
             replaces=jax_ops + "flash_attention.py:98"),
     }
-    backward = {"fused_qkv_attention": {"spatial": backward_rows["K1 spatial"],
-                                        "cross_view": backward_rows["K1 cross-view"]},
-                "adaln_modulate": backward_rows["K2"],
-                "flash_attention": backward_rows["K3"]}
     kernels = [dict(name=name, route="cuda", launches=launches[name],
                     launches_by_path={"sample": launches[name],
                                       "train_step": train_launches[name],
@@ -5338,10 +5394,34 @@ def main():
                                       "stage1_sample_b4": stage1_launches["sample"][name],
                                       "stage1_app": stage1_launches["app"][name],
                                       "stage1_train": stage1_launches["train"][name]},
-                    **meta[name], **kernel_numbers[name], backward=backward[name])
+                    **meta[name], **kernel_numbers[name])
                for name in meta]
     for k in kernels:
         require(all(n > 0 for n in k["launches_by_path"].values()), k)
+    # the backward kernels: launches are the Functions' backwards in the train step
+    # (stage-2, full depth), the times those of the step's bf16 shapes
+    bwd_header = "magicdrive_v2_tpu_torch/csrc/attn_bwd_sm90.cuh"
+    bwd_meta = {
+        "fused_qkv_attention": dict(
+            row="K1 spatial", headers=[bwd_header], jax_backward=jax_ops + "flash_fused.py:487"
+            " (_bwd: jax.vjp of _xla_reference)",
+            other_rows={"cross_view": backward_rows["K1 cross-view"]}),
+        "adaln_modulate": dict(
+            row="K2", jax_backward="none: the JAX trainer differentiates _xla_fallback "
+            "(" + jax_ops + "fused_adaln.py)"),
+        "flash_attention": dict(
+            row="K3", headers=[bwd_header], jax_backward=jax_ops + "flash_attention.py:137"
+            " (_fa_bwd: jax.vjp of xla_attention)"),
+    }
+    for name, extra in bwd_meta.items():
+        row = dict(backward_rows[extra.pop("row")])
+        require(train_backwards[name] > 0, (name, train_backwards))
+        kernels.append(dict(
+            name=name + "_backward", route="cuda", source=meta[name]["source"],
+            replaces=meta[name]["replaces"], launches=train_backwards[name],
+            max_abs_err=held.backward_worst[name], ms=row.pop("ms"), plain_ms=row.pop("plain_ms"),
+            bound_ms=row.pop("bound_ms"), bound_by=row.pop("bound_by"),
+            library_ms=row.pop("library_ms"), shape=row, **extra))
     emit("done", seconds=time.time() - t_start)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -35,6 +35,7 @@ struct AttnParams {
   const int* perm;    // (J, G) source group of k/v, or nullptr for identity
   const float* q_w;   // (D,) fp32 RMSNorm weight shared by the heads, or nullptr for no norm
   const float* k_w;
+  float* lse;  // (J, G, H, N) log-sum-exp of each source's scaled logits, or nullptr
   int G, H, N, M, D, J;
   float scale;
   float eps;
@@ -186,6 +187,8 @@ __global__ void __launch_bounds__(kFThreads) attn_fwd_f32(AttnParams p) {
       const int r = idx / D, d = idx - r * D;
       Oa[r * DS + d] += Os[r * DS + d] / lrow[r];
     }
+    if (p.lse != nullptr && tid < kFQ && q0 + tid < p.N)  // for the backward
+      p.lse[(((long long)j * p.G + g) * p.H + h) * p.N + q0 + tid] = mrow[tid] + logf(lrow[tid]);
   }
   __syncthreads();
   float* obase =

@@ -54,6 +54,7 @@ struct Params {
   bf16* out;          // (G, N, H * D)
   const int* perm;    // (J, G) source group of k/v, or nullptr for identity
   const float* q_w;   // (D,) fp32 RMSNorm weight of q, or nullptr for no norm
+  float* lse;         // one source: (G, H, N) log-sum-exp of the scaled logits, or nullptr
   int G, H, N, D, J;
   int T;              // 64-row tiles per (group, head) in the scratch: 2 * q tiles
   int q_tiles;        // 128-row q tiles per (group, head)
@@ -311,6 +312,13 @@ __global__ void __launch_bounds__(kThreads, 2) k1_attention(Params p) {
     l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
     l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
     l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    if (!MULTI && p.lse != nullptr && tig == 0) {  // for the backward, natural units
+      constexpr float kLn2 = 0.6931471805599453f;
+      const int r = qt * 2 * kRows + wg * kRows + warp * 16 + gid;
+      float* lrow = p.lse + ((long long)g * p.H + h) * p.N;
+      if (r < p.N) lrow[r] = (m0 + log2f(l0)) * kLn2;
+      if (r + 8 < p.N) lrow[r + 8] = (m1 + log2f(l1)) * kLn2;
+    }
     const float i0 = 1.0f / l0, i1 = 1.0f / l1;
 #pragma unroll
     for (int n = 0; n < NO / 4; ++n) {

@@ -59,6 +59,7 @@ struct Params {
   const bf16* k;
   const bf16* v;
   bf16* out;  // (B, N, H, D)
+  float* lse;  // (B, H, N) natural log-sum-exp of the scaled logits, or nullptr
   // element strides: batch, row, head (the head-dim stride is 1)
   long long q_bs, q_rs, q_hs;
   long long k_bs, k_rs, k_hs;
@@ -192,6 +193,21 @@ __device__ __forceinline__ void stage_rows(const float (&o)[DV / 2], float l0, f
   }
 }
 
+// The log-sum-exp of a warp's 16 rows (row_a = its row gid; those below N),
+// for the backward: m in base-2 units, l this thread's share of the sum.
+__device__ __forceinline__ void write_lse(float* lse, int row_a, int N, float m0, float m1,
+                                          float l0, float l1, int tig) {
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  constexpr float kLn2 = 0.6931471805599453f;
+  if (tig == 0) {
+    if (row_a < N) lse[row_a] = (m0 + log2f(l0)) * kLn2;
+    if (row_a + 8 < N) lse[row_a + 8] = (m1 + log2f(l1)) * kLn2;
+  }
+}
+
 // Copy the staged (64, D) tile out to rows row0.. of the output (those below
 // N), 16 bytes a thread: consecutive threads on consecutive chunks of a row.
 template <int D>
@@ -273,6 +289,9 @@ __global__ void __launch_bounds__(kThreads, min_blocks(DV)) k3_resident(Params p
       logits<D>(s, Qh, Ks + t * QT, Z);
       softmax_pv<DV>(s, o, m0, m1, l0, l1, Vs + t * VT, t * kRows, p.M, sl2, tig);
     }
+    if (p.lse != nullptr)
+      write_lse(p.lse + ((long long)b * p.H + h) * p.N, row0 + warp * 16 + gid, p.N, m0, m1,
+                l0, l1, tig);
     // the output goes out through the q half, which the last logits have read
     bar_sync_warpgroup(wg);
     stage_rows<DV>(o, l0, l1, Qh, warp * 16 + gid, p.D, tig);
@@ -348,6 +367,9 @@ __global__ void __launch_bounds__(kThreads, min_blocks(DV)) k3_stream(Params p) 
     logits<D>(s, Qh, Ks + (t % kStages) * QT, Z);
     softmax_pv<DV>(s, o, m0, m1, l0, l1, Vs + (t % kStages) * VT, t * kRows, p.M, sl2, tig);
   }
+  if (p.lse != nullptr)
+    write_lse(p.lse + ((long long)b * p.H + h) * p.N, row0 + warp * 16 + gid, p.N, m0, m1, l0,
+              l1, tig);
   // the output goes out through the q half, which the last logits have read
   bar_sync_warpgroup(wg);
   stage_rows<DV>(o, l0, l1, Qh, warp * 16 + gid, p.D, tig);

@@ -33,15 +33,22 @@
 //   stores took a fifth of the kernel's time).
 // fp32 runs the CUDA-core body of attn_core.cuh (every product in fp32, for
 // tight comparisons).
+//
+// Under autograd the forward also writes each row's log-sum-exp (fp32, (B, H,
+// N)), and the backward is the kernels of attn_bwd_sm90.cuh (shared with
+// fused_qkv_attention): delta's pre-pass, dQ, then dK and dV, on the views' own
+// strides, so the grads of k and v land in one (B, M, 2, H, D) tensor.
+#include "attn_bwd_sm90.cuh"
 #include "attn_core.cuh"
 #include "attn_k3_sm90.cuh"
 
-// bf16: the plan (resident, run, blocks, smem) is the wrapper's.
-extern "C" int mdv2_k3_attention(const void* q, const void* k, const void* v, void* out, int B,
-                                 int N, int M, int H, int D, long long q_bs, long long q_rs,
-                                 long long q_hs, long long k_bs, long long k_rs, long long k_hs,
-                                 long long v_bs, long long v_rs, long long v_hs, float scale,
-                                 int resident, int run, int blocks, int smem, void* stream) {
+// bf16: the plan (resident, run, blocks, smem) is the wrapper's; lse may be null.
+extern "C" int mdv2_k3_attention(const void* q, const void* k, const void* v, void* out,
+                                 float* lse, int B, int N, int M, int H, int D, long long q_bs,
+                                 long long q_rs, long long q_hs, long long k_bs, long long k_rs,
+                                 long long k_hs, long long v_bs, long long v_rs, long long v_hs,
+                                 float scale, int resident, int run, int blocks, int smem,
+                                 void* stream) {
   using namespace mdv2::k3;
   if (B <= 0 || N <= 0 || M <= 0 || H <= 0 || run <= 0) return (int)cudaErrorInvalidValue;
   Params p;
@@ -49,6 +56,7 @@ extern "C" int mdv2_k3_attention(const void* q, const void* k, const void* v, vo
   p.k = reinterpret_cast<const mdv2::bf16*>(k);
   p.v = reinterpret_cast<const mdv2::bf16*>(v);
   p.out = reinterpret_cast<mdv2::bf16*>(out);
+  p.lse = lse;
   p.q_bs = q_bs; p.q_rs = q_rs; p.q_hs = q_hs;
   p.k_bs = k_bs; p.k_rs = k_rs; p.k_hs = k_hs;
   p.v_bs = v_bs; p.v_rs = v_rs; p.v_hs = v_hs;
@@ -68,10 +76,10 @@ extern "C" int mdv2_k3_attention(const void* q, const void* k, const void* v, vo
 
 // fp32: the CUDA-core body.
 extern "C" int mdv2_flash_attention_f32(const void* q, const void* k, const void* v, void* out,
-                                        int B, int N, int M, int H, int D, long long q_bs,
-                                        long long q_rs, long long q_hs, long long k_bs,
-                                        long long k_rs, long long k_hs, long long v_bs,
-                                        long long v_rs, long long v_hs, float scale,
+                                        float* lse, int B, int N, int M, int H, int D,
+                                        long long q_bs, long long q_rs, long long q_hs,
+                                        long long k_bs, long long k_rs, long long k_hs,
+                                        long long v_bs, long long v_rs, long long v_hs, float scale,
                                         void* stream) {
   mdv2::AttnParams p;
   p.q = q; p.k = k; p.v = v; p.out = out;
@@ -84,8 +92,30 @@ extern "C" int mdv2_flash_attention_f32(const void* q, const void* k, const void
   p.perm = nullptr;
   p.q_w = nullptr;
   p.k_w = nullptr;
+  p.lse = lse;
   p.G = B; p.H = H; p.N = N; p.M = M; p.D = D; p.J = 1;
   p.scale = scale;
   p.eps = 0.0f;
   return mdv2::launch_attention_f32(p, reinterpret_cast<cudaStream_t>(stream));
+}
+
+// The backward of one call (attn_bwd_sm90.cuh's params_of names the arrays);
+// dtype 0 bf16 (head dims 8, 16, 72, 144), 1 fp32 (up to 144).
+extern "C" int mdv2_k3_backward(const void* const* ptrs, const long long* ints,
+                                const float* floats, int dtype, void* stream) {
+  using namespace mdv2::bwd;
+  const Params p = params_of(ptrs, ints, floats);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    if (p.D <= 16) return launch<mdv2::bf16, 16, 16>(p, s);
+    if (p.D <= 72) return launch<mdv2::bf16, 80, 72>(p, s);
+    return launch<mdv2::bf16, 144, 144>(p, s);
+  }
+  if (dtype == 1) {
+    if (p.D <= 16) return launch<float, 16, 16>(p, s);
+    if (p.D <= 32) return launch<float, 32, 32>(p, s);
+    if (p.D <= 72) return launch<float, 80, 72>(p, s);
+    return launch<float, 144, 144>(p, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -30,6 +30,17 @@
 //   warpgroups on the SM (not yet those of their own warpgroup).
 // fp32 keeps the CUDA-core body of attn_core.cuh (every product in fp32, for
 // tight comparisons).
+//
+// Under autograd the forward also writes the row log-sum-exp (fp32, (G, H, N))
+// of a call with one source (with several, the backward's first pass takes each
+// source's: the J > 1 body is at its 128 registers), and the backward is the
+// kernels of attn_bwd_sm90.cuh (shared
+// with flash_attention): they read q, k and v from qkv, normalise q and k as
+// the forward does, take dq and dk back through the norm in their epilogues
+// and write the three grads into one (G, N, 3, H, D) tensor; the k/v grads of
+// a group sum over the (source, group) pairs that read it, listed by the
+// wrapper, and the norm weights' grads come from per-block partials.
+#include "attn_bwd_sm90.cuh"
 #include "attn_core.cuh"
 #include "attn_k1_sm90.cuh"
 
@@ -52,14 +63,15 @@ extern "C" int mdv2_k1_tile_k(const void* qkv, void* tiles, const float* k_w, in
 }
 
 // The attention: q and v from qkv, k from the pre-pass's tiles; the plan (dp,
-// q_tiles, blocks, smem) is the wrapper's.
+// q_tiles, blocks, smem) is the wrapper's; lse may be null.
 extern "C" int mdv2_k1_attention(const void* qkv, const void* tiles, void* out, const int* perm,
-                                 const float* q_w, int G, int N, int H, int D, int J,
+                                 const float* q_w, float* lse, int G, int N, int H, int D, int J,
                                  float scale, float eps, int dp, int q_tiles, int blocks,
                                  int smem, void* stream) {
   using namespace mdv2::k1;
   if (G <= 0 || N <= 0 || H <= 0 || J <= 0 || D % 8 != 0 || D > dp ||
-      q_tiles * 2 * kRows < N || (long long)blocks != (long long)G * H * q_tiles)
+      q_tiles * 2 * kRows < N || (long long)blocks != (long long)G * H * q_tiles ||
+      (J > 1 && lse != nullptr))
     return (int)cudaErrorInvalidValue;
   Params p;
   p.qkv = reinterpret_cast<const bf16*>(qkv);
@@ -67,6 +79,7 @@ extern "C" int mdv2_k1_attention(const void* qkv, const void* tiles, void* out, 
   p.out = reinterpret_cast<bf16*>(out);
   p.perm = perm;
   p.q_w = q_w;
+  p.lse = lse;
   p.G = G; p.H = H; p.N = N; p.D = D; p.J = J;
   p.T = 2 * q_tiles;
   p.q_tiles = q_tiles;
@@ -81,11 +94,14 @@ extern "C" int mdv2_k1_attention(const void* qkv, const void* tiles, void* out, 
   return (int)cudaErrorInvalidValue;
 }
 
-// fp32: the CUDA-core body, q/k/v read in place from qkv by strides.
+// fp32: the CUDA-core body, q/k/v read in place from qkv by strides; lse (G, H,
+// N) with one source only.
 extern "C" int mdv2_fused_qkv_attention_f32(const void* qkv, void* out, const int* perm,
-                                            const float* q_w, const float* k_w, int G, int N,
+                                            const float* q_w, const float* k_w, float* lse,
+                                            int G, int N,
                                             int H, int D, int J, float scale, float eps,
                                             void* stream) {
+  if (J > 1 && lse != nullptr) return (int)cudaErrorInvalidValue;
   mdv2::AttnParams p;
   const float* base = reinterpret_cast<const float*>(qkv);
   const long long hd = (long long)H * D;
@@ -102,8 +118,30 @@ extern "C" int mdv2_fused_qkv_attention_f32(const void* qkv, void* out, const in
   p.perm = perm;
   p.q_w = q_w;
   p.k_w = k_w;
+  p.lse = lse;
   p.G = G; p.H = H; p.N = N; p.M = N; p.D = D; p.J = J;
   p.scale = scale;
   p.eps = eps;
   return mdv2::launch_attention_f32(p, reinterpret_cast<cudaStream_t>(stream));
+}
+
+// The backward of one call (attn_bwd_sm90.cuh's params_of names the arrays);
+// dtype 0 bf16 (head dims 8, 16, 24, 32, 72), 1 fp32 (up to 144).
+extern "C" int mdv2_k1_backward(const void* const* ptrs, const long long* ints,
+                                const float* floats, int dtype, void* stream) {
+  using namespace mdv2::bwd;
+  const Params p = params_of(ptrs, ints, floats);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    if (p.D <= 16) return launch<mdv2::bf16, 16, 16>(p, s);
+    if (p.D <= 32) return launch<mdv2::bf16, 32, 32>(p, s);
+    return launch<mdv2::bf16, 80, 72>(p, s);
+  }
+  if (dtype == 1) {
+    if (p.D <= 16) return launch<float, 16, 16>(p, s);
+    if (p.D <= 32) return launch<float, 32, 32>(p, s);
+    if (p.D <= 72) return launch<float, 80, 72>(p, s);
+    return launch<float, 144, 144>(p, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -148,6 +148,25 @@ def on_device(t):
         yield torch.cuda.current_stream(t.device).cuda_stream
 
 
+def backward_args(ptrs, ints, floats):
+    """The three arrays of an attention backward's C entry (``params_of`` of
+    ``csrc/attn_bwd_sm90.cuh`` names their items): pointers (tensors or None),
+    integers, floats."""
+    ptrs = [None if t is None else t.data_ptr() for t in ptrs]
+    return ((ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_longlong * len(ints))(*ints),
+            (ctypes.c_float * len(floats))(*floats))
+
+
+def bwd_strides(*tensors) -> List[int]:
+    """(group, row, head) element strides of each (G, N, H, D) tensor."""
+    out = []
+    for t in tensors:
+        if t.stride(-1) != 1:
+            raise ValueError(f"the head dim must have unit stride, got {t.stride()}")
+        out += [t.stride(0), t.stride(1), t.stride(2)]
+    return out
+
+
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")

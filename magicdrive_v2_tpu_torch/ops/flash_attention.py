@@ -7,8 +7,10 @@ Python, and handed to the C entry point; in fp32 the CUDA-core body of
 ``csrc/attn_core.cuh``. On a CUDA tensor the wrapper launches the kernel or
 raises; on a CPU tensor it runs the plain version. Where autograd records (grad
 enabled, an input requires grad) the launch goes through
-``plain_vjp.PlainVJPFunction``, whose backward is the plain version's, recomputed, as
-the JAX ``_fa_bwd`` recomputes through XLA.
+``kernel_vjp.KernelFunction``: the forward kernel also writes each row's
+log-sum-exp, and the backward is the kernels of ``csrc/attn_bwd_sm90.cuh``, the
+port's counterpart of the JAX ``_fa_bwd`` (jax.vjp of the XLA composition).
+``flash_attention_backward_plain`` is that backward in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ import torch
 from . import _cuda_build
 from .attention import plain_attention
 from .flash_fused import Q_ROWS, TILE_ROWS
-from .plain_vjp import PlainVJPFunction, needs_grad
+from .kernel_vjp import KernelFunction, needs_grad
 
 _fns = None
 
@@ -29,6 +31,41 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           scale: Optional[float] = None) -> torch.Tensor:
     """The same function in plain PyTorch (fp32 softmax composition)."""
     return plain_attention(q, k, v, scale=scale)
+
+
+
+
+def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                   out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+                                   scale: float):
+    """The backward kernel's formulation in plain PyTorch, fp32: P = exp(scale q
+    k^T - lse), delta = rowsum(dO o O), dS = P o (dO v^T - delta); returns (dq,
+    dk, dv) in the inputs' dtypes."""
+    q32, k32, v32, g32 = q.float(), k.float(), v.float(), dout.float()
+    p = torch.exp(torch.einsum("bnhd,bmhd->bhnm", q32, k32) * scale - lse[..., None])
+    delta = (g32 * out.float()).sum(-1).permute(0, 2, 1)  # (B, H, N)
+    ds = p * (torch.einsum("bnhd,bmhd->bhnm", g32, v32) - delta[..., None])
+    if k.shape[1] == 1:  # one key: the softmax is constant, its grads exactly zero
+        ds = torch.zeros_like(ds)
+    dq = torch.einsum("bhnm,bmhd->bnhd", ds, k32) * scale
+    dk = torch.einsum("bhnm,bnhd->bmhd", ds, q32) * scale
+    dv = torch.einsum("bhnm,bnhd->bmhd", p, g32)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def forward_plain(q, k, v, scale):
+    """``KernelFunction``'s forward with the plain version (CPU tests): (out,
+    (out, lse)), lse (B, H, N) the natural log-sum-exp of the fp32 scaled
+    logits, as the kernel saves it."""
+    logits = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * scale
+    out = flash_attention_plain(q, k, v, scale=scale)
+    return out, (out, torch.logsumexp(logits, dim=-1))
+
+
+def backward_plain(args, saved, grad):
+    """``KernelFunction``'s backward with the plain version (CPU tests)."""
+    q, k, v, scale = args
+    return (*flash_attention_backward_plain(q, k, v, *saved, grad, scale), None)
 
 
 # ---------------------------------------------------------------- bf16 launch plan
@@ -103,16 +140,18 @@ def _kernels():
     if _fns is None:
         lib = _cuda_build.load("flash_attention")
         bf16 = lib.mdv2_k3_attention
-        bf16.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+        bf16.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                          + [ctypes.c_longlong] * 9
                          + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         f32 = lib.mdv2_flash_attention_f32
-        f32.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+        f32.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                         + [ctypes.c_longlong] * 9
                         + [ctypes.c_float, ctypes.c_void_p])
-        for fn in (bf16, f32):
+        bwd = lib.mdv2_k3_backward
+        bwd.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+        for fn in (bf16, f32, bwd):
             fn.restype = ctypes.c_int
-        _fns = (bf16, f32)
+        _fns = (bf16, f32, bwd)
     return _fns
 
 
@@ -122,13 +161,15 @@ def _strides(q, k, v):
 
 
 def attend_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
-                plan: K3Plan) -> torch.Tensor:
+                plan: K3Plan, lse: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One launch of the bf16 kernel with the given plan, on tensors the wrapper
-    has checked (``flash_attention`` calls it with ``plan_bf16``'s plan)."""
+    has checked (``flash_attention`` calls it with ``plan_bf16``'s plan); with
+    ``lse`` (B, H, N) fp32 it also writes the rows' log-sum-exp."""
     B, N, H, D = q.shape
     out = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
     with _cuda_build.on_device(q) as stream:
         err = _kernels()[0](q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                            None if lse is None else lse.data_ptr(),
                             B, N, k.shape[1], H, D, *_strides(q, k, v), float(scale),
                             int(plan.resident), plan.run, plan.blocks, plan.smem_bytes, stream)
     _cuda_build.check(err, "flash_attention")
@@ -158,13 +199,52 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, got {q.device}")
     if needs_grad(q, k, v):
-        return PlainVJPFunction.apply(_launch, flash_attention_plain, "flash_attention",
-                                      q, k, v, scale)
+        return KernelFunction.apply(_forward, _backward, "flash_attention", q, k, v, scale)
     return _launch(q, k, v, scale)
 
 
-def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
-    """One launch of the kernel on CUDA tensors the wrapper has checked."""
+def _forward(q, k, v, scale):
+    """The launch under autograd: (out, (out, lse)); the projection after it
+    keeps the same output, so saving it costs nothing."""
+    B, N, H, _ = q.shape
+    lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
+    out = _launch(q, k, v, scale, lse)
+    return out, (out, lse)
+
+
+def _backward(args, saved, grad):
+    """The backward kernels on the saved inputs: (dq, dk, dv, None)."""
+    q, k, v, scale = args
+    out, lse = saved
+    B, N, H, D = q.shape
+    M = k.shape[1]
+    code = _cuda_build.dtype_code(q.dtype)
+    if (code == 0 and D not in PADDED_WIDTH) or D > _cuda_build.MAX_HEAD_DIM:
+        raise ValueError(f"the backward kernel takes head dims {sorted(PADDED_WIDTH)} in "
+                         f"bf16 and up to {_cuda_build.MAX_HEAD_DIM} in fp32, got {D}")
+    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    grad = grad.contiguous()
+    if grad.data_ptr() % 16:
+        grad = grad.clone()
+    dq = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, M, H, D), dtype=k.dtype, device=q.device)
+    dv = torch.empty((B, M, H, D), dtype=v.dtype, device=q.device)
+    delta = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
+    arrays = _cuda_build.backward_args(
+        [q, k, v, grad, out, dq, dk, dv, lse, delta] + [None] * 9,
+        [B, H, N, M, D, 1] + _cuda_build.bwd_strides(q, k, v, grad, out, dq, dk, dv),
+        [float(scale), 0.0])
+    with _cuda_build.on_device(q) as stream:
+        err = _kernels()[2](*arrays, code, stream)
+    _cuda_build.check(err, "flash_attention (backward)")
+    flash_attention.backward_launches += 1
+    return dq, dk, dv, None
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+            lse: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One launch of the kernel on CUDA tensors the wrapper has checked; with
+    ``lse`` it also writes the rows' log-sum-exp."""
     B, N, H, D = q.shape
     code = _cuda_build.dtype_code(q.dtype)
     if D > _cuda_build.MAX_HEAD_DIM:
@@ -177,16 +257,17 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> 
             raise ValueError("the bf16 kernel takes head dims in multiples of 8 and q/k/v "
                              f"rows on 16-byte boundaries, got head_dim {D}, strides "
                              f"{q.stride()} {k.stride()} {v.stride()}")
-        out = attend_bf16(q, k, v, scale, plan_bf16(B, N, k.shape[1], H, D))
+        out = attend_bf16(q, k, v, scale, plan_bf16(B, N, k.shape[1], H, D), lse)
     else:
         out = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
         with _cuda_build.on_device(q) as stream:
             err = _kernels()[1](q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                B, N, k.shape[1], H, D, *_strides(q, k, v), float(scale),
-                                stream)
+                                None if lse is None else lse.data_ptr(), B, N, k.shape[1],
+                                H, D, *_strides(q, k, v), float(scale), stream)
         _cuda_build.check(err, "flash_attention")
     flash_attention.launches += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.backward_launches = 0

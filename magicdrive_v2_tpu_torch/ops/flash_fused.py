@@ -16,12 +16,13 @@ here one kernel, ``csrc/fused_qkv_attention.cu``, covers every sequence length.
 
 On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor it
 runs the plain version. Where autograd records (grad enabled, an input requires
-grad) the launch goes through ``plain_vjp.PlainVJPFunction``, whose backward is
-the plain version's, recomputed, as the JAX ``_bwd`` recomputes through XLA: it
-gives the grads of qkv and of both norm weights. The recompute runs over blocks of
-groups whose fp32 logits stay within ``BACKWARD_LOGITS_BYTES``: at 848x1600 one
-group's logits are 16 x 5300^2 x 4 B = 1.8 GB, and all of a step's groups at once
-would not fit the card. In bf16 the kernel is two launches: a pre-pass that
+grad) the launch goes through ``kernel_vjp.KernelFunction``: the forward kernel
+also writes the rows' log-sum-exp (with one source; with several the backward
+takes each source's), and the backward is the kernels of
+``csrc/attn_bwd_sm90.cuh`` (the port's counterpart of the JAX ``_bwd``, jax.vjp
+of the XLA composition): the grads of qkv and of both norm weights, with no N x N
+buffer. ``fused_qkv_attention_backward_plain`` is that backward in plain
+PyTorch. In bf16 the forward kernel is two launches: a pre-pass that
 normalises k once per row into a scratch buffer of zero-padded tiles, then the
 attention, which reads q and v from qkv and k from those tiles; their launch plan
 (``plan_bf16``) is computed here, in Python, and handed to the C entry points.
@@ -35,12 +36,10 @@ import numpy as np
 import torch
 
 from . import _cuda_build
-from .plain_vjp import PlainVJPFunction, needs_grad
+from .kernel_vjp import KernelFunction, needs_grad
 
 _EPS = 1e-6
 _fns = None
-# fp32 logits (of one source) that the backward's plain recompute holds at once
-BACKWARD_LOGITS_BYTES = 2 ** 31
 
 
 def _rms(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -70,13 +69,12 @@ def fused_qkv_attention_plain(qkv: torch.Tensor,
                               k_norm_weight: Optional[torch.Tensor],
                               kv_perm=None, scale: Optional[float] = None,
                               group_chunk: Optional[int] = None,
-                              groups: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+                              lse: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The same function in plain PyTorch, with the kernel's cast points.
-    ``group_chunk`` bounds the fp32 logits held at once (groups per pass);
-    ``groups`` (g0, g1): only those groups' output (their k/v sources may be any
-    group)."""
+    ``group_chunk`` bounds the fp32 logits held at once (groups per pass); an
+    ``lse`` (J, G, H, N) fp32 tensor receives each source's row log-sum-exp (the
+    kernel's forward writes it under autograd, with one source)."""
     G, N, _, H, D = qkv.shape
-    lo, hi = groups if groups is not None else (0, G)
     if scale is None:
         scale = D ** -0.5
     perm = _perm_array(kv_perm, G)
@@ -86,30 +84,99 @@ def fused_qkv_attention_plain(qkv: torch.Tensor,
     if q_norm_weight is not None:
         q = _rms(q, q_norm_weight)
         k = _rms(k, k_norm_weight)
-    out = torch.zeros((hi - lo, N, H, D), dtype=torch.float32, device=qkv.device)
-    step = group_chunk or hi - lo
-    for g0 in range(lo, hi, step):
-        g1 = min(g0 + step, hi)
+    out = torch.zeros((G, N, H, D), dtype=torch.float32, device=qkv.device)
+    step = group_chunk or G
+    for g0 in range(0, G, step):
+        g1 = min(g0 + step, G)
         q32 = q[g0:g1].float()
         for j in range(perm.shape[0]):
             idx = torch.as_tensor(perm[j, g0:g1].astype(np.int64), device=qkv.device)
             k_j, v_j = k[idx], v[idx]
             logits = torch.einsum("gnhd,gmhd->ghnm", q32, k_j.float()) * scale
-            p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+            m = logits.amax(dim=-1, keepdim=True)
+            p = torch.exp(logits - m)
             denom = p.sum(dim=-1)  # (g, H, N)
             o = torch.einsum("ghnm,gmhd->gnhd", p.to(qkv.dtype).float(), v_j.float())
-            out[g0 - lo:g1 - lo] += o / denom.permute(0, 2, 1)[..., None]
+            out[g0:g1] += o / denom.permute(0, 2, 1)[..., None]
+            if lse is not None:
+                lse[j, g0:g1] = m[..., 0].detach() + torch.log(denom.detach())
     return out.to(qkv.dtype)
 
 
-def _backward_group_step(qkv: torch.Tensor, *args) -> Optional[int]:
-    """Groups a pass of the backward's recompute takes, or None for all at once."""
+def _rms_backward_plain(x: torch.Tensor, w: torch.Tensor, dn: torch.Tensor):
+    """Back through ``_rms`` from dn (fp32), the grad of its output: (dx fp32,
+    dw fp32 (D,)), the kernel's formulation: y = x r, dx = r (g - y mean(g y)),
+    g = dn w, dw = sum(dn x_hat) with x_hat the forward's rounded y."""
+    x32 = x.float()
+    r = torch.rsqrt(x32.square().mean(dim=-1, keepdim=True) + _EPS)
+    y = x32 * r
+    g = dn * w.float()
+    dx = r * (g - y * (g * y).mean(dim=-1, keepdim=True))
+    dw = (dn * y.to(x.dtype).float()).reshape(-1, x.shape[-1]).sum(0)
+    return dx, dw
+
+
+def fused_qkv_attention_backward_plain(qkv: torch.Tensor,
+                                       q_norm_weight: Optional[torch.Tensor],
+                                       k_norm_weight: Optional[torch.Tensor], kv_perm,
+                                       scale: float, lse: Optional[torch.Tensor],
+                                       dout: torch.Tensor):
+    """The backward kernel's formulation in plain PyTorch, fp32: per source j,
+    P_j = exp(scale q k_j^T - lse_j), delta_j = rowsum(P_j o dP_j) (the source's
+    own rowsum(dO o O_j)), dS_j = P_j o (dO v_j^T - delta_j); the k/v grads of a
+    group summed over the sources that read it; q and k back through the norm.
+    ``lse`` (1, G, H, N): the forward's, with one source; with several (None) the
+    backward takes each source's, as the dQ kernel's first pass does. Returns
+    (dqkv in qkv's dtype, dq_norm_weight, dk_norm_weight) (None without the
+    norm)."""
+    G, N, _, H, D = qkv.shape
+    perm = _perm_array(kv_perm, G)
+    if perm is None:
+        perm = np.arange(G, dtype=np.int32)[None]
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    if q_norm_weight is not None:
+        q, k = _rms(q, q_norm_weight), _rms(k, k_norm_weight)
+    q32, k32, v32, g32 = q.float(), k.float(), v.float(), dout.float()
+    dq, dk, dv = (torch.zeros_like(q32) for _ in range(3))
+    for j in range(perm.shape[0]):
+        idx = torch.as_tensor(perm[j].astype(np.int64), device=qkv.device)
+        logits = torch.einsum("gnhd,gmhd->ghnm", q32, k32[idx]) * scale
+        lse_j = torch.logsumexp(logits, dim=-1) if lse is None else lse[j]
+        p = torch.exp(logits - lse_j[..., None])
+        dp = torch.einsum("gnhd,gmhd->ghnm", g32, v32[idx])
+        ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+        if N == 1:  # one key: the softmax is constant, its grads exactly zero
+            ds = torch.zeros_like(ds)
+        dq += torch.einsum("ghnm,gmhd->gnhd", ds, k32[idx]) * scale
+        dk.index_add_(0, idx, torch.einsum("ghnm,gnhd->gmhd", ds, q32) * scale)
+        dv.index_add_(0, idx, torch.einsum("ghnm,gnhd->gmhd", p, g32))
+    dqw = dkw = None
+    if q_norm_weight is not None:
+        dq, dqw = _rms_backward_plain(qkv[:, :, 0], q_norm_weight, dq)
+        dk, dkw = _rms_backward_plain(qkv[:, :, 1], k_norm_weight, dk)
+        dqw, dkw = dqw.to(q_norm_weight.dtype), dkw.to(k_norm_weight.dtype)
+    return torch.stack([dq, dk, dv], dim=2).to(qkv.dtype), dqw, dkw
+
+
+def forward_plain(qkv, q_norm_weight, k_norm_weight, kv_perm, scale):
+    """``KernelFunction``'s forward with the plain version (CPU tests): with one
+    source it saves the output and the rows' log-sum-exp (1, G, H, N), with
+    several nothing."""
     G, N, _, H, _ = qkv.shape
-    step = max(1, BACKWARD_LOGITS_BYTES // (H * N * N * 4))
-    return step if step < G else None
+    perm = _perm_array(kv_perm, G)
+    if perm is not None and perm.shape[0] > 1:
+        return fused_qkv_attention_plain(qkv, q_norm_weight, k_norm_weight, kv_perm, scale), ()
+    lse = torch.empty((1, G, H, N), dtype=torch.float32, device=qkv.device)
+    out = fused_qkv_attention_plain(qkv, q_norm_weight, k_norm_weight, kv_perm, scale, lse=lse)
+    return out, (out, lse)
 
 
-fused_qkv_attention_plain.backward_group_step = _backward_group_step
+def backward_plain(args, saved, grad):
+    """``KernelFunction``'s backward with the plain version (CPU tests)."""
+    qkv, qw, kw, kv_perm, scale = args
+    lse = saved[1] if saved else None
+    return (*fused_qkv_attention_backward_plain(qkv, qw, kw, kv_perm, scale, lse, grad),
+            None, None)
 
 
 # ---------------------------------------------------------------- bf16 launch plan
@@ -162,14 +229,16 @@ def _kernels():
         tile.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
                          + [ctypes.c_float, ctypes.c_void_p])
         attend = lib.mdv2_k1_attention
-        attend.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+        attend.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                            + [ctypes.c_float] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         f32 = lib.mdv2_fused_qkv_attention_f32
-        f32.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+        f32.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                         + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
-        for fn in (tile, attend, f32):
+        bwd = lib.mdv2_k1_backward
+        bwd.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+        for fn in (tile, attend, f32, bwd):
             fn.restype = ctypes.c_int
-        _fns = (tile, attend, f32)
+        _fns = (tile, attend, f32, bwd)
     return _fns
 
 
@@ -225,15 +294,88 @@ def fused_qkv_attention(qkv: torch.Tensor,
     if qkv.device.type != "cuda":
         raise ValueError(f"fused_qkv_attention runs on cuda or cpu tensors, got {qkv.device}")
     if needs_grad(qkv, q_norm_weight, k_norm_weight):
-        return PlainVJPFunction.apply(_launch, fused_qkv_attention_plain,
-                                      "fused_qkv_attention", qkv, q_norm_weight,
-                                      k_norm_weight, kv_perm, scale)
+        return KernelFunction.apply(_forward, _backward, "fused_qkv_attention", qkv,
+                                    q_norm_weight, k_norm_weight, kv_perm, scale)
     return _launch(qkv, q_norm_weight, k_norm_weight, kv_perm, scale)
 
 
+def inverse_perm(perm: torch.Tensor, G: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The (source j, group g) pairs that read each group: ``src`` (J * G,) int32
+    holds j * G + g ordered by the group read, then by j * G + g, and the pairs
+    reading g' are ``src[off[g']:off[g' + 1]]`` (``off`` (G + 1,) int32). Any index
+    array, not only a permutation; on the perm's device, with no sync."""
+    flat = perm.reshape(-1).long()
+    read, order = torch.sort(flat, stable=True)
+    off = torch.searchsorted(read, torch.arange(G + 1, device=perm.device))
+    return off.to(torch.int32), order.to(torch.int32)
+
+
+def _forward(qkv, q_norm_weight, k_norm_weight, kv_perm, scale):
+    """The launch under autograd: (out, (out, lse)) with one source, lse (1, G,
+    H, N) fp32 (the projection after it keeps the same output, so saving it costs
+    nothing); (out, ()) with several, whose statistics the backward takes itself
+    (the J > 1 body of the forward kernel is at its 128 registers)."""
+    G, N, _, H, _ = qkv.shape
+    perm = _perm_tensor(kv_perm, G, qkv.device)
+    if perm is not None and perm.shape[0] > 1:
+        return _launch(qkv, q_norm_weight, k_norm_weight, perm, scale), ()
+    lse = torch.empty((1, G, H, N), dtype=torch.float32, device=qkv.device)
+    out = _launch(qkv, q_norm_weight, k_norm_weight, perm, scale, lse)
+    return out, (out, lse)
+
+
+def _backward(args, saved, grad):
+    """The backward kernels on the saved inputs: (dqkv, dq_norm_weight,
+    dk_norm_weight, None, None)."""
+    qkv, q_norm_weight, k_norm_weight, kv_perm, scale = args
+    G, N, _, H, D = qkv.shape
+    code = _cuda_build.dtype_code(qkv.dtype)
+    if (code == 0 and D not in PADDED_WIDTH) or D > _cuda_build.MAX_HEAD_DIM:
+        raise ValueError(f"the backward kernel takes head dims {sorted(PADDED_WIDTH)} in "
+                         f"bf16 and up to {_cuda_build.MAX_HEAD_DIM} in fp32, got {D}")
+    dev = qkv.device
+    perm = _perm_tensor(kv_perm, G, dev)
+    J = 1 if perm is None else perm.shape[0]
+    inv = (None, None) if perm is None else inverse_perm(perm, G)
+    qkv = qkv.contiguous()
+    grad = grad.contiguous()
+    if grad.data_ptr() % 16:
+        grad = grad.clone()
+    dqkv = torch.empty_like(qkv)
+    # one source: the forward's output and lse; several: the dQ kernel's first pass
+    # writes lse and delta (and reads no output)
+    out, lse = saved if J == 1 else (None, torch.empty((J, G, H, N), dtype=torch.float32,
+                                                       device=dev))
+    delta = torch.empty((J, G, H, N), dtype=torch.float32, device=dev)
+    norm = q_norm_weight is not None
+    qw = kw = parts = dw = None
+    if norm:
+        qw, kw = _norm_weight(q_norm_weight, D, dev), _norm_weight(k_norm_weight, D, dev)
+        blocks = G * H * -(-N // TILE_ROWS)  # the dQ and the dK/dV kernels' grids
+        parts = torch.empty((2, blocks, D), dtype=torch.float32, device=dev)
+        dw = torch.empty((2, D), dtype=torch.float32, device=dev)
+    views = [t[:, :, i] for t in (qkv, dqkv) for i in range(3)]
+    arrays = _cuda_build.backward_args(
+        views[:3] + [grad, out] + views[3:] + [
+            lse, delta, perm, *inv, qw, kw,
+            *((None, None, None, None) if not norm else (parts[0], parts[1], dw[0], dw[1]))],
+        [G, H, N, N, D, J] + _cuda_build.bwd_strides(*views[:3], grad, grad if out is None
+                                                     else out, *views[3:]),
+        [float(scale), _EPS])
+    with _cuda_build.on_device(qkv) as stream:
+        err = _kernels()[3](*arrays, code, stream)
+    _cuda_build.check(err, "fused_qkv_attention (backward)")
+    fused_qkv_attention.backward_launches += 1
+    if not norm:
+        return dqkv, None, None, None, None
+    return (dqkv, dw[0].to(q_norm_weight.dtype), dw[1].to(k_norm_weight.dtype), None, None)
+
+
 def _launch(qkv: torch.Tensor, q_norm_weight: Optional[torch.Tensor],
-            k_norm_weight: Optional[torch.Tensor], kv_perm, scale: float) -> torch.Tensor:
-    """One call of the kernel (two launches in bf16) on a CUDA qkv."""
+            k_norm_weight: Optional[torch.Tensor], kv_perm, scale: float,
+            lse: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One call of the kernel (two launches in bf16) on a CUDA qkv; with ``lse``
+    (1, G, H, N) fp32 (one source only) it also writes the rows' log-sum-exp."""
     G, N, _, H, D = qkv.shape
     bf16 = _cuda_build.dtype_code(qkv.dtype) == 0
     if not bf16 and D > _cuda_build.MAX_HEAD_DIM:
@@ -252,12 +394,13 @@ def _launch(qkv: torch.Tensor, q_norm_weight: Optional[torch.Tensor],
         kw = _norm_weight(k_norm_weight, D, qkv.device)
     out = torch.empty((G, N, H * D), dtype=qkv.dtype, device=qkv.device)
     perm_ptr = None if perm is None else perm.data_ptr()
-    _, attend, f32 = _kernels()
+    _, attend, f32, _ = _kernels()
     if bf16:
         tiles = tile_k(qkv, kw, plan)
         with _cuda_build.on_device(qkv) as stream:
             err = attend(qkv.data_ptr(), tiles.data_ptr(), out.data_ptr(), perm_ptr,
-                         None if qw is None else qw.data_ptr(), G, N, H, D, J,
+                         None if qw is None else qw.data_ptr(),
+                         None if lse is None else lse.data_ptr(), G, N, H, D, J,
                          float(scale), _EPS, plan.dp, plan.q_tiles, plan.blocks,
                          plan.smem_bytes, stream)
     else:
@@ -265,6 +408,7 @@ def _launch(qkv: torch.Tensor, q_norm_weight: Optional[torch.Tensor],
             err = f32(qkv.data_ptr(), out.data_ptr(), perm_ptr,
                       None if qw is None else qw.data_ptr(),
                       None if kw is None else kw.data_ptr(),
+                      None if lse is None else lse.data_ptr(),
                       G, N, H, D, J, float(scale), _EPS, stream)
     _cuda_build.check(err, "fused_qkv_attention")
     fused_qkv_attention.launches += 1
@@ -272,3 +416,4 @@ def _launch(qkv: torch.Tensor, q_norm_weight: Optional[torch.Tensor],
 
 
 fused_qkv_attention.launches = 0
+fused_qkv_attention.backward_launches = 0

@@ -145,3 +145,45 @@ def read_scalars(tb_dir):
     acc.Reload()
     return {tag: [(e.step, e.value) for e in acc.Scalars(tag)]
             for tag in acc.Tags()["scalars"]}
+
+
+def kernel_sites_as_on_the_card(calls):
+    """The model's three kernel sites (K1, K2, K3: ``tools/block_bench``'s
+    ``patch_points`` order) as the wrappers run on the card, with the plain
+    versions on the CPU: each call counted in ``calls`` by kernel name, then,
+    where autograd records, through ``KernelFunction`` with the plain forward
+    (which saves the rows' log-sum-exp) and the plain version of the backward
+    kernel; else the plain forward. K3's site sends a call with a bias to the
+    plain attention, as the dispatcher does."""
+    import importlib
+
+    from magicdrive_v2_tpu_torch.ops import kernel_vjp, plain_attention
+    k1, k2, k3 = (importlib.import_module(f"magicdrive_v2_tpu_torch.ops.{m}")
+                  for m in ("flash_fused", "fused_adaln", "flash_attention"))
+
+    def through(name, module, plain, args, tensors):
+        calls[name] = calls.get(name, 0) + 1
+        if kernel_vjp.needs_grad(*tensors):
+            return kernel_vjp.KernelFunction.apply(module.forward_plain,
+                                                   module.backward_plain, name, *args)
+        return plain(*args)
+
+    def site_k1(qkv, qw, kw, kv_perm=None, scale=None):
+        scale = qkv.shape[-1] ** -0.5 if scale is None else scale
+        return through("fused_qkv_attention", k1, k1.fused_qkv_attention_plain,
+                       (qkv, qw, kw, kv_perm, scale), (qkv, qw, kw))
+
+    def site_k2(x, shift, scale, eps=1e-6):
+        shift, scale = (a[:, 0] if a.ndim == 3 else a for a in (shift, scale))
+        return through("adaln_modulate", k2, k2.adaln_modulate_plain, (x, shift, scale, eps),
+                       (x, shift, scale))
+
+    def site_k3(q, k, v, scale=None, bias=None):
+        scale = q.shape[-1] ** -0.5 if scale is None else scale
+        if bias is not None:
+            calls["flash_attention"] = calls.get("flash_attention", 0) + 1
+            return plain_attention(q, k, v, scale=scale, bias=bias)
+        return through("flash_attention", k3, k3.flash_attention_plain, (q, k, v, scale),
+                       (q, k, v))
+
+    return site_k1, site_k2, site_k3

@@ -101,7 +101,9 @@ def qkv_data():
 def _perms():
     roll = np.roll(np.arange(G), 1).astype(np.int32)
     two = np.stack([roll, np.roll(np.arange(G), -1)]).astype(np.int32)
-    return {"none": None, "1d": roll, "2d": two}
+    shared = np.stack([roll, np.array([1, 1, 2, 0])]).astype(np.int32)
+    unread = np.array([[2, 2, 2, 0], [3, 0, 0, 3]], dtype=np.int32)
+    return {"none": None, "1d": roll, "2d": two, "2d_shared": shared, "2d_unread": unread}
 
 
 def _jax_bodies(qkv, qw, kw, perm, norm):
@@ -371,14 +373,20 @@ def test_chip_smoke_bf16_limits_reject_a_dropped_k_norm_weight(N, H, cross_view)
 
 # ---------------------------------------------------------------- autograd Functions
 #
-# On the card each wrapper goes through PlainVJPFunction when autograd records;
-# the Function's forward is the kernel, its backward the plain version's,
-# recomputed. Here the plain version is handed in as the forward: the backward code
-# runs on the CPU and is held against autograd straight through the plain version
-# (the same arithmetic: equal to the last bit) and against jax.vjp of the JAX
-# function (its custom_vjp backward, Pallas forward in interpret mode).
+# On the card each wrapper goes through KernelFunction when autograd records: its
+# forward is the kernel (which also saves the rows' log-sum-exp), its backward a
+# backward kernel. Here the plain versions of both are handed in: the Function's
+# code runs on the CPU, its backward formulation (LSE and delta, no autograd) is
+# held against autograd straight through the plain version and against jax.vjp
+# of the JAX function (its custom_vjp backward, Pallas forward in interpret mode),
+# both within GRAD_ATOL (fp32: summation order only).
 
-from magicdrive_v2_tpu_torch.ops.plain_vjp import PlainVJPFunction, backward_calls, needs_grad
+import importlib  # noqa: E402
+
+k1_module, k2_module, k3_module = (  # the modules (ops exports functions of two names)
+    importlib.import_module(f"magicdrive_v2_tpu_torch.ops.{m}")
+    for m in ("flash_fused", "fused_adaln", "flash_attention"))
+from magicdrive_v2_tpu_torch.ops.kernel_vjp import KernelFunction, backward_calls, needs_grad
 
 GRAD_ATOL = 2e-5  # fp32 grads of the two packages: summation order only
 
@@ -388,7 +396,7 @@ def _leaf(x):
 
 
 def _check_function(out, plain_out, inputs, g, name):
-    assert type(out.grad_fn).__name__ == "PlainVJPFunctionBackward"
+    assert type(out.grad_fn).__name__ == "KernelFunctionBackward"
     torch.testing.assert_close(out, plain_out, rtol=0, atol=0)
     calls = backward_calls.get(name, 0)
     got = torch.autograd.grad(out, inputs, g)
@@ -396,22 +404,26 @@ def _check_function(out, plain_out, inputs, g, name):
     want = torch.autograd.grad(plain_out, inputs, g)
     for a, b in zip(got, want):
         assert a is not None and bool((a != 0).any())
-        torch.testing.assert_close(a, b, rtol=0, atol=0)
+        torch.testing.assert_close(a, b, rtol=RTOL, atol=GRAD_ATOL)
     return got
 
 
 @pytest.mark.parametrize("norm", [True, False], ids=["norm", "no_norm"])
-@pytest.mark.parametrize("perm_kind", ["none", "2d"], ids=["J1", "J2"])
+@pytest.mark.parametrize("perm_kind", ["none", "2d", "2d_shared", "2d_unread"],
+                         ids=["J1", "J2", "J2_shared", "J2_unread"])
 def test_fused_qkv_function_backward(qkv_data, perm_kind, norm):
     """Grads of qkv and of both norm weights; with J=2 the k/v grads of a group
-    sum over the two groups that read it."""
+    sum over the groups that read it (``2d_shared``: a non-bijective perm, whose
+    second source reads group 1 twice and group 3 not at all; ``2d_unread``: each
+    source reads one group two or three times, and group 1 is read by neither, so
+    its k/v grads are zero)."""
     qkv, qw, kw = qkv_data
     perm = _perms()[perm_kind]
     scale = D ** -0.5
     tq, tw_q, tw_k = _leaf(qkv), _leaf(qw) if norm else None, _leaf(kw) if norm else None
     inputs = [tq] + ([tw_q, tw_k] if norm else [])
-    out = PlainVJPFunction.apply(fused_qkv_attention_plain, fused_qkv_attention_plain,
-                                 "fused_qkv_attention", tq, tw_q, tw_k, perm, scale)
+    out = KernelFunction.apply(k1_module.forward_plain, k1_module.backward_plain,
+                               "fused_qkv_attention", tq, tw_q, tw_k, perm, scale)
     g = np.random.default_rng(7).standard_normal(out.shape).astype(np.float32)
     got = _check_function(out, fused_qkv_attention_plain(tq, tw_q, tw_k, perm, scale),
                           inputs, t(g), "fused_qkv_attention")
@@ -421,6 +433,8 @@ def test_fused_qkv_function_backward(qkv_data, perm_kind, norm):
         *(a if norm else a + (None, None)), perm_t, scale), *args)
     for a, b in zip(got, vjp(j(g))):
         _close(a, b, GRAD_ATOL, RTOL)
+    if perm_kind == "2d_unread":
+        assert not bool((got[0][1, :, 1:] != 0).any())
 
 
 def test_adaln_function_backward():
@@ -431,8 +445,8 @@ def test_adaln_function_backward():
     sh, sc = (rng.standard_normal((2, 64)).astype(np.float32) for _ in range(2))
     g = rng.standard_normal(x.shape).astype(np.float32)
     inputs = [_leaf(x), _leaf(sh), _leaf(sc)]
-    out = PlainVJPFunction.apply(adaln_modulate_plain, adaln_modulate_plain,
-                                 "adaln_modulate", *inputs, 1e-6)
+    out = KernelFunction.apply(k2_module.forward_plain, k2_module.backward_plain,
+                               "adaln_modulate", *inputs, 1e-6)
     got = _check_function(out, adaln_modulate_plain(*inputs), inputs, t(g),
                           "adaln_modulate")
     _, vjp = jax.vjp(lambda a, b, c: _xla_fallback(a, b[:, None], c[:, None], 1e-6),
@@ -441,20 +455,27 @@ def test_adaln_function_backward():
         _close(a, b, 1e-4, 1e-5)
 
 
-@pytest.mark.parametrize("D_", [8, 16], ids=["D8", "D16"])
-def test_flash_attention_function_backward_on_strided_kv(D_):
+@pytest.mark.parametrize("D_,M", [(8, 13), (16, 13), (8, 1)], ids=["D8", "D16", "D8_M1"])
+def test_flash_attention_function_backward_on_strided_kv(D_, M):
     """k and v are strided views of one (B, M, 2, H, D) projection: their grads land
-    on that one tensor, through the views."""
+    on that one tensor, through the views. With one key (stage 1's condition
+    cache) q's grad is exactly zero on both sides."""
     rng = np.random.default_rng(9)
     q = rng.standard_normal((2, 40, 2, D_)).astype(np.float32)
-    kv = rng.standard_normal((2, 13, 2, 2, D_)).astype(np.float32)
+    kv = rng.standard_normal((2, M, 2, 2, D_)).astype(np.float32)
     tq, tkv = _leaf(q), _leaf(kv)
     scale = D_ ** -0.5
-    out = PlainVJPFunction.apply(flash_attention_plain, flash_attention_plain,
-                                 "flash_attention", tq, tkv[:, :, 0], tkv[:, :, 1], scale)
+    out = KernelFunction.apply(k3_module.forward_plain, k3_module.backward_plain,
+                               "flash_attention", tq, tkv[:, :, 0], tkv[:, :, 1], scale)
     g = rng.standard_normal(out.shape).astype(np.float32)
-    got = _check_function(out, flash_attention_plain(tq, tkv[:, :, 0], tkv[:, :, 1]),
-                          [tq, tkv], t(g), "flash_attention")
+    if M == 1:
+        got = torch.autograd.grad(out, [tq, tkv], t(g))
+        assert not bool((got[0] != 0).any())
+        assert not bool((torch.autograd.grad(flash_attention_plain(
+            tq, tkv[:, :, 0], tkv[:, :, 1]), [tq], t(g))[0] != 0).any())
+    else:
+        got = _check_function(out, flash_attention_plain(tq, tkv[:, :, 0], tkv[:, :, 1]),
+                              [tq, tkv], t(g), "flash_attention")
     _, vjp = jax.vjp(lambda a, b: jax_flash_attention(a, b[:, :, 0], b[:, :, 1], None,
                                                       128, 128), j(q), j(kv))
     for a, b in zip(got, vjp(j(g))):
@@ -469,14 +490,15 @@ def test_functions_run_only_where_autograd_records():
     # the plain path on the CPU stays differentiable, with no Function node
     qkv = torch.randn(2, 5, 3, 1, 8, requires_grad=True)
     out = fused_qkv_attention(qkv, None, None)
-    assert "PlainVJPFunction" not in type(out.grad_fn).__name__
+    assert "KernelFunction" not in type(out.grad_fn).__name__
     out.sum().backward()
     assert qkv.grad is not None
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_every_launch_runs_under_the_device_guard(monkeypatch, dtype):
-    """Each wrapper's launch (K1's pre-pass and attention, K2, K3), in bf16 and fp32,
+    """Each wrapper's launch (K1's pre-pass and attention, K2, K3, and each one's
+    backward), in bf16 and fp32,
     calls its C entry only inside ``_cuda_build.on_device`` of its own input, with
     the stream that guard yields: on a host with several cards rank k launches on
     card k. The C entries are replaced by recorders and the launches driven on CPU
@@ -500,17 +522,22 @@ def test_every_launch_runs_under_the_device_guard(monkeypatch, dtype):
     def entry(name):
         def call(*args):
             assert guarded, f"{name} launched outside the device guard"
-            assert args[0] == guarded[-1].data_ptr() and args[-1] == 1234, name
+            first = args[0][0] if name in ("k1 backward", "k3 backward") else args[0]
+            assert first == guarded[-1].data_ptr() and args[-1] == 1234, name
             calls.append(name)
+            recorded[name] = args
             return 0
         return call
 
+    recorded = {}
     monkeypatch.setattr(_cuda_build, "on_device", guard)
-    monkeypatch.setattr(k1, "_fns", (entry("k1 pre-pass"), entry("k1"), entry("k1 fp32")))
-    monkeypatch.setattr(k2, "_fn", entry("k2"))
-    monkeypatch.setattr(k3, "_fns", (entry("k3"), entry("k3 fp32")))
+    monkeypatch.setattr(k1, "_fns", (entry("k1 pre-pass"), entry("k1"), entry("k1 fp32"),
+                                     entry("k1 backward")))
+    monkeypatch.setattr(k2, "_fn", (entry("k2"), entry("k2 backward")))
+    monkeypatch.setattr(k3, "_fns", (entry("k3"), entry("k3 fp32"), entry("k3 backward")))
     for fn in (k1.fused_qkv_attention, k2.adaln_modulate, k3.flash_attention):
         monkeypatch.setattr(fn, "launches", 0)
+        monkeypatch.setattr(fn, "backward_launches", 0)
     rng = np.random.default_rng(0)
     qkv = torch.from_numpy(rng.standard_normal((2, 70, 3, 2, 72), np.float32)).to(dtype)
     w = torch.ones(72)
@@ -523,3 +550,28 @@ def test_every_launch_runs_under_the_device_guard(monkeypatch, dtype):
     assert calls == (["k1 pre-pass", "k1", "k2", "k3"] if bf16 else ["k1 fp32", "k2", "k3 fp32"])
     assert (k1.fused_qkv_attention.launches, k2.adaln_modulate.launches,
             k3.flash_attention.launches) == (1, 1, 1)
+    assert (k1.fused_qkv_attention.backward_launches, k2.adaln_modulate.backward_launches,
+            k3.flash_attention.backward_launches) == (0, 0, 0)
+    # the backwards: one C call each, under the guard of the saved input, which
+    # launches nothing the forward's counters count and one of the backward's
+    calls.clear()
+    perm = np.array([[1, 0], [1, 1]])
+    out1 = torch.zeros(2, 70, 2, 72, dtype=dtype)
+    k1._backward([qkv, w, w, perm, 72 ** -0.5], (), out1)
+    k2._backward([x, x[:, 0], x[:, 1], 1e-6], (), x)
+    k3._backward([q, q[:, :20], q[:, 20:40], 72 ** -0.5], (q, torch.zeros(2, 2, 70)), q)
+    assert calls == ["k1 backward", "k2 backward", "k3 backward"]
+    assert (k1.fused_qkv_attention.launches, k2.adaln_modulate.launches,
+            k3.flash_attention.launches) == (1, 1, 1)
+    assert (k1.fused_qkv_attention.backward_launches, k2.adaln_modulate.backward_launches,
+            k3.flash_attention.backward_launches) == (1, 1, 1)
+    # K1's arrays as params_of (csrc/attn_bwd_sm90.cuh) reads them: q, k, v the
+    # views of qkv; the inverse perm's pairs; the (group, row, head) strides
+    ptrs, ints, floats = (list(a) for a in recorded["k1 backward"][:3])
+    assert ptrs[:3] == [qkv[:, :, i].data_ptr() for i in range(3)]
+    assert ptrs[10] is not None and all(p is not None for p in ptrs[11:19])
+    assert ints[:6] == [2, 2, 70, 70, 72, 2] and ints[6:9] == [70 * 3 * 144, 3 * 144, 72]
+    assert floats[0] == pytest.approx(72 ** -0.5) and floats[1] == pytest.approx(1e-6)
+    ptrs, ints, _ = (list(a) for a in recorded["k3 backward"][:3])
+    assert ptrs[:3] == [q.data_ptr(), q[:, :20].data_ptr(), q[:, 20:40].data_ptr()]
+    assert all(p is None for p in ptrs[10:]) and ints[:6] == [2, 2, 70, 20, 72, 1]

@@ -162,39 +162,24 @@ def test_chip_smoke_derives_the_brushnet_backward_calls(monkeypatch):
     """chip_smoke.py holds the backwards of each kernel's Function in a BrushNet
     training loss (only the branch trainable) against a count derived from the
     graph, and the launches against twice a forward's (the forward and the
-    recompute). Here the three wrappers go through ``PlainVJPFunction`` where
+    recompute). Here the three wrappers go through ``KernelFunction`` where
     autograd records, as on the card, with the plain versions on both sides."""
-    import functools
-
     import chip_smoke
-    from magicdrive_v2_tpu_torch import ops
-    from magicdrive_v2_tpu_torch.ops import plain_vjp
+    from magicdrive_v2_tpu_torch.ops import kernel_vjp
     from magicdrive_v2_tpu_torch.tools.block_bench import patch_points
+    from test_torch_common import kernel_sites_as_on_the_card
 
     calls = {}
-
-    def as_on_the_card(name, plain):
-        def wrapper(*args, **kw):
-            calls[name] = calls.get(name, 0) + 1
-            fn = functools.partial(plain, **kw)
-            if plain_vjp.needs_grad(*[a for a in args if isinstance(a, torch.Tensor)]):
-                return plain_vjp.PlainVJPFunction.apply(fn, fn, name, *args)
-            return fn(*args)
-        return wrapper
-
-    for (module, attr), name, plain in zip(
-            patch_points(),
-            ("fused_qkv_attention", "adaln_modulate", "flash_attention"),
-            (ops.fused_qkv_attention_plain, ops.adaln_modulate_plain, ops.plain_attention)):
-        monkeypatch.setattr(module, attr, as_on_the_card(name, plain))
+    for (module, attr), site in zip(patch_points(), kernel_sites_as_on_the_card(calls)):
+        monkeypatch.setattr(module, attr, site)
     model, batch, kw = build("sde_brushnet", "full")
     with torch.no_grad():
         model.encode_conditions(tuple(batch["x"].shape), batch["y"], batch["maps"],
                                 batch["bbox"], batch["cams"], batch["rel_pos"])
     encode, _ = dict(calls), calls.clear()
-    monkeypatch.setattr(plain_vjp, "backward_calls", {})
+    monkeypatch.setattr(kernel_vjp, "backward_calls", {})
     loss_and_grads(model, batch, kw)
     per_forward = chip_smoke.expected_launches(model.cfg, x_mask=True)
     assert calls == {k: 2 * n + encode.get(k, 0) for k, n in per_forward.items()}
-    assert plain_vjp.backward_calls == chip_smoke.expected_backward_calls_frozen_base(
+    assert kernel_vjp.backward_calls == chip_smoke.expected_backward_calls_frozen_base(
         model.cfg, x_mask=True)

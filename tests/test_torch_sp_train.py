@@ -508,31 +508,3 @@ def test_training_sp_size_rule(sp_size, world, dp_sp):
             training_mesh_shape(sp_size, world)
     else:
         assert training_mesh_shape(sp_size, world) == dp_sp
-
-
-
-@pytest.mark.parametrize("perm", [None, "cross_view"])
-def test_k1_backward_recompute_in_group_blocks(monkeypatch, perm):
-    """The K1 backward's plain recompute over blocks of groups (what keeps the
-    848x1600 backward on the card) gives the grads of the whole recompute: qkv and
-    both norm weights, spatial and cross-view (two sources of other groups)."""
-    from magicdrive_v2_tpu_torch.ops import flash_fused
-    from magicdrive_v2_tpu_torch.ops.plain_vjp import PlainVJPFunction
-    G, N, H, D = 6, 5, 2, 8
-    gen = torch.Generator().manual_seed(0)
-    qkv0 = torch.randn(G, N, 3, H, D, generator=gen, dtype=torch.float64)
-    w0 = torch.randn(2, D, generator=gen, dtype=torch.float64) * 0.1 + 1
-    kv_perm = None if perm is None else np.array([[5, 0, 1, 2, 3, 4], [1, 2, 3, 4, 5, 0]])
-    up = torch.randn(G, N, H, D, generator=gen, dtype=torch.float64)
-    plain = flash_fused.fused_qkv_attention_plain
-    grads = {}
-    for budget in (flash_fused.BACKWARD_LOGITS_BYTES, 2 * H * N * N * 4):
-        monkeypatch.setattr(flash_fused, "BACKWARD_LOGITS_BYTES", budget)
-        qkv, qw, kw = (a.clone().requires_grad_(True) for a in (qkv0, w0[0], w0[1]))
-        out = PlainVJPFunction.apply(plain, plain, "k1", qkv, qw, kw, kv_perm, D ** -0.5)
-        (out * up).sum().backward()
-        grads[budget] = [qkv.grad, qw.grad, kw.grad]
-    assert flash_fused._backward_group_step(qkv0) == 2  # three passes of two groups
-    whole, blocks = grads.values()
-    for a, b in zip(whole, blocks):  # the plain version's fp32, summed over the passes
-        torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-6)

@@ -252,32 +252,17 @@ def test_chip_smoke_derives_the_stage1_train_launches(monkeypatch):
     counts derived from the stage-1 layout (``blocks_of``: no temporal block): a
     train step under remat launches each kernel twice a forward (the forward and
     the recompute) and backs every call once. Here the wrappers go through
-    ``PlainVJPFunction`` where autograd records, as on the card, around the plain
+    ``KernelFunction`` where autograd records, as on the card, around the plain
     versions; the tiny model at 1 frame, the trainer's grad step."""
-    import functools
-
     import chip_smoke
-    from magicdrive_v2_tpu_torch import ops
-    from magicdrive_v2_tpu_torch.ops import plain_vjp
+    from magicdrive_v2_tpu_torch.ops import kernel_vjp
     from magicdrive_v2_tpu_torch.tools.block_bench import patch_points
     from magicdrive_v2_tpu_torch.tools.perf_lab import build_train_step
+    from test_torch_common import kernel_sites_as_on_the_card
 
     calls = {}
-
-    def as_on_the_card(name, plain):
-        def wrapper(*args, **kw):
-            calls[name] = calls.get(name, 0) + 1
-            fn = functools.partial(plain, **kw)
-            if plain_vjp.needs_grad(*[a for a in args if isinstance(a, torch.Tensor)]):
-                return plain_vjp.PlainVJPFunction.apply(fn, fn, name, *args)
-            return fn(*args)
-        return wrapper
-
-    for (module, attr), name, plain in zip(
-            patch_points(),
-            ("fused_qkv_attention", "adaln_modulate", "flash_attention"),
-            (ops.fused_qkv_attention_plain, ops.adaln_modulate_plain, ops.plain_attention)):
-        monkeypatch.setattr(module, attr, as_on_the_card(name, plain))
+    for (module, attr), site in zip(patch_points(), kernel_sites_as_on_the_card(calls)):
+        monkeypatch.setattr(module, attr, site)
     step, model, _, batch = build_train_step(1, 64, 80, device="cpu", tiny=True, rows=2,
                                              with_temp_block=False, control_skip_temporal=True)
     assert len(model.base_blocks_t) == len(model.control_blocks_t) == 0
@@ -285,8 +270,8 @@ def test_chip_smoke_derives_the_stage1_train_launches(monkeypatch):
         model.encode_conditions(tuple(batch["x"].shape), batch["y"], batch["maps"],
                                 batch["bbox"], batch["cams"], batch["rel_pos"])
     encode, _ = dict(calls), calls.clear()
-    monkeypatch.setattr(plain_vjp, "backward_calls", {})
+    monkeypatch.setattr(kernel_vjp, "backward_calls", {})
     step()
     per_forward = chip_smoke.expected_launches(model.cfg, x_mask=True)
     assert calls == {k: 2 * n + encode.get(k, 0) for k, n in per_forward.items()}
-    assert plain_vjp.backward_calls == {k: n + encode.get(k, 0) for k, n in per_forward.items()}
+    assert kernel_vjp.backward_calls == {k: n + encode.get(k, 0) for k, n in per_forward.items()}
