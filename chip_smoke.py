@@ -65,11 +65,15 @@ card. It imports only ``magicdrive_v2_tpu_torch`` and
                 masters); no parameter may lose its grad; then each kernel's
                 ``autograd.Function`` (forward and backward kernels) against
                 autograd through its plain version in fp32 at every shape the step
-                hands it (and K1 at N=5300 with 8 heads, ``sp_train``'s), each bf16
-                grad within 2**-7 of the largest plus the plain bf16 grad's own
-                distance; two backwards at the stage-2 shapes bit-equal; each
-                backward kernel's time beside the plain recompute's, its bound
-                and the library's forward+backward;
+                hands it (and K1 at N=5300 with 8 heads, ``sp_train``'s; the bf16
+                backward body's small head dims and K3 with one key at 72), each
+                bf16 grad within 2**-7 of the largest plus the plain bf16 grad's own
+                distance; two backwards at the stage-2 shapes bit-equal; the bf16
+                backward's pre-pass against its plain version; each backward
+                kernel's time (stage-2 shapes, K3 also as the model hands it k and
+                v, and K1 at ``sp_train``'s), back to back and on the card alone,
+                beside the plain recompute's, its bound, the library's
+                forward+backward and its backward alone;
 7. ``train``    the trainer: XL/2 at full width and depth from the stage-2 config
                 (``configs/magicdrive/train/stage2_17x224x400.py``: batch 4, remat,
                 bf16 over fp32 masters, AdamW, EMA 0.99), 2 steps, the first one
@@ -379,6 +383,27 @@ def time_ms(torch, fn, iters):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def device_time_ms(torch, fn, iters, lead_ms=200.0):
+    """Milliseconds of ``fn`` on the card alone and on the host, each the mean of
+    ``iters`` calls after one warm-up: the calls are queued while the card spins
+    for about ``lead_ms`` (at 2 GHz), so the events between them see no launch gap
+    of the host's as long as the host's time (the second number, a call) stays
+    under ``lead_ms / iters``."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(lead_ms * 2e6))
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / iters
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters, host_ms
 
 
 def max_err(a, b):
@@ -1556,23 +1581,55 @@ def train_batches(cfg, model_cfg, seed, dp_row=0):
 # K1 at sp_train's shape after the all-to-all (N = 5300, 8 heads), cut to 2 groups:
 # one source, and two through a perm that reads group 1 twice and group 0 never
 SP_TRAIN_K1 = {((2, 5300, 3, 8, 72), None), ((2, 5300, 3, 8, 72), ((1, 0), (1, 1)))}
+# The bf16 backward's Hopper body at what the model's path does not reach: K1 at
+# the small head dims (padded widths 16 and 32, ragged tiles, two sources), K3 at
+# head dim 72 with one key (dS exactly zero) and at head dim 8 over ragged keys
+BODY_K1 = {((4, 130, 3, 2, 16), ((1, 2, 3, 0), (3, 0, 1, 2))), ((4, 70, 3, 2, 32), None),
+           ((3, 100, 3, 2, 24), None)}
+BODY_K3 = {((4, 350, 16, 72), 1), ((2, 200, 4, 8), 70)}
+# The pre-pass vs its plain version, slack beside compare's 2**-7 * |ref|: the two sum
+# the squares in other orders, so x r may round to neighbouring bf16 values (2**-7 of
+# it at most), then each side rounds w (x r) (2**-8 each): 2**-6 of the exact w x r,
+# and ref itself lies half an ulp from that
+PREPASS_LIMIT = 3 * 2.0 ** -8
 
 
-def check_functions(torch, seen, held, with_sp_train=False):
+def check_functions(torch, seen, held, with_extra_cases=False):
     """Each kernel's autograd.Function (its forward and backward kernels) against
     autograd through the plain version in fp32 on the same inputs, at every shape
     and type ``seen`` noted on the training path, including K1 with two sources and
-    K3 on strided k/v views at head dims 72 and 144 (and, ``with_sp_train``, K1 at
-    ``SP_TRAIN_K1`` in bf16): per grad, fp32 max|err| <= ``FN_FP32_LIMIT`` *
-    max|g_fp32|; bf16 max|err| <= ``FN_BF16_LIMIT`` * max|g_fp32| + max|g_plain_bf16
-    - g_fp32|. Every backward runs twice and must give the same bits, and the
-    forward gives the same bits with and without autograd. Each kernel's largest
-    |grad - g_fp32| goes into ``held.backward_worst``."""
+    K3 on strided k/v views at head dims 72 and 144 (and, ``with_extra_cases``, K1
+    at ``SP_TRAIN_K1`` and ``BODY_K1`` and K3 at ``BODY_K3``, in bf16): per grad,
+    fp32 max|err| <= ``FN_FP32_LIMIT`` * max|g_fp32|; bf16 max|err| <=
+    ``FN_BF16_LIMIT`` * max|g_fp32| + max|g_plain_bf16 - g_fp32|. Every backward
+    runs twice and must give the same bits, and the forward gives the same bits
+    with and without autograd. Each kernel's largest |grad - g_fp32| goes into
+    ``held.backward_worst``. Every bf16 K1 case with the norm also holds the
+    backward's pre-pass (``tile_qk``) against its plain version (``compare``, with
+    ``PREPASS_LIMIT`` * |ref| of slack)."""
     from magicdrive_v2_tpu_torch.ops import (adaln_modulate, adaln_modulate_plain,
                                              flash_attention, flash_attention_plain,
                                              fused_qkv_attention, fused_qkv_attention_plain)
+    from magicdrive_v2_tpu_torch.ops.flash_fused import (plan_backward_bf16, tile_qk,
+                                                         tile_qk_plain)
     gen = torch.Generator(device="cuda").manual_seed(1)
     cases = []
+
+    def hold_prepass(qkv, ws):
+        G, N, _, H, D = qkv.shape
+        plan = plan_backward_bf16(G, N, N, H, D, norm=True)
+        x = qkv.detach()
+        out, ref = tile_qk(x, *ws, plan), tile_qk_plain(x, *[w.detach() for w in ws], plan)
+        torch.cuda.synchronize()
+        # zero in the plain tiles: the padding (and an all-zero input), zero in both
+        real = ref != 0
+        require(not bool((out[~real] != 0).any()), "backward pre-pass: padding not zero")
+        out, ref = out[real], ref[real]
+        err, ratio, rms_ratio, _ = compare(torch, out, ref, PREPASS_LIMIT * ref.float().abs())
+        cases.append(dict(kernel="fused_qkv_attention_backward_prepass", qkv=list(qkv.shape),
+                          max_abs_err=err, err_over_limit=ratio,
+                          rms_err_over_limit=rms_ratio))
+        require(ratio <= 1.0 and rms_ratio <= 1.0, cases[-1])
 
     def randn(*shape, dtype, scale=1.0, shift=0.0):
         x = torch.randn(*shape, generator=gen, device="cuda") * scale + shift
@@ -1620,13 +1677,15 @@ def check_functions(torch, seen, held, with_sp_train=False):
 
     k1_cases = [(shape, dtype, norm, perm) for (shape, dtype, norm, _), perm
                 in sorted(seen["fused_qkv_attention"].items(), key=str)]
-    if with_sp_train:
-        k1_cases += [(shape, torch.bfloat16, True, perm) for shape, perm in sorted(SP_TRAIN_K1,
-                                                                                   key=str)]
+    if with_extra_cases:
+        k1_cases += [(shape, torch.bfloat16, True, perm)
+                     for shape, perm in sorted(SP_TRAIN_K1 | BODY_K1, key=str)]
     for shape, dtype, norm, perm in k1_cases:
         qkv = randn(*shape, dtype=dtype)
         if norm:
             ws = [randn(shape[-1], dtype=torch.float32, scale=0.1, shift=1.0) for _ in range(2)]
+            if dtype == torch.bfloat16:
+                hold_prepass(qkv, ws)
             judge("fused_qkv_attention", lambda x, a, b: fused_qkv_attention(x, a, b, perm),
                   lambda x, a, b: fused_qkv_attention_plain(x, a, b, perm), [qkv] + ws,
                   dict(qkv=list(shape), J=perm_sources(perm), norm=True))
@@ -1639,7 +1698,10 @@ def check_functions(torch, seen, held, with_sp_train=False):
         sh, sc = randn(shape[0], shape[2], dtype=dtype), randn(shape[0], shape[2], dtype=dtype)
         judge("adaln_modulate", adaln_modulate, adaln_modulate_plain, [x, sh, sc],
               dict(x=list(shape)))
-    for qshape, M, dtype in sorted(seen["flash_attention"], key=str):
+    k3_cases = sorted(seen["flash_attention"], key=str)
+    if with_extra_cases:
+        k3_cases += [(qshape, M, torch.bfloat16) for qshape, M in sorted(BODY_K3)]
+    for qshape, M, dtype in k3_cases:
         B, N, H, D = qshape
         q = randn(*qshape, dtype=dtype)
         kv = randn(B, M, 2, H, D, dtype=dtype)  # k and v: strided views of one tensor
@@ -1749,7 +1811,7 @@ def run_grads(torch, seed, held):
         del gk, gp
     del model, dev
     torch.cuda.empty_cache()
-    cases = check_functions(torch, seen, held, with_sp_train=True)
+    cases = check_functions(torch, seen, held, with_extra_cases=True)
     emit("grads", model="MagicDriveSTDiT3-XL/2", depth=model_cfg.depth,
          control_depth=model_cfg.control_depth, batch=b, frames=nf, height=h,
          width=w, x_shape=list(batch["x"].shape), fp32_limit=f"per tensor max|err| <= "
@@ -1763,12 +1825,25 @@ def run_grads(torch, seed, held):
     return seen
 
 
+# K1 at sp_train's shape after the all-to-all, one source: a row of time_backwards
+SP_TRAIN_K1_ROW = (2, 5300, 3, 8, 72)
+
+
 def time_backwards(torch, seen, per_step):
     """ms of one backward of each Function (its backward kernels) at the training
-    step's bf16 shapes, beside the plain recompute (the plain version's forward and
-    backward, the backward of the wrappers before there were backward kernels), its
-    bound, and the forward+backward of the nearest PyTorch call at the same shape as
-    the yardstick."""
+    step's bf16 shapes and K1 at ``SP_TRAIN_K1_ROW``, beside the plain recompute
+    (the plain version's forward and backward, the backward of the wrappers before
+    there were backward kernels), its bound, and the nearest PyTorch call at the
+    same shape as the yardstick: its forward+backward (``library_ms``) and its
+    backward alone (``library_backward_ms``, timed as the kernel's). Each backward
+    also on the card alone, the host ahead of it (``device_ms``; the host's ms a
+    call, ``host_ms``): back to back, a backward of short kernels may wait on the
+    host's launches. K3 twice: k and v as their own leaves (the kernels alone), and
+    as the model hands them, strided views of one (B, M, 2, H, D) projection whose
+    grad autograd assembles from the two (``K3 packed kv``: its select and copy
+    kernels too). The rows run one after the other with the allocator's cache
+    emptied between them, the largest (K1 at ``SP_TRAIN_K1_ROW``, whose plain
+    recompute holds 1.8 GB of logits) last."""
     import torch.nn.functional as F
     from magicdrive_v2_tpu_torch.ops import (adaln_modulate, adaln_modulate_plain,
                                              flash_attention, flash_attention_plain,
@@ -1780,65 +1855,105 @@ def time_backwards(torch, seen, per_step):
         return torch.randn(*shape, generator=gen, device="cuda").to(bf16).requires_grad_()
 
     def backward_ms(out, inputs):
+        """ms back to back by CUDA events, and the card's time alone and the host's
+        a call (``device_time_ms``)."""
         g = torch.randn(out.shape, generator=gen, device="cuda").to(out.dtype)
-        return time_ms(torch, lambda: torch.autograd.grad(out, inputs, g, retain_graph=True),
-                       10)
+
+        def call():
+            return torch.autograd.grad(out, inputs, g, retain_graph=True)
+
+        device_ms, host_ms = device_time_ms(torch, call, 10)
+        return dict(ms=time_ms(torch, call, 10), device_ms=device_ms, host_ms=host_ms)
+
+    def library_backward(out, inputs):
+        timed = backward_ms(out, inputs)
+        return dict(library_backward_ms=timed["ms"],
+                    library_backward_device_ms=timed["device_ms"])
 
     def fwd_bwd_ms(fn, inputs, iters=3):
         out = fn()
         g = torch.randn(out.shape, generator=gen, device="cuda").to(out.dtype)
         return time_ms(torch, lambda: torch.autograd.grad(fn(), inputs, g), iters)
 
-    rows = {}
-    k1 = {J: (shape, perm) for (shape, dtype, norm, J), perm in
-          seen["fused_qkv_attention"].items() if dtype == bf16 and shape[-1] == 72}
-    for J, (shape, perm) in sorted(k1.items()):
+    def k1_row(shape, perm):
         G, N, _, H, D = shape
+        J = perm_sources(perm)
         qkv = randn(*shape)
         qw = (torch.randn(D, generator=gen, device="cuda") * 0.1 + 1).requires_grad_()
-        ms = backward_ms(fused_qkv_attention(qkv, qw, qw, perm), [qkv, qw])
+        row = backward_ms(fused_qkv_attention(qkv, qw, qw, perm), [qkv, qw])
         plain = fwd_bwd_ms(lambda: fused_qkv_attention_plain(qkv, qw, qw, perm), [qkv, qw], 2)
         # the yardstick: one SDPA a source on its own k/v leaves, outputs summed
         q = randn(G, H, N, D)
         kvs = [(randn(G, H, N, D), randn(G, H, N, D)) for _ in range(J)]
-        lib = fwd_bwd_ms(lambda: sum(F.scaled_dot_product_attention(q, kk, vv)
-                                     for kk, vv in kvs), [q] + [t for kv in kvs for t in kv])
+        leaves = [q] + [t for kv in kvs for t in kv]
+
+        def sdpa():
+            return sum(F.scaled_dot_product_attention(q, kk, vv) for kk, vv in kvs)
+
+        lib = fwd_bwd_ms(sdpa, leaves)
+        row.update(library_backward(sdpa(), leaves))
         flops = 2.5 * 4.0 * G * H * N * N * D * J
         nbytes = 2.0 * (2 * qkv.numel() + G * N * H * D)
         bound_ms, by = bound(flops, nbytes, PEAK_BF16)
-        rows["K1 spatial" if J == 1 else "K1 cross-view"] = dict(
-            qkv=list(shape), J=J, ms=ms, plain_ms=plain, bound_ms=bound_ms, bound_by=by,
-            library_ms=lib, library="scaled_dot_product_attention fwd+bwd"
-            + (" x2 summed" if J > 1 else ""))
+        return dict(
+            qkv=list(shape), J=J, plain_ms=plain, bound_ms=bound_ms, bound_by=by,
+            library_ms=lib,
+            library="scaled_dot_product_attention" + (" x2 summed" if J > 1 else ""), **row)
+
+    def next_row():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    rows = {}
+    k1 = {J: (shape, perm) for (shape, dtype, norm, J), perm in
+          seen["fused_qkv_attention"].items() if dtype == bf16 and shape[-1] == 72}
+    for J, (shape, perm) in sorted(k1.items()):
+        rows["K1 spatial" if J == 1 else "K1 cross-view"] = k1_row(shape, perm)
+        next_row()
     x_shape = max(sh for sh, dtype in seen["adaln_modulate"] if dtype == bf16)
     x = randn(*x_shape)
     sh, sc = randn(x_shape[0], x_shape[2]), randn(x_shape[0], x_shape[2])
     C = x_shape[2]
+
+    def modulated_layer_norm():
+        return F.layer_norm(x, (C,), eps=1e-6) * (1 + sc[:, None]) + sh[:, None]
+
     rows["K2"] = dict(
-        x=list(x_shape), ms=backward_ms(adaln_modulate(x, sh, sc), [x, sh, sc]),
+        x=list(x_shape), **backward_ms(adaln_modulate(x, sh, sc), [x, sh, sc]),
         plain_ms=fwd_bwd_ms(lambda: adaln_modulate_plain(x, sh, sc), [x, sh, sc]),
-        library_ms=fwd_bwd_ms(lambda: F.layer_norm(x, (C,), eps=1e-6)
-                              * (1 + sc[:, None]) + sh[:, None], [x, sh, sc]),
-        library="layer_norm + modulate fwd+bwd")
+        library_ms=fwd_bwd_ms(modulated_layer_norm, [x, sh, sc]),
+        **library_backward(modulated_layer_norm(), [x, sh, sc]),
+        library="layer_norm + modulate")
     rows["K2"]["bound_ms"], rows["K2"]["bound_by"] = bound(
         10.0 * x.numel(), 2.0 * (3 * x.numel() + 4 * sh.numel()), PEAK_FP32)
+    next_row()
     qshape, M = max((q, m) for q, m, dtype in seen["flash_attention"]
                     if dtype == bf16 and q[-1] == 72)
     B, N, H, D = qshape
-    q, kv = randn(*qshape), randn(B, M, 2, H, D)
-    ms = backward_ms(flash_attention(q, kv[:, :, 0], kv[:, :, 1]), [q, kv])
-    plain = fwd_bwd_ms(lambda: flash_attention_plain(q, kv[:, :, 0], kv[:, :, 1]), [q, kv])
     qt, kt, vt = randn(B, H, N, D), randn(B, H, M, D), randn(B, H, M, D)
-    lib = fwd_bwd_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), [qt, kt, vt])
+    lib = dict(library_ms=fwd_bwd_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                                     [qt, kt, vt]),
+               **library_backward(F.scaled_dot_product_attention(qt, kt, vt), [qt, kt, vt]))
+    # k and v: strided views of one projection, as the model hands them
+    q, kv = randn(*qshape), randn(B, M, 2, H, D)
     bound_ms, by = bound(2.5 * 4.0 * B * H * N * M * D,
                          2.0 * (2 * q.numel() + 2 * kv.numel() + q.numel()), PEAK_BF16)
-    rows["K3"] = dict(q=list(qshape), M=M, ms=ms, plain_ms=plain, bound_ms=bound_ms,
-                      bound_by=by, library_ms=lib,
-                      library="scaled_dot_product_attention fwd+bwd")
-    for name, row in rows.items():
-        row["backward_calls_per_step"] = per_step[name]
-        row["seconds_per_step"] = row["ms"] * per_step[name] / 1e3
-        row["plain_seconds_per_step"] = row["plain_ms"] * per_step[name] / 1e3
+    k, v = (kv[:, :, i].detach().requires_grad_() for i in range(2))
+    for name, inputs in (("K3", [q, k, v]), ("K3 packed kv", [q, kv])):
+        qkv_ = (q, k, v) if name == "K3" else (q, kv[:, :, 0], kv[:, :, 1])
+        rows[name] = dict(
+            q=list(qshape), M=M, **backward_ms(flash_attention(*qkv_), inputs),
+            plain_ms=fwd_bwd_ms(lambda: flash_attention_plain(*qkv_), inputs),
+            bound_ms=bound_ms, bound_by=by, **lib, library="scaled_dot_product_attention")
+        next_row()
+    rows["K1 sp_train"] = k1_row(SP_TRAIN_K1_ROW, None)
+    next_row()
+    for name, row in rows.items():  # sp_train's row: not a call of the stage-2 step
+        calls = per_step.get(name)
+        row["backward_calls_per_step"] = calls
+        if calls is not None:
+            row["seconds_per_step"] = row["ms"] * calls / 1e3
+            row["plain_seconds_per_step"] = row["plain_ms"] * calls / 1e3
     torch.cuda.empty_cache()
     return rows
 
@@ -1925,7 +2040,8 @@ def run_train(torch, seed, seen, encode_launches, steps=2, with_profile=False):
                          "K1 cross-view": per_forward["fused_qkv_attention"]
                          - model_cfg.depth - model_cfg.control_depth,
                          "K2": want_backward["adaln_modulate"],
-                         "K3": per_forward["flash_attention"]}
+                         "K3": per_forward["flash_attention"],
+                         "K3 packed kv": per_forward["flash_attention"]}
     backward_rows = time_backwards(torch, seen, per_step_backward)
     emit("train", config=TRAIN_CONFIG, model="MagicDriveSTDiT3-XL/2", params=n_params,
          dtype="bfloat16 compute, float32 masters", batch=batch_size, frames=TRAIN_FRAMES,
@@ -5236,7 +5352,7 @@ def main():
     bwd_bodies = {name: [r for r in _cuda_build.ptxas_report(name)
                          if "attn_bwd_" in r["function"] or "adaln_bwd_" in r["function"]]
                   for name in _cuda_build.SOURCES}
-    require([len(v) for v in bwd_bodies.values()] == [17, 17, 4] and all(
+    require([len(v) for v in bwd_bodies.values()] == [19, 17, 4] and all(
         r["spill_stores"] == 0 and r["spill_loads"] == 0
         for v in bwd_bodies.values() for r in v), bwd_bodies)
     from magicdrive_v2_tpu_torch import native
@@ -5405,13 +5521,15 @@ def main():
         "fused_qkv_attention": dict(
             row="K1 spatial", headers=[bwd_header], jax_backward=jax_ops + "flash_fused.py:487"
             " (_bwd: jax.vjp of _xla_reference)",
-            other_rows={"cross_view": backward_rows["K1 cross-view"]}),
+            other_rows={"cross_view": backward_rows["K1 cross-view"],
+                        "sp_train": backward_rows["K1 sp_train"]}),
         "adaln_modulate": dict(
             row="K2", jax_backward="none: the JAX trainer differentiates _xla_fallback "
             "(" + jax_ops + "fused_adaln.py)"),
         "flash_attention": dict(
             row="K3", headers=[bwd_header], jax_backward=jax_ops + "flash_attention.py:137"
-            " (_fa_bwd: jax.vjp of xla_attention)"),
+            " (_fa_bwd: jax.vjp of xla_attention)",
+            other_rows={"packed_kv": backward_rows["K3 packed kv"]}),
     }
     for name, extra in bwd_meta.items():
         row = dict(backward_rows[extra.pop("row")])

@@ -125,14 +125,6 @@ __global__ void __launch_bounds__(kRows) k1_tile_k(const bf16* __restrict__ qkv,
 // attention
 // ---------------------------------------------------------------------------
 
-// Copy one tile (contiguous in the scratch) into shared memory.
-template <int DP>
-__device__ __forceinline__ void copy_tile(bf16* dst, const bf16* src, int tid) {
-  constexpr int CHUNKS = kRows * DP / 8;
-#pragma unroll
-  for (int idx = tid; idx < CHUNKS; idx += kThreads) cp_async_16(dst + idx * 8, src + idx * 8);
-}
-
 // DP: padded head dim of the tiles (the depth of the logit product, a multiple
 // of 16); DV: width of the value product (the head dim rounded up to 8).
 // Warpgroup wg (threads 128wg..128wg+127) owns q rows 64wg..64wg+63 of the

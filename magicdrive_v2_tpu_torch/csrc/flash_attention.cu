@@ -100,7 +100,8 @@ extern "C" int mdv2_flash_attention_f32(const void* q, const void* k, const void
 }
 
 // The backward of one call (attn_bwd_sm90.cuh's params_of names the arrays);
-// dtype 0 bf16 (head dims 8, 16, 72, 144), 1 fp32 (up to 144).
+// dtype 0 bf16 (head dims 8, 16, 72: the Hopper body; 144: the mma.sync body),
+// 1 fp32 (up to 144).
 extern "C" int mdv2_k3_backward(const void* const* ptrs, const long long* ints,
                                 const float* floats, int dtype, void* stream) {
   using namespace mdv2::bwd;

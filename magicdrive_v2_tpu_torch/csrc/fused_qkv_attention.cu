@@ -34,12 +34,13 @@
 // Under autograd the forward also writes the row log-sum-exp (fp32, (G, H, N))
 // of a call with one source (with several, the backward's first pass takes each
 // source's: the J > 1 body is at its 128 registers), and the backward is the
-// kernels of attn_bwd_sm90.cuh (shared
-// with flash_attention): they read q, k and v from qkv, normalise q and k as
-// the forward does, take dq and dk back through the norm in their epilogues
-// and write the three grads into one (G, N, 3, H, D) tensor; the k/v grads of
-// a group sum over the (source, group) pairs that read it, listed by the
-// wrapper, and the norm weights' grads come from per-block partials.
+// kernels of attn_bwd_sm90.cuh (shared with flash_attention): in bf16 a pre-pass
+// normalises q and k once, as the forward does, into tiles that the dQ and dK/dV
+// kernels read with v from qkv (fp32 normalises where a tile is loaded); dq and
+// dk go back through the norm in their epilogues, and the three grads land in
+// one (G, N, 3, H, D) tensor; the k/v grads of a group sum over the (source,
+// group) pairs that read it, listed by the wrapper, and the norm weights' grads
+// come from per-block partials.
 #include "attn_bwd_sm90.cuh"
 #include "attn_core.cuh"
 #include "attn_k1_sm90.cuh"
@@ -125,8 +126,27 @@ extern "C" int mdv2_fused_qkv_attention_f32(const void* qkv, void* out, const in
   return mdv2::launch_attention_f32(p, reinterpret_cast<cudaStream_t>(stream));
 }
 
+// The backward's pre-pass (bf16, with the norm): q and k of qkv (G, N, 3, H, D),
+// normalised as the forward normalises them, as tiles (2, G, H, T, DP / 8, 64, 8).
+extern "C" int mdv2_k1_backward_tiles(const void* qkv, void* tiles, const float* q_w,
+                                      const float* k_w, int G, int N, int H, int D, int dp,
+                                      int T, float eps, void* stream) {
+  using namespace mdv2::bwd;
+  if (G <= 0 || N <= 0 || H <= 0 || D <= 0 || D % 8 != 0 || D > dp || T * mdv2::kRows < N)
+    return (int)cudaErrorInvalidValue;
+  const mdv2::bf16* x = reinterpret_cast<const mdv2::bf16*>(qkv);
+  mdv2::bf16* y = reinterpret_cast<mdv2::bf16*>(tiles);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  switch (dp) {
+    case 16: return launch_tiles<16>(x, y, q_w, k_w, G, N, H, D, T, eps, s);
+    case 32: return launch_tiles<32>(x, y, q_w, k_w, G, N, H, D, T, eps, s);
+    case 80: return launch_tiles<80>(x, y, q_w, k_w, G, N, H, D, T, eps, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 // The backward of one call (attn_bwd_sm90.cuh's params_of names the arrays);
-// dtype 0 bf16 (head dims 8, 16, 24, 32, 72), 1 fp32 (up to 144).
+// dtype 0 bf16 (head dims 8, 16, 24, 32, 72: the Hopper body), 1 fp32 (up to 144).
 extern "C" int mdv2_k1_backward(const void* const* ptrs, const long long* ints,
                                 const float* floats, int dtype, void* stream) {
   using namespace mdv2::bwd;

@@ -27,6 +27,10 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async_16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src));
 }
+// 4 bytes (a float of a row statistic), through L1
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src));
+}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
@@ -61,12 +65,26 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// Waits until at most N committed groups of products are still running.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
 // Keeps the compiler from moving uses of an accumulator across the
 // asynchronous products that write it.
 template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// The same for an A operand in registers: keeps its registers from being reused
+// while a product that reads them is still running.
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e])::"memory");
 }
 // Makes this thread's writes to shared memory (cp.async and plain stores)
 // visible to wgmma, which reads through the async proxy.
@@ -159,6 +177,15 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[72], const uint32_t (&a)[4],
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
         "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// Copy one tile that lies in the tile layout (contiguous, as a pre-pass wrote
+// it) into shared memory, asynchronously; NT threads take part.
+template <int DP, int NT = 256>
+__device__ __forceinline__ void copy_tile(bf16* dst, const bf16* src, int tid) {
+  constexpr int CHUNKS = kRows * DP / 8;
+#pragma unroll
+  for (int idx = tid; idx < CHUNKS; idx += NT) cp_async_16(dst + idx * 8, src + idx * 8);
 }
 
 // Copy 64 rows (row 0 at src, row stride rs elements; `rows` of them exist)

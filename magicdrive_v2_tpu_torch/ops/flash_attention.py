@@ -21,7 +21,8 @@ import torch
 
 from . import _cuda_build
 from .attention import plain_attention
-from .flash_fused import Q_ROWS, TILE_ROWS
+from .flash_fused import (BLOCK_RESERVED, BWD_WIDTH, Q_ROWS, SM_SHARED, TILE_ROWS,
+                          plan_backward_bf16)
 from .kernel_vjp import KernelFunction, needs_grad
 
 _fns = None
@@ -70,8 +71,6 @@ def backward_plain(args, saved, grad):
 
 # ---------------------------------------------------------------- bf16 launch plan
 
-SM_SHARED = 233_472     # shared memory of one H100 SM, all its blocks together
-BLOCK_RESERVED = 1_024  # shared memory the runtime keeps for every block
 STAGES = 3              # depth of the streaming kernel's k/v ring (kStages)
 # bf16 head dims the kernel takes -> (depth of the logit product, a multiple of 16:
 # one tensor-core k-step; width of the value product and of the v tiles). q and k
@@ -230,9 +229,13 @@ def _backward(args, saved, grad):
     dk = torch.empty((B, M, H, D), dtype=k.dtype, device=q.device)
     dv = torch.empty((B, M, H, D), dtype=v.dtype, device=q.device)
     delta = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
+    # bf16 at the Hopper body's head dims (72 on the model's path) takes its plan;
+    # fp32 and bf16 at 144 the CUDA-core / mma.sync body
+    plan = plan_backward_bf16(B, N, M, H, D) if code == 0 and D in BWD_WIDTH else None
     arrays = _cuda_build.backward_args(
-        [q, k, v, grad, out, dq, dk, dv, lse, delta] + [None] * 9,
-        [B, H, N, M, D, 1] + _cuda_build.bwd_strides(q, k, v, grad, out, dq, dk, dv),
+        [q, k, v, grad, out, dq, dk, dv, lse, delta] + [None] * 10,
+        [B, H, N, M, D, 1] + _cuda_build.bwd_strides(q, k, v, grad, out, dq, dk, dv)
+        + ([0, 0] if plan is None else [plan.dq_smem, plan.dkdv_smem]),
         [float(scale), 0.0])
     with _cuda_build.on_device(q) as stream:
         err = _kernels()[2](*arrays, code, stream)

@@ -22,7 +22,9 @@ takes each source's), and the backward is the kernels of
 ``csrc/attn_bwd_sm90.cuh`` (the port's counterpart of the JAX ``_bwd``, jax.vjp
 of the XLA composition): the grads of qkv and of both norm weights, with no N x N
 buffer. ``fused_qkv_attention_backward_plain`` is that backward in plain
-PyTorch. In bf16 the forward kernel is two launches: a pre-pass that
+PyTorch; in bf16 its own pre-pass (``tile_qk``, plain counterpart ``tile_qk_plain``)
+first normalises q and k once into tiles, by the plan ``plan_backward_bf16``. In
+bf16 the forward kernel is two launches: a pre-pass that
 normalises k once per row into a scratch buffer of zero-padded tiles, then the
 attention, which reads q and v from qkv and k from those tiles; their launch plan
 (``plan_bf16``) is computed here, in Python, and handed to the C entry points.
@@ -221,6 +223,80 @@ def plan_bf16(G: int, N: int, H: int, D: int, J: int = 1) -> K1Plan:
     return K1Plan(dp, q_tiles, blocks, tiles, (G, H, tiles, dp // 8, TILE_ROWS, 8), smem)
 
 
+# ---------------------------------------------------------------- bf16 backward plan
+
+SM_SHARED = 233_472     # shared memory of one H100 SM, all its blocks together
+BLOCK_RESERVED = 1_024  # shared memory the runtime keeps for every block
+BWD_STAGES = 4          # depth of the backward kernels' ring (wg::kStages)
+BWD_GROUPS = 3          # warpgroups a block, each 64 resident rows (wg::kGroups)
+BWD_BLOCKS_PER_SM = 1   # what their registers allow (__launch_bounds__(384, 1))
+# bf16 head dims the backward's Hopper body (csrc/attn_bwd_sm90.cuh, namespace wg)
+# takes -> (padded width of its tiles, width of the dQ / dK / dV products): K1's
+# bf16 head dims; K3's 144 runs the mma.sync body
+BWD_WIDTH = PADDED_WIDTH
+
+
+class BwdPlan(NamedTuple):
+    dp: int             # padded head dim of the tiles: the depth of S and dP
+    dv: int             # width of the dQ, dK and dV products
+    q_tiles: int        # 64-row q tiles per (group, head): the pre-pass's tiles
+    k_tiles: int        # 64-row key tiles per (group, head)
+    dq_blocks: int      # G * H * ceil(q_tiles / BWD_GROUPS): a block takes that many
+    #                     tiles (one warpgroup each) and writes a weight-grad partial
+    dkdv_blocks: int    # G * H * ceil(k_tiles / BWD_GROUPS)
+    dq_smem: int        # dynamic shared memory of one dQ block
+    dkdv_smem: int      # ... of one dK/dV block
+    scratch_shape: Optional[Tuple[int, ...]]  # with the norm: q and k normalised,
+    #                     (2, G, H, q_tiles, dp / 8, 64, 8) bf16; else None
+
+
+def plan_backward_bf16(G: int, N: int, M: int, H: int, D: int, norm: bool = False) -> BwdPlan:
+    """Launch plan of the bf16 backward's Hopper body for q (G, N, H, D) against
+    k/v (G, M, H, D); ``norm``: K1's q/k RMSNorm, whose pre-pass tiles q and k of
+    one qkv (M == N). A block of ``BWD_GROUPS`` warpgroups holds their tiles (q, dO
+    and the output, or k and v: 64 rows a warpgroup) and a ring of ``BWD_STAGES``
+    streamed pairs (k and v, or q and dO with the q rows' lse and delta). Raises on
+    a head dim the body does not take."""
+    if D not in BWD_WIDTH:
+        raise ValueError(f"the backward's bf16 Hopper body takes head dims {sorted(BWD_WIDTH)}, "
+                         f"got {D}")
+    if norm and M != N:
+        raise ValueError(f"the normalised tiles are K1's: M must equal N, got {M} != {N}")
+    dp, dv = BWD_WIDTH[D]
+    q_tiles, k_tiles = -(-N // TILE_ROWS), -(-M // TILE_ROWS)
+    dq_blocks = G * H * -(-q_tiles // BWD_GROUPS)
+    dkdv_blocks = G * H * -(-k_tiles // BWD_GROUPS)
+    if max(dq_blocks, dkdv_blocks) > 2 ** 31 - 1:
+        raise ValueError(f"{max(dq_blocks, dkdv_blocks)} blocks exceed the grid limit")
+    dq_smem = 2 * (3 * BWD_GROUPS + 2 * BWD_STAGES) * TILE_ROWS * dp
+    dkdv_smem = (2 * (2 * BWD_GROUPS + 2 * BWD_STAGES) * TILE_ROWS * dp
+                 + 4 * 2 * BWD_STAGES * TILE_ROWS)
+    scratch = (2, G, H, q_tiles, dp // 8, TILE_ROWS, 8) if norm else None
+    return BwdPlan(dp, dv, q_tiles, k_tiles, dq_blocks, dkdv_blocks, dq_smem, dkdv_smem,
+                   scratch)
+
+
+def tile_qk_plain(qkv: torch.Tensor, q_norm_weight: torch.Tensor,
+                  k_norm_weight: torch.Tensor, plan: BwdPlan) -> torch.Tensor:
+    """The backward's pre-pass in plain PyTorch: q and k of qkv normalised as the
+    forward normalises them (``_rms``), in the plan's tiles (2, G, H, T, dp / 8,
+    64, 8): inside a 64-row tile, columns 8c..8c+7 of all its rows, then those of
+    c + 1; zero past N and past D."""
+    G, N, _, H, D = qkv.shape
+    _, _, _, T, C, R, E = plan.scratch_shape
+    rows = torch.stack([_rms(qkv[:, :, 0], q_norm_weight), _rms(qkv[:, :, 1], k_norm_weight)])
+    padded = rows.new_zeros((2, G, T * R, H, C * E))
+    padded[:, :, :N, :, :D] = rows
+    return padded.view(2, G, T, R, H, C, E).permute(0, 1, 4, 2, 5, 3, 6).contiguous()
+
+
+def untile(tiles: torch.Tensor, N: int, D: int) -> torch.Tensor:
+    """The rows of the pre-pass's tiles: (2, G, H, T, C, 64, 8) -> (2, G, N, H, D)."""
+    P, G, H, T, C, R, E = tiles.shape
+    rows = tiles.permute(0, 1, 3, 5, 2, 4, 6).reshape(P, G, T * R, H, C * E)
+    return rows[:, :, :N, :, :D]
+
+
 def _kernels():
     global _fns
     if _fns is None:
@@ -236,9 +312,12 @@ def _kernels():
                         + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
         bwd = lib.mdv2_k1_backward
         bwd.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
-        for fn in (tile, attend, f32, bwd):
+        bwd_tiles = lib.mdv2_k1_backward_tiles
+        bwd_tiles.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                              + [ctypes.c_float, ctypes.c_void_p])
+        for fn in (tile, attend, f32, bwd, bwd_tiles):
             fn.restype = ctypes.c_int
-        _fns = (tile, attend, f32, bwd)
+        _fns = (tile, attend, f32, bwd, bwd_tiles)
     return _fns
 
 
@@ -252,6 +331,25 @@ def tile_k(qkv: torch.Tensor, kw: Optional[torch.Tensor], plan: K1Plan) -> torch
                             None if kw is None else kw.data_ptr(),
                             G, N, H, D, plan.dp, plan.tiles, _EPS, stream)
     _cuda_build.check(err, "fused_qkv_attention (pre-pass)")
+    return tiles
+
+
+def tile_qk(qkv: torch.Tensor, q_norm_weight: torch.Tensor, k_norm_weight: torch.Tensor,
+            plan: BwdPlan) -> torch.Tensor:
+    """The backward's pre-pass alone (bf16): q and k of qkv normalised, as the
+    plan's tiles; on a CPU tensor its plain version."""
+    if qkv.device.type == "cpu":
+        return tile_qk_plain(qkv, q_norm_weight, k_norm_weight, plan)
+    G, N, _, H, D = qkv.shape
+    if qkv.dtype != torch.bfloat16 or not qkv.is_contiguous() or qkv.data_ptr() % 16:
+        raise ValueError("the pre-pass reads a contiguous bf16 qkv in 16-byte pieces")
+    qw = _norm_weight(q_norm_weight, D, qkv.device)
+    kw = _norm_weight(k_norm_weight, D, qkv.device)
+    tiles = torch.empty(plan.scratch_shape, dtype=torch.bfloat16, device=qkv.device)
+    with _cuda_build.on_device(qkv) as stream:
+        err = _kernels()[4](qkv.data_ptr(), tiles.data_ptr(), qw.data_ptr(), kw.data_ptr(),
+                            G, N, H, D, plan.dp, plan.q_tiles, _EPS, stream)
+    _cuda_build.check(err, "fused_qkv_attention (backward pre-pass)")
     return tiles
 
 
@@ -348,19 +446,25 @@ def _backward(args, saved, grad):
                                                        device=dev))
     delta = torch.empty((J, G, H, N), dtype=torch.float32, device=dev)
     norm = q_norm_weight is not None
-    qw = kw = parts = dw = None
+    qw = kw = parts = dw = tiles = None
+    plan = plan_backward_bf16(G, N, N, H, D, norm) if code == 0 else None
     if norm:
         qw, kw = _norm_weight(q_norm_weight, D, dev), _norm_weight(k_norm_weight, D, dev)
-        blocks = G * H * -(-N // TILE_ROWS)  # the dQ and the dK/dV kernels' grids
+        # a weight-grad partial for each dQ and dK/dV block (one grid size: M = N)
+        blocks = G * H * -(-N // TILE_ROWS) if plan is None else plan.dq_blocks
         parts = torch.empty((2, blocks, D), dtype=torch.float32, device=dev)
         dw = torch.empty((2, D), dtype=torch.float32, device=dev)
+        if plan is not None:  # bf16: q and k normalised once, for both kernels
+            tiles = tile_qk(qkv, qw, kw, plan)
     views = [t[:, :, i] for t in (qkv, dqkv) for i in range(3)]
     arrays = _cuda_build.backward_args(
         views[:3] + [grad, out] + views[3:] + [
             lse, delta, perm, *inv, qw, kw,
-            *((None, None, None, None) if not norm else (parts[0], parts[1], dw[0], dw[1]))],
+            *((None, None, None, None) if not norm else (parts[0], parts[1], dw[0], dw[1])),
+            tiles],
         [G, H, N, N, D, J] + _cuda_build.bwd_strides(*views[:3], grad, grad if out is None
-                                                     else out, *views[3:]),
+                                                     else out, *views[3:])
+        + ([0, 0] if plan is None else [plan.dq_smem, plan.dkdv_smem]),
         [float(scale), _EPS])
     with _cuda_build.on_device(qkv) as stream:
         err = _kernels()[3](*arrays, code, stream)
@@ -394,7 +498,7 @@ def _launch(qkv: torch.Tensor, q_norm_weight: Optional[torch.Tensor],
         kw = _norm_weight(k_norm_weight, D, qkv.device)
     out = torch.empty((G, N, H * D), dtype=qkv.dtype, device=qkv.device)
     perm_ptr = None if perm is None else perm.data_ptr()
-    _, attend, f32, _ = _kernels()
+    attend, f32 = _kernels()[1:3]
     if bf16:
         tiles = tile_k(qkv, kw, plan)
         with _cuda_build.on_device(qkv) as stream:
