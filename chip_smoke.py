@@ -1606,12 +1606,16 @@ def check_functions(torch, seen, held, with_extra_cases=False):
     with and without autograd. Each kernel's largest |grad - g_fp32| goes into
     ``held.backward_worst``. Every bf16 K1 case with the norm also holds the
     backward's pre-pass (``tile_qk``) against its plain version (``compare``, with
-    ``PREPASS_LIMIT`` * |ref| of slack)."""
+    ``PREPASS_LIMIT`` * |ref| of slack); every K2 case holds the backward kernel's
+    grads against ``adaln_modulate_backward_blocked_plain`` under the kernel's
+    plan (``hold_k2_blocked``)."""
     from magicdrive_v2_tpu_torch.ops import (adaln_modulate, adaln_modulate_plain,
                                              flash_attention, flash_attention_plain,
                                              fused_qkv_attention, fused_qkv_attention_plain)
     from magicdrive_v2_tpu_torch.ops.flash_fused import (plan_backward_bf16, tile_qk,
                                                          tile_qk_plain)
+    from magicdrive_v2_tpu_torch.ops.fused_adaln import (
+        adaln_modulate_backward_blocked_plain, plan_adaln_backward)
     gen = torch.Generator(device="cuda").manual_seed(1)
     cases = []
 
@@ -1631,6 +1635,29 @@ def check_functions(torch, seen, held, with_extra_cases=False):
                           rms_err_over_limit=rms_ratio))
         require(ratio <= 1.0 and rms_ratio <= 1.0, cases[-1])
 
+    def hold_k2_blocked(got, g, inputs):
+        """K2's grads (dx, dshift, dscale) against the plain version of the
+        kernel's blocked sums on the same inputs, in their dtype: fp32 max|err| <=
+        ``FN_FP32_LIMIT`` * max|ref|; bf16 ``compare`` with that as slack."""
+        x, sh, sc = (a.detach() for a in inputs)
+        B, N, C = x.shape
+        plan = plan_adaln_backward(B, N, C, torch.cuda.get_device_properties(
+            x.device).multi_processor_count)
+        ref = adaln_modulate_backward_blocked_plain(x, sh, sc, g, plan)
+        ratios, rms_ratios = [], []
+        for a, r in zip(got, ref):
+            slack = FN_FP32_LIMIT * float(r.float().abs().max())
+            if a.dtype == torch.float32:
+                ratios.append(float((a - r).abs().max()) / slack)
+            else:
+                _, ratio, rms_ratio, _ = compare(torch, a, r, slack)
+                ratios.append(ratio)
+                rms_ratios.append(rms_ratio)
+        cases.append(dict(kernel="adaln_modulate_backward_vs_blocked_plain", x=[B, N, C],
+                          dtype=str(x.dtype), plan=list(plan), err_over_limit=max(ratios),
+                          rms_err_over_limit=max(rms_ratios, default=0.0)))
+        require(max(ratios) <= 1.0 and max(rms_ratios, default=0.0) <= 1.0, cases[-1])
+
     def randn(*shape, dtype, scale=1.0, shift=0.0):
         x = torch.randn(*shape, generator=gen, device="cuda") * scale + shift
         return x.to(dtype).requires_grad_()
@@ -1638,7 +1665,8 @@ def check_functions(torch, seen, held, with_extra_cases=False):
     def judge(kernel, fn, plain, inputs, what, zero=()):
         """``zero``: the positions in ``inputs`` whose grad the arithmetic makes
         exactly zero (q's with one key: a softmax over one key is constant); those
-        must be zero on both sides."""
+        must be zero on both sides. Returns the kernel's grads and the output's
+        grad they came from."""
         out = fn(*inputs)
         require(type(out.grad_fn).__name__ == "KernelFunctionBackward",
                 f"{kernel}: output not from KernelFunction: {out.grad_fn}")
@@ -1674,6 +1702,7 @@ def check_functions(torch, seen, held, with_extra_cases=False):
                           err_over_limit=max(ratios), max_abs_err=worst,
                           backward_bit_equal=bit_equal))
         require(max(ratios) <= 1.0 and bit_equal, cases[-1])
+        return got, g
 
     k1_cases = [(shape, dtype, norm, perm) for (shape, dtype, norm, _), perm
                 in sorted(seen["fused_qkv_attention"].items(), key=str)]
@@ -1696,8 +1725,8 @@ def check_functions(torch, seen, held, with_extra_cases=False):
     for shape, dtype in sorted(seen["adaln_modulate"], key=str):
         x = randn(*shape, dtype=dtype, scale=3.0, shift=0.5)
         sh, sc = randn(shape[0], shape[2], dtype=dtype), randn(shape[0], shape[2], dtype=dtype)
-        judge("adaln_modulate", adaln_modulate, adaln_modulate_plain, [x, sh, sc],
-              dict(x=list(shape)))
+        hold_k2_blocked(*judge("adaln_modulate", adaln_modulate, adaln_modulate_plain,
+                               [x, sh, sc], dict(x=list(shape))), [x, sh, sc])
     k3_cases = sorted(seen["flash_attention"], key=str)
     if with_extra_cases:
         k3_cases += [(qshape, M, torch.bfloat16) for qshape, M in sorted(BODY_K3)]
@@ -1829,9 +1858,10 @@ def run_grads(torch, seed, held):
 SP_TRAIN_K1_ROW = (2, 5300, 3, 8, 72)
 
 
-def time_backwards(torch, seen, per_step):
+def time_backwards(torch, seen, per_step, rows_wanted=("K1", "K2", "K3")):
     """ms of one backward of each Function (its backward kernels) at the training
-    step's bf16 shapes and K1 at ``SP_TRAIN_K1_ROW``, beside the plain recompute
+    step's bf16 shapes and K1 at ``SP_TRAIN_K1_ROW`` (of the kernels in
+    ``rows_wanted``), beside the plain recompute
     (the plain version's forward and backward, the backward of the wrappers before
     there were backward kernels), its bound, and the nearest PyTorch call at the
     same shape as the yardstick: its forward+backward (``library_ms``) and its
@@ -1843,7 +1873,8 @@ def time_backwards(torch, seen, per_step):
     grad autograd assembles from the two (``K3 packed kv``: its select and copy
     kernels too). The rows run one after the other with the allocator's cache
     emptied between them, the largest (K1 at ``SP_TRAIN_K1_ROW``, whose plain
-    recompute holds 1.8 GB of logits) last."""
+    recompute holds 1.8 GB of logits) last. K2's row adds its bound share
+    (``bound_ms / device_ms``)."""
     import torch.nn.functional as F
     from magicdrive_v2_tpu_torch.ops import (adaln_modulate, adaln_modulate_plain,
                                              flash_attention, flash_attention_plain,
@@ -1904,50 +1935,59 @@ def time_backwards(torch, seen, per_step):
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
 
+    def k2_row(x_shape):
+        x = randn(*x_shape)
+        sh, sc = randn(x_shape[0], x_shape[2]), randn(x_shape[0], x_shape[2])
+        C = x_shape[2]
+
+        def modulated_layer_norm():
+            return F.layer_norm(x, (C,), eps=1e-6) * (1 + sc[:, None]) + sh[:, None]
+
+        row = dict(
+            x=list(x_shape), **backward_ms(adaln_modulate(x, sh, sc), [x, sh, sc]),
+            plain_ms=fwd_bwd_ms(lambda: adaln_modulate_plain(x, sh, sc), [x, sh, sc]),
+            library_ms=fwd_bwd_ms(modulated_layer_norm, [x, sh, sc]),
+            **library_backward(modulated_layer_norm(), [x, sh, sc]),
+            library="layer_norm + modulate")
+        row["bound_ms"], row["bound_by"] = bound(
+            10.0 * x.numel(), 2.0 * (3 * x.numel() + 4 * sh.numel()), PEAK_FP32)
+        row["bound_share"] = row["bound_ms"] / row["device_ms"]
+        return row
+
     rows = {}
-    k1 = {J: (shape, perm) for (shape, dtype, norm, J), perm in
-          seen["fused_qkv_attention"].items() if dtype == bf16 and shape[-1] == 72}
-    for J, (shape, perm) in sorted(k1.items()):
-        rows["K1 spatial" if J == 1 else "K1 cross-view"] = k1_row(shape, perm)
+    if "K1" in rows_wanted:
+        k1 = {J: (shape, perm) for (shape, dtype, norm, J), perm in
+              seen["fused_qkv_attention"].items() if dtype == bf16 and shape[-1] == 72}
+        for J, (shape, perm) in sorted(k1.items()):
+            rows["K1 spatial" if J == 1 else "K1 cross-view"] = k1_row(shape, perm)
+            next_row()
+    if "K2" in rows_wanted:
+        rows["K2"] = k2_row(max(sh for sh, dtype in seen["adaln_modulate"] if dtype == bf16))
         next_row()
-    x_shape = max(sh for sh, dtype in seen["adaln_modulate"] if dtype == bf16)
-    x = randn(*x_shape)
-    sh, sc = randn(x_shape[0], x_shape[2]), randn(x_shape[0], x_shape[2])
-    C = x_shape[2]
-
-    def modulated_layer_norm():
-        return F.layer_norm(x, (C,), eps=1e-6) * (1 + sc[:, None]) + sh[:, None]
-
-    rows["K2"] = dict(
-        x=list(x_shape), **backward_ms(adaln_modulate(x, sh, sc), [x, sh, sc]),
-        plain_ms=fwd_bwd_ms(lambda: adaln_modulate_plain(x, sh, sc), [x, sh, sc]),
-        library_ms=fwd_bwd_ms(modulated_layer_norm, [x, sh, sc]),
-        **library_backward(modulated_layer_norm(), [x, sh, sc]),
-        library="layer_norm + modulate")
-    rows["K2"]["bound_ms"], rows["K2"]["bound_by"] = bound(
-        10.0 * x.numel(), 2.0 * (3 * x.numel() + 4 * sh.numel()), PEAK_FP32)
-    next_row()
-    qshape, M = max((q, m) for q, m, dtype in seen["flash_attention"]
-                    if dtype == bf16 and q[-1] == 72)
-    B, N, H, D = qshape
-    qt, kt, vt = randn(B, H, N, D), randn(B, H, M, D), randn(B, H, M, D)
-    lib = dict(library_ms=fwd_bwd_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
-                                     [qt, kt, vt]),
-               **library_backward(F.scaled_dot_product_attention(qt, kt, vt), [qt, kt, vt]))
-    # k and v: strided views of one projection, as the model hands them
-    q, kv = randn(*qshape), randn(B, M, 2, H, D)
-    bound_ms, by = bound(2.5 * 4.0 * B * H * N * M * D,
-                         2.0 * (2 * q.numel() + 2 * kv.numel() + q.numel()), PEAK_BF16)
-    k, v = (kv[:, :, i].detach().requires_grad_() for i in range(2))
-    for name, inputs in (("K3", [q, k, v]), ("K3 packed kv", [q, kv])):
-        qkv_ = (q, k, v) if name == "K3" else (q, kv[:, :, 0], kv[:, :, 1])
-        rows[name] = dict(
-            q=list(qshape), M=M, **backward_ms(flash_attention(*qkv_), inputs),
-            plain_ms=fwd_bwd_ms(lambda: flash_attention_plain(*qkv_), inputs),
-            bound_ms=bound_ms, bound_by=by, **lib, library="scaled_dot_product_attention")
+    if "K3" in rows_wanted:
+        qshape, M = max((q, m) for q, m, dtype in seen["flash_attention"]
+                        if dtype == bf16 and q[-1] == 72)
+        B, N, H, D = qshape
+        qt, kt, vt = randn(B, H, N, D), randn(B, H, M, D), randn(B, H, M, D)
+        lib = dict(library_ms=fwd_bwd_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                                         [qt, kt, vt]),
+                   **library_backward(F.scaled_dot_product_attention(qt, kt, vt),
+                                      [qt, kt, vt]))
+        # k and v: strided views of one projection, as the model hands them
+        q, kv = randn(*qshape), randn(B, M, 2, H, D)
+        bound_ms, by = bound(2.5 * 4.0 * B * H * N * M * D,
+                             2.0 * (2 * q.numel() + 2 * kv.numel() + q.numel()), PEAK_BF16)
+        k, v = (kv[:, :, i].detach().requires_grad_() for i in range(2))
+        for name, inputs in (("K3", [q, k, v]), ("K3 packed kv", [q, kv])):
+            qkv_ = (q, k, v) if name == "K3" else (q, kv[:, :, 0], kv[:, :, 1])
+            rows[name] = dict(
+                q=list(qshape), M=M, **backward_ms(flash_attention(*qkv_), inputs),
+                plain_ms=fwd_bwd_ms(lambda: flash_attention_plain(*qkv_), inputs),
+                bound_ms=bound_ms, bound_by=by, **lib, library="scaled_dot_product_attention")
+            next_row()
+    if "K1" in rows_wanted:
+        rows["K1 sp_train"] = k1_row(SP_TRAIN_K1_ROW, None)
         next_row()
-    rows["K1 sp_train"] = k1_row(SP_TRAIN_K1_ROW, None)
-    next_row()
     for name, row in rows.items():  # sp_train's row: not a call of the stage-2 step
         calls = per_step.get(name)
         row["backward_calls_per_step"] = calls
@@ -2603,7 +2643,8 @@ def run_stage1_train(torch, held, encode_launches, seed):
     steps, no checkpoint: s/step, samples/s, tokens/s, peak memory, the metrics read
     back, launches and backwards equal to the remat layout's, every shape each
     wrapper was handed held against the plain versions and its autograd Function
-    against autograd through the plain version."""
+    against autograd through the plain version. Returns the launches, the shapes
+    each wrapper was handed and K2's backward calls a step."""
     from magicdrive_v2_tpu_torch.config.config import Config
     from magicdrive_v2_tpu_torch.scripts import train_magicdrive
     t_phase = time.time()
@@ -2660,21 +2701,25 @@ def run_stage1_train(torch, held, encode_launches, seed):
          tokens_per_second=tokens / s_step, peak_memory_bytes=peak,
          launches=got, backward_calls=backwards,
          kernel_cases=len(cases), function_cases=fn_cases, seconds=time.time() - t_phase)
-    return got
+    return got, seen, want_backward["adaln_modulate"] // STAGE1_TRAIN_STEPS
 
 
 def run_stage1(torch, held, seed):
     """Phase stage1: serving, then training, then K1 timed at the two paths' shapes
-    (G = 48 and 192 groups of N = 350, J = 1 and 2). Returns the launches of each
-    path and the timing rows."""
+    (G = 48 and 192 groups of N = 350, J = 1 and 2) and K2's backward at the train
+    step's bf16 shape (``time_backwards``' K2 row). Returns the launches of each
+    path, the K1 timing rows and the K2 backward row."""
     sample_launches, app_launches, encode = run_stage1_serving(torch, held)
-    train_launches = run_stage1_train(torch, held, encode, seed)
+    train_launches, seen, k2_calls = run_stage1_train(torch, held, encode, seed)
     rows = {f"g{G}_n350" + ("_cross_view" if J == 2 else ""): k1_timing_row(
         torch, held, G, 350, 16, J, iters=10, plain_chunk=G)
         for G in (48, 192) for J in (1, 2)}
     emit("stage1_k1_timing", rows=rows)
+    k2_row = time_backwards(torch, seen, {"K2": k2_calls}, rows_wanted=("K2",))["K2"]
+    require(k2_row["x"] == [32 * 6, 350, 1152], k2_row)  # b=32 x 6 views, 350 tokens
+    emit("stage1_backward_timing", k2=k2_row)
     torch.cuda.empty_cache()
-    return dict(sample=sample_launches, app=app_launches, train=train_launches), rows
+    return dict(sample=sample_launches, app=app_launches, train=train_launches), rows, k2_row
 
 
 # ---------------------------------------------------------------------------
@@ -5352,7 +5397,7 @@ def main():
     bwd_bodies = {name: [r for r in _cuda_build.ptxas_report(name)
                          if "attn_bwd_" in r["function"] or "adaln_bwd_" in r["function"]]
                   for name in _cuda_build.SOURCES}
-    require([len(v) for v in bwd_bodies.values()] == [19, 17, 4] and all(
+    require([len(v) for v in bwd_bodies.values()] == [19, 17, 2] and all(
         r["spill_stores"] == 0 and r["spill_loads"] == 0
         for v in bwd_bodies.values() for r in v), bwd_bodies)
     from magicdrive_v2_tpu_torch import native
@@ -5397,7 +5442,7 @@ def main():
     sp_train_launches = run_sp_train(torch, args.seed, encode_launches, held)
     stage3_launches = run_stage3_app(torch, encode_launches)
     torch.cuda.empty_cache()
-    stage1_launches, stage1_k1_rows = run_stage1(torch, held, args.seed)
+    stage1_launches, stage1_k1_rows, stage1_k2_backward = run_stage1(torch, held, args.seed)
     dp_train_launches = run_dp_train(torch, args.seed, encode_launches, held)
     # dp_app's two ranks need much of the card (~58 GB at full depth): this process
     # gives back what its allocator still holds from dp_train's references (a rank ran
@@ -5525,7 +5570,9 @@ def main():
                         "sp_train": backward_rows["K1 sp_train"]}),
         "adaln_modulate": dict(
             row="K2", jax_backward="none: the JAX trainer differentiates _xla_fallback "
-            "(" + jax_ops + "fused_adaln.py)"),
+            "(" + jax_ops + "fused_adaln.py)",
+            functions=["adaln_bwd_ring<__nv_bfloat16>", "adaln_bwd_ring<float>"],
+            other_rows={"stage1": stage1_k2_backward}),
         "flash_attention": dict(
             row="K3", headers=[bwd_header], jax_backward=jax_ops + "flash_attention.py:137"
             " (_fa_bwd: jax.vjp of xla_attention)",
